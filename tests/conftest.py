@@ -10,6 +10,11 @@ import _hypothesis_compat
 _hypothesis_compat.install()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def sparse_video():
     from repro.data.video_gen import generate, sparse_spec
