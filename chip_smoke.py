@@ -6,24 +6,47 @@
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA decode kernel from ``src/repro_torch/kernels/decode/csrc``;
-3. kernel phase: holds the kernel against its plain PyTorch version on the
-   card for F in {1, 4, 16}, M in {64, 4096, 32768}, qp in {4, 8, 12}
-   (max |diff| <= 1e-3 on pixel-scale output) and times both, with the
-   bound F*M*384 B over the card's published HBM rate;
-4. path phase: ingests a 1080p, 64-frame synthetic video (gop 16, qp 8)
-   under a 6x8 uniform layout (48 tiles; a full-frame SOT is one
-   32,400-column dispatch) and runs a full-frame scan, a label (ROI) scan,
-   ``execute_many`` of four overlapping scans and a ``serve()`` session of
-   four requests through ``repro_torch.core.VideoStore`` on the card; every
-   region is held against the numpy ``decode_tile`` oracle at atol=1e-3,
-   rtol=1e-5, merged and served results must equal the serial ones bit for
-   bit, and the kernel's launch counter must have grown;
-5. prints one JSON line with the kernel's numbers, then as its last line
+2. builds the three CUDA kernels from their ``csrc/`` (one ``nvcc`` per
+   source, all started together) and prints ``build_s``;
+3. decode kernel phase: holds ``decode_gop_blocks`` against its plain
+   PyTorch version on the card for F in {1, 4, 16}, M in {64, 4096,
+   32768}, qp in {4, 8, 12} (max |diff| <= 1e-3 on pixel-scale output) and
+   times both, with the bound F*M*384 B over the card's published HBM rate;
+4. encode kernel phase: holds ``dct_quant`` (share of equal int16 outputs
+   >= 0.999, no |diff| above 1) and ``idct_dequant`` (atol 1e-3, rtol 1e-5)
+   against their plain versions for N in {64, 4096, 32400, 131072}, qp in
+   {4, 8, 16}, intra and inter, on pixel-scale blocks and residuals from the
+   seed; times both at qp 8 against the bound N*384 B, and each wrapper's
+   host cost per call;
+5. ingest phase: ``VideoStore.ingest`` of a 1080p, 64-frame synthetic video
+   (gop 16, qp 8) under a 6x8 uniform layout (48 tiles; a frame is one
+   32,400-block launch) encodes on the card; the encode launch counters
+   must grow; SOT 0's stored coefficients are held against the numpy
+   ``encode_tile`` (equal share >= 0.999, PSNR within 0.1 dB), and so are
+   the other SOTs', both encode wall times printed, and one SOT's encode
+   split by device time
+   (``torch.profiler``) and the host time of the size model;
+6. scan phase: a full-frame scan, a label (ROI) scan, ``execute_many`` of
+   four overlapping scans and a ``serve()`` session of four requests on the
+   ingested store; every region is held against the numpy ``decode_tile``
+   oracle at atol=1e-3, rtol=1e-5, merged and served results must equal the
+   serial ones bit for bit, and the decode launch counter must grow;
+7. retile phase, twice (inline tuning, then the background tuner with
+   ``drain_tuner``): ``RegretPolicy`` with ``CostModel(beta=1.4e-8,
+   gamma=1e-5)`` over repeated ``car`` scans of frames 0-32 of the same
+   1080p video until a SOT's epoch rises; the encode launch counters must
+   grow, and every region of a scan after the retile is held against the
+   numpy oracle of the new tiles;
+8. calibration: ``calibrated_cost_model`` on the card at its small default
+   sizes (10 timed repeats of each decode sample), with finite positive
+   beta and encode_per_pixel and a finite, non-negative gamma;
+9. prints one JSON line with the kernels' numbers, then as its last line
    ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, and the script exits non-zero without the last
-line; so it does without a CUDA device, or outside a checkout.
+Every path is driven with the launch counters set to 0 just before it and
+read just after.  Any failed check raises, and the script exits non-zero
+without the last line; so it does without a CUDA device, or outside a
+checkout.
 """
 from __future__ import annotations
 
@@ -33,6 +56,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,36 +67,95 @@ sys.path.insert(0, str(ROOT / "src"))
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-#: per 8x8 block-frame: int16 in + f32 out; 64 pixels x (16 FMAs + dequant
-#: multiply + running-sum add)
+#: per 8x8 block-frame of the decode: int16 in + f32 out; 64 pixels x
+#: (16 FMAs + dequant multiply + running-sum add)
 BYTES_PER_BLOCK_FRAME = 64 * 2 + 64 * 4
 FLOPS_PER_BLOCK_FRAME = 64 * (2 * 16 + 2)
+#: per 8x8 block of dct_quant / idct_dequant: f32 and int16 once each; 64
+#: coefficients x (two 8-point products of 8 multiplies and 7 adds, plus
+#: the divide or the dequant multiply)
+BYTES_PER_BLOCK = 64 * 4 + 64 * 2
+FLOPS_PER_BLOCK = 64 * (2 * 15 + 1)
+#: GPU cycles the timing spin holds the stream for (~30 ms at 1.98 GHz):
+#: longer than the host takes to enqueue 50 launches of any wrapper here
+SPIN_CYCLES = 60_000_000
 ATOL, RTOL = 1e-3, 1e-5
-KERNEL_SOURCE = "src/repro_torch/kernels/decode/csrc/decode_gop_blocks.cu"
-KERNEL_REPLACES = "src/repro/kernels/decode/decode.py:46"
+SHARE = 0.999
+PSNR_DB = 0.1
+
+#: the main path's configuration
+DEVICE = "cuda"
+H, W, N_FRAMES = 1080, 1920, 64
+GOP, QP = 16, 8
+LAYOUT = (6, 8)
+RETILE_FRAMES = 32
+
+KERNELS = {
+    "decode_gop_blocks": dict(
+        source="src/repro_torch/kernels/decode/csrc/decode_gop_blocks.cu",
+        replaces="src/repro/kernels/decode/decode.py:46"),
+    "dct_quant": dict(
+        source="src/repro_torch/kernels/dct/csrc/dct_quant.cu",
+        replaces="src/repro/kernels/dct/dct.py:32"),
+    "idct_dequant": dict(
+        source="src/repro_torch/kernels/idct/csrc/idct_dequant.cu",
+        replaces="src/repro/kernels/idct/idct.py:30"),
+}
 
 
-def bound_ms(n_frames: int, m: int) -> tuple[float, str]:
-    n = n_frames * m
-    t_bytes = n * BYTES_PER_BLOCK_FRAME / HBM_BYTES_PER_S
-    t_ops = n * FLOPS_PER_BLOCK_FRAME / FP32_FLOPS
+def counters() -> dict:
+    from repro_torch.kernels import dct, decode, idct
+
+    return {"decode_gop_blocks": decode.LAUNCHES, "dct_quant": dct.LAUNCHES,
+            "idct_dequant": idct.LAUNCHES}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {name: c.count for name, c in counters().items()}
+
+
+def bound_ms(n: int, bytes_per: int, flops_per: int) -> tuple[float, str]:
+    t_bytes = n * bytes_per / HBM_BYTES_PER_S
+    t_ops = n * flops_per / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back runs."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back runs.  A
+    spin kernel holds the stream while the host enqueues every run, so the
+    events time the device's work, not the wrappers' host cost between
+    launches (that is :func:`host_us`)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host time of one call of ``fn`` while the device keeps up: the
+    wrapper's own cost (checks, allocation, ``ctypes`` call, launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
 
 
 def random_stream(rng, n_frames: int, m: int, qp: int) -> np.ndarray:
@@ -90,13 +173,33 @@ def random_stream(rng, n_frames: int, m: int, qp: int) -> np.ndarray:
     return q
 
 
+def pixel_blocks(rng, n: int, residual: bool) -> np.ndarray:
+    """Pixel-scale blocks in [0, 255] (keyframes) or residuals (centred,
+    with the spread of P-frame differences)."""
+    if residual:
+        return (rng.standard_normal((n, 8, 8)) * 12).astype(np.float32)
+    return (rng.random((n, 8, 8)) * 255).astype(np.float32)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
 
 
-# ------------------------------------------------------------------ phases
-def kernel_phase(seed: int) -> dict:
+def build_all() -> float:
+    """Build the three kernels, one ``nvcc`` per source, all at once."""
+    from repro_torch.kernels.dct import LIBRARY as DCT
+    from repro_torch.kernels.decode.build import LIBRARY as DECODE
+    from repro_torch.kernels.idct import LIBRARY as IDCT
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda lib: lib.build(), (DECODE, DCT, IDCT)))
+    return time.perf_counter() - t0
+
+
+# ------------------------------------------------------------ kernel phases
+def decode_kernel_phase(seed: int) -> dict:
     from repro_torch.kernels.decode import decode_fused_ref, decode_gop_blocks
 
     rng = np.random.default_rng(seed)
@@ -106,7 +209,7 @@ def kernel_phase(seed: int) -> dict:
         for m in (64, 4096, 32768):
             for qp in (4, 8, 12):
                 q = torch.from_numpy(random_stream(rng, n_frames, m, qp))
-                q = q.cuda()
+                q = q.to(DEVICE)
                 got = decode_gop_blocks(q, qp)
                 want = decode_fused_ref(q, qp)
                 torch.cuda.synchronize()
@@ -119,8 +222,9 @@ def kernel_phase(seed: int) -> dict:
                 k_ms = cuda_ms(lambda: decode_gop_blocks(q, qp), iters=50)
                 r_ms = cuda_ms(lambda: decode_fused_ref(q, qp), iters=3,
                                warmup=1)
-                b_ms, b_by = bound_ms(n_frames, m)
-                print(f"kernel F={n_frames:2d} M={m:5d} qp={qp}: "
+                b_ms, b_by = bound_ms(n_frames * m, BYTES_PER_BLOCK_FRAME,
+                                      FLOPS_PER_BLOCK_FRAME)
+                print(f"decode F={n_frames:2d} M={m:5d} qp={qp}: "
                       f"kernel_ms={k_ms:.6f} ref_ms={r_ms:.6f} "
                       f"bound_ms={b_ms:.6f} ({b_by}) "
                       f"share_of_bound={b_ms / k_ms:.3f} max_abs_err={err:.3g}",
@@ -137,12 +241,214 @@ def kernel_phase(seed: int) -> dict:
                     d2h = cuda_ms(lambda: host_out.copy_(got,
                                                          non_blocking=True),
                                   iters=10)
-                    at_main.update(h2d_ms=h2d, d2h_ms=d2h)
                     print(f"copies F=16 M=32768 (pinned): h2d_ms={h2d:.6f} "
                           f"({q.numel() * 2} B) d2h_ms={d2h:.6f} "
                           f"({got.numel() * 4} B)", flush=True)
+    small = torch.from_numpy(random_stream(rng, 1, 64, 8)).to(DEVICE)
+    at_main["host_us"] = host_us(lambda: decode_gop_blocks(small, 8))
     at_main["max_abs_err"] = worst
+    print(f"decode wrapper host cost: {at_main['host_us']:.3f} us/call",
+          flush=True)
     return at_main
+
+
+def encode_kernel_phase(seed: int) -> dict:
+    from repro_torch.kernels.dct import dct_quant, dct_quant_ref
+    from repro_torch.kernels.idct import idct_dequant, idct_dequant_ref
+
+    rng = np.random.default_rng(seed + 1)
+    worst = {"dct_quant": 0.0, "idct_dequant": 0.0}
+    at_main = {}
+    for n in (64, 4096, 32400, 131072):
+        for qp in (4, 8, 16):
+            for intra in (True, False):
+                x = torch.from_numpy(pixel_blocks(rng, n, not intra))
+                x = x.to(DEVICE)
+                q = dct_quant(x, qp, intra)
+                q_ref = dct_quant_ref(x, qp, intra)
+                y = idct_dequant(q, qp, intra)
+                y_ref = idct_dequant_ref(q, qp, intra)
+                torch.cuda.synchronize()
+                diff = (q.to(torch.int32) - q_ref.to(torch.int32)).abs()
+                share = float((diff == 0).float().mean())
+                d_max = int(diff.max())
+                check(share >= SHARE and d_max <= 1,
+                      f"dct_quant vs plain N={n} qp={qp} intra={intra}: "
+                      f"equal share {share}, max |diff| {d_max}")
+                err = (y - y_ref).abs()
+                check(bool((err <= ATOL + RTOL * y_ref.abs()).all()),
+                      f"idct_dequant vs plain N={n} qp={qp} intra={intra}: "
+                      f"max |diff| {float(err.max())}")
+                worst["dct_quant"] = max(worst["dct_quant"], d_max)
+                worst["idct_dequant"] = max(worst["idct_dequant"],
+                                            float(err.max()))
+                if qp != QP:
+                    continue
+                b_ms, b_by = bound_ms(n, BYTES_PER_BLOCK, FLOPS_PER_BLOCK)
+                for name, kern, plain, arg in (
+                        ("dct_quant", dct_quant, dct_quant_ref, x),
+                        ("idct_dequant", idct_dequant, idct_dequant_ref, q)):
+                    k_ms = cuda_ms(lambda: kern(arg, qp, intra), iters=50)
+                    r_ms = cuda_ms(lambda: plain(arg, qp, intra), iters=3,
+                                   warmup=1)
+                    print(f"{name} N={n:6d} qp={qp} intra={intra!s:5}: "
+                          f"kernel_ms={k_ms:.6f} ref_ms={r_ms:.6f} "
+                          f"bound_ms={b_ms:.6f} ({b_by}) "
+                          f"share_of_bound={b_ms / k_ms:.3f} "
+                          f"equal_share={share:.6f}", flush=True)
+                    # the main path's launches are mostly P-frames (inter)
+                    if n == H * W // 64 and not intra:
+                        at_main[name] = dict(ms=k_ms, plain_ms=r_ms,
+                                             bound_ms=b_ms, bound_by=b_by)
+    x = torch.from_numpy(pixel_blocks(rng, 64, True)).to(DEVICE)
+    q = dct_quant(x, QP, False)
+    at_main["dct_quant"]["host_us"] = host_us(
+        lambda: dct_quant(x, QP, False))
+    at_main["idct_dequant"]["host_us"] = host_us(
+        lambda: idct_dequant(q, QP, False))
+    for name in at_main:
+        at_main[name]["max_abs_err"] = worst[name]
+        print(f"{name} wrapper host cost: {at_main[name]['host_us']:.3f} "
+              f"us/call", flush=True)
+    return at_main
+
+
+# -------------------------------------------------------------- path phases
+def _assemble(tiles, rects, shape) -> np.ndarray:
+    out = np.zeros(shape, dtype=np.float32)
+    for (y1, x1, y2, x2), px in zip(rects, tiles):
+        out[:, y1:y2, x1:x2] = px
+    return out
+
+
+def _encode_split(sot, rects, cfg) -> dict:
+    """Device time of one SOT's encode, by kind, from the profiler (None
+    where it recorded no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.codec.encode import encode_tiles
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        encode_tiles(sot, rects, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+    split = {"dct_quant_ms": 0.0, "idct_dequant_ms": 0.0,
+             "other_kernels_ms": 0.0, "h2d_ms": 0.0, "d2h_ms": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.device_time_total / 1e3
+        if "idct_dequant" in evt.key:
+            split["idct_dequant_ms"] += ms
+        elif "dct_quant" in evt.key:
+            split["dct_quant_ms"] += ms
+        elif "HtoD" in evt.key:
+            split["h2d_ms"] += ms
+        elif "DtoH" in evt.key:
+            split["d2h_ms"] += ms
+        else:
+            split["other_kernels_ms"] += ms
+    if split["dct_quant_ms"] == 0.0:
+        return {k: None for k in split}
+    return split
+
+
+def ingest_phase(frames, dets) -> tuple:
+    """(store, ingest launches): the 1080p ingest on the card, every SOT
+    against the numpy encoder, and one SOT's encode split."""
+    from repro_torch.codec.bitstream import stream_bytes_np
+    from repro_torch.codec.encode import (EncoderConfig, decode_tile,
+                                          encode_tile, encode_tiles)
+    from repro_torch.codec.psnr import psnr
+    from repro_torch.core import (CacheConfig, DecodeConfig, VideoStore,
+                                  uniform_layout)
+
+    cfg = EncoderConfig(gop=GOP, qp=QP)
+    # cache off: every scan of the scan phase decodes
+    store = VideoStore(decode=DecodeConfig(device=DEVICE),
+                       cache=CacheConfig(budget_bytes=0))
+    check(store.decode_backend == "batched"
+          and store.decode_config.device.startswith(DEVICE),
+          f"store decodes with {store.decode_backend} on "
+          f"{store.decode_config.device}")
+    layout = uniform_layout(H, W, *LAYOUT)
+    check(layout.n_tiles == LAYOUT[0] * LAYOUT[1],
+          f"layout has {layout.n_tiles} tiles")
+    reset_counts()
+    t0 = time.perf_counter()
+    store.ingest("v", frames, detections=dets, encoder=cfg,
+                 initial_layouts={s: layout for s in range(N_FRAMES // GOP)})
+    ingest_s = time.perf_counter() - t0
+    launches = read_counts()
+    n_gops = N_FRAMES // GOP
+    check(launches["dct_quant"] == N_FRAMES
+          and launches["idct_dequant"] == N_FRAMES - n_gops
+          and launches["decode_gop_blocks"] == 0,
+          f"ingest launched {launches}, want {N_FRAMES} dct_quant and "
+          f"{N_FRAMES - n_gops} idct_dequant")
+    print(f"ingest {N_FRAMES}x{H}x{W}, {layout.n_tiles} tiles: "
+          f"wall_s={ingest_s:.6f} launches={launches}", flush=True)
+
+    # every SOT against the numpy encoder, tile by tile
+    ts = store.video("v").store
+    numpy_total = device_total = 0.0
+    for rec in ts.sots:
+        rects = rec.layout.tile_rects()
+        sot = frames[rec.frame_start:rec.frame_end]
+        stored = [ts._read_tile(rec, i) for i in range(len(rects))]
+        t0 = time.perf_counter()
+        again = encode_tiles(sot, rects, cfg, device=DEVICE)
+        device_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = [encode_tile(np.ascontiguousarray(sot[:, y1:y2, x1:x2]), cfg)
+               for y1, x1, y2, x2 in rects]
+        numpy_s = time.perf_counter() - t0
+        numpy_total += numpy_s
+        device_total += device_s
+        equal = total = 0
+        for st, a, r in zip(stored, again, ref):
+            for k in ("kq", "pq"):
+                check(st[k].shape == r[k].shape and st[k].dtype == np.int16,
+                      f"stored {k} {st[k].dtype}{st[k].shape}, want "
+                      f"int16{r[k].shape}")
+                check(np.array_equal(st[k], a[k]),
+                      "device encode not repeatable")
+                equal += int((st[k] == r[k]).sum())
+                total += r[k].size
+            check(st["size_bytes"] == a["size_bytes"],
+                  "size_bytes not repeatable")
+        share = equal / total
+        p_dev = psnr(sot, _assemble([decode_tile(e) for e in stored], rects,
+                                    sot.shape))
+        p_ref = psnr(sot, _assemble([decode_tile(e) for e in ref], rects,
+                                    sot.shape))
+        print(f"ingest SOT {rec.sot_id} vs numpy encode_tile: "
+              f"equal_share={share:.6f} ({total - equal} of {total} "
+              f"coefficients differ) psnr_device_db={p_dev:.6f} "
+              f"psnr_numpy_db={p_ref:.6f} encode_wall_s "
+              f"device={device_s:.6f} numpy={numpy_s:.6f}", flush=True)
+        check(share >= SHARE, f"SOT {rec.sot_id} equal share {share}")
+        check(abs(p_dev - p_ref) <= PSNR_DB,
+              f"SOT {rec.sot_id} PSNR {p_dev} vs numpy {p_ref}")
+    print(f"ingest encode of all SOTs on this host's numpy: "
+          f"wall_s={numpy_total:.6f}; again on the card: "
+          f"wall_s={device_total:.6f}", flush=True)
+
+    rec = ts.sots[0]
+    rects = rec.layout.tile_rects()
+    sot = frames[rec.frame_start:rec.frame_end]
+    split = _encode_split(sot, rects, cfg)
+    encs = [ts._read_tile(rec, i) for i in range(len(rects))]
+    t0 = time.perf_counter()
+    for e in encs:
+        stream_bytes_np(e["kq"]) + stream_bytes_np(e["pq"])
+    size_s = time.perf_counter() - t0
+    print("ingest one SOT's encode, device time (torch.profiler): " +
+          " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
+                   for k, v in split.items()) +
+          f"; size model host_s={size_s:.6f}", flush=True)
+    return store, launches
 
 
 def _oracle_frames(ts) -> np.ndarray:
@@ -180,14 +486,14 @@ def _check_identical(a, b, what: str) -> None:
               f"{what}: region {ra[:-1]} differs")
 
 
-def _device_split(store) -> dict:
+def _scan_split(store) -> dict:
     """Device time of one more full-frame scan, by kind, from the profiler
     (None where it recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        store.scan("v").labels("frame").frames(0, 64).execute()
+        store.scan("v").labels("frame").frames(0, N_FRAMES).execute()
         torch.cuda.synchronize()
     split = {"kernel_ms": 0.0, "h2d_ms": 0.0, "d2h_ms": 0.0}
     for evt in prof.key_averages():
@@ -204,38 +510,13 @@ def _device_split(store) -> dict:
     return split
 
 
-def path_phase(seed: int) -> dict:
-    from repro_torch.codec.encode import EncoderConfig
-    from repro_torch.core import CacheConfig, VideoStore, uniform_layout
-    from repro_torch.data.video_gen import generate, sparse_spec
-    from repro_torch.kernels.decode import LAUNCHES
-
-    h, w, n = 1080, 1920, 64
-    timings = {}
-    t0 = time.perf_counter()
-    frames, dets = generate(sparse_spec(seed=seed, height=h, width=w,
-                                        n_frames=n))
-    timings["generate_s"] = time.perf_counter() - t0
-    # cache off: every scan decodes, so each phase drives the kernel and
-    # the merged/served results are decoded anew, not read back
-    store = VideoStore(cache=CacheConfig(budget_bytes=0))
-    check(store.decode_backend == "batched"
-          and store.decode_config.device.startswith("cuda"),
-          f"store decodes with {store.decode_backend} on "
-          f"{store.decode_config.device}")
-    layout = uniform_layout(h, w, 6, 8)
-    check(layout.n_tiles == 48, f"layout has {layout.n_tiles} tiles")
-    t0 = time.perf_counter()
-    store.ingest("v", frames, detections=dets,
-                 encoder=EncoderConfig(gop=16, qp=8),
-                 initial_layouts={s: layout for s in range(n // 16)})
-    store.add_detections("v", {f: [("frame", (0, 0, h, w))]
+def scan_phase(store) -> dict:
+    n = N_FRAMES
+    store.add_detections("v", {f: [("frame", (0, 0, H, W))]
                                for f in range(n)})
-    timings["ingest_s"] = time.perf_counter() - t0
-    del frames
     t0 = time.perf_counter()
     oracle = _oracle_frames(store.video("v").store)
-    timings["oracle_s"] = time.perf_counter() - t0
+    oracle_s = time.perf_counter() - t0
 
     queries = [("car", (0, 64)), ("person", (8, 40)), ("car", (16, 48)),
                ("frame", (30, 34))]
@@ -243,15 +524,16 @@ def path_phase(seed: int) -> dict:
     per_phase = {}
 
     def timed(name, fn):
-        before = LAUNCHES.count
+        before = read_counts()["decode_gop_blocks"]
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        per_phase[name] = dict(wall_s=time.perf_counter() - t,
-                               launches=LAUNCHES.count - before)
+        per_phase[name] = dict(
+            wall_s=time.perf_counter() - t,
+            launches=read_counts()["decode_gop_blocks"] - before)
         return out
 
-    LAUNCHES.reset()
+    reset_counts()
     full = timed("full_frame_scan", lambda: store.scan("v").labels("frame")
                  .frames(0, n).execute())
     roi = timed("label_scan", lambda: store.scan("v").labels("car")
@@ -268,13 +550,13 @@ def path_phase(seed: int) -> dict:
             return [f.result(timeout=300) for f in futs]
 
     served = timed("serve_four", serve)
-    launches = LAUNCHES.count
+    launches = read_counts()
 
     check(len(full.regions) == n, f"full-frame scan: {len(full.regions)} "
                                   f"regions, want {n}")
-    check(per_phase["full_frame_scan"]["launches"] == n // 16,
+    check(per_phase["full_frame_scan"]["launches"] == n // GOP,
           f"full-frame scan launched {per_phase['full_frame_scan']} times, "
-          f"want one per SOT ({n // 16})")
+          f"want one per SOT ({n // GOP})")
     worst = max(worst, _check_regions(full.regions, oracle, "full-frame"))
     worst = max(worst, _check_regions(roi.regions, oracle, "label scan"))
     for (lbl, fr), s, m, v in zip(queries, serial, merged, served):
@@ -282,20 +564,87 @@ def path_phase(seed: int) -> dict:
                                           f"serial {lbl}{fr}"))
         _check_identical(s.regions, m.regions, f"execute_many {lbl}{fr}")
         _check_identical(s.regions, v.regions, f"serve {lbl}{fr}")
-    check(launches > 0, "the scan path never launched the kernel")
+    check(launches["decode_gop_blocks"] > 0,
+          "the scan path never launched the decode kernel")
     for name, p in per_phase.items():
         check(p["launches"] > 0, f"{name} never launched the kernel")
-        print(f"path {name}: wall_s={p['wall_s']:.6f} "
+        print(f"scan {name}: wall_s={p['wall_s']:.6f} "
               f"launches={p['launches']}", flush=True)
-    split = _device_split(store)
+    split = _scan_split(store)
     store.close()
-    print("path full-frame scan device time (torch.profiler): " +
+    print("scan full-frame device time (torch.profiler): " +
           " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
                    for k, v in split.items()), flush=True)
-    print("path setup: " + " ".join(f"{k}={v:.3f}"
-                                     for k, v in timings.items()),
+    print(f"scan setup: oracle_s={oracle_s:.3f} "
           f"regions_checked max_abs_err={worst:.3g}", flush=True)
-    return dict(launches=launches, max_abs_err=worst)
+    return launches
+
+
+def retile_phase(frames, dets, mode: str) -> dict:
+    """Regret-driven retiles of the 1080p video under ``mode`` tuning; the
+    new tiles must come from the encode kernels and scan right."""
+    from repro_torch.codec.encode import EncoderConfig
+    from repro_torch.core import (CacheConfig, DecodeConfig, RegretPolicy,
+                                  TuningConfig, VideoStore)
+    from repro_torch.core.cost import CostModel
+
+    store = VideoStore(decode=DecodeConfig(device=DEVICE),
+                       tuning=TuningConfig(mode=mode),
+                       cache=CacheConfig(budget_bytes=0))
+    store.ingest("r", frames[:RETILE_FRAMES], detections=dets[:RETILE_FRAMES],
+                 encoder=EncoderConfig(gop=GOP, qp=QP),
+                 policy=RegretPolicy(),
+                 cost_model=CostModel(beta=1.4e-8, gamma=1e-5))
+    ts = store.video("r").store
+    ingest_s = ts.encode_seconds_total
+    reset_counts()
+    t0 = time.perf_counter()
+    scans = 0
+    while not any(store.epochs("r").values()) and scans < 24:
+        store.scan("r").labels("car").frames(0, RETILE_FRAMES).execute()
+        store.drain_tuner(timeout=600)
+        scans += 1
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    epochs = store.epochs("r")
+    check(any(epochs.values()), f"{mode}: no retile after {scans} scans")
+    check(launches["dct_quant"] > 0 and launches["idct_dequant"] > 0,
+          f"{mode} retile did not encode through the kernels: {launches}")
+    retile_s = ts.encode_seconds_total - ingest_s
+    oracle = _oracle_frames(ts)
+    res = store.scan("r").labels("car").frames(0, RETILE_FRAMES).execute()
+    worst = _check_regions(res.regions, oracle, f"after {mode} retile")
+    layouts = {r.sot_id: (r.layout.n_tiles, r.epoch) for r in ts.sots}
+    store.close()
+    print(f"retile {mode}: scans={scans} wall_s={wall_s:.6f} "
+          f"retile_encode_s={retile_s:.6f} layouts(tiles, epoch)="
+          f"{layouts} launches={launches} regions_checked "
+          f"max_abs_err={worst:.3g}", flush=True)
+    return launches
+
+
+def calibration_phase() -> None:
+    from repro_torch.codec.encode import EncoderConfig
+    from repro_torch.core.calibrate import calibrated_cost_model
+
+    t0 = time.perf_counter()
+    model = calibrated_cost_model(EncoderConfig(gop=GOP, qp=QP),
+                                  device=DEVICE, repeats=10)
+    print(f"calibration ({time.perf_counter() - t0:.3f} s): "
+          f"beta={model.beta!r} gamma={model.gamma!r} "
+          f"r_squared={model.r_squared!r} "
+          f"encode_per_pixel={model.encode_per_pixel!r} "
+          f"encode_per_tile={model.encode_per_tile!r} "
+          f"io_per_pixel={model.io_per_pixel!r}", flush=True)
+    for k in ("beta", "encode_per_pixel"):
+        v = getattr(model, k)
+        check(np.isfinite(v) and v > 0, f"calibrated {k}={v}")
+    # the batched decode opens every tile of a SOT in one dispatch: on the
+    # card the least-squares gamma comes out negative and the fit clamps it
+    # to 0, so gamma is held to finite and non-negative
+    check(np.isfinite(model.gamma) and model.gamma >= 0,
+          f"calibrated gamma={model.gamma}")
 
 
 def main() -> int:
@@ -305,7 +654,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from repro_torch.kernels.decode import build
+    from repro_torch.data.video_gen import generate, sparse_spec
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -313,19 +662,33 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    t0 = time.perf_counter()
-    build.build()
-    print(f"build_s={time.perf_counter() - t0:.3f}", flush=True)
+    print(f"build_s={build_all():.3f}", flush=True)
 
-    k = kernel_phase(args.seed)
-    p = path_phase(args.seed)
+    numbers = {"decode_gop_blocks": decode_kernel_phase(args.seed)}
+    numbers.update(encode_kernel_phase(args.seed))
+
+    t0 = time.perf_counter()
+    frames, dets = generate(sparse_spec(seed=args.seed, height=H, width=W,
+                                        n_frames=N_FRAMES))
+    print(f"generate_s={time.perf_counter() - t0:.3f}", flush=True)
+    store, ingest = ingest_phase(frames, dets)
+    scan = scan_phase(store)
+    for mode in ("inline", "background"):
+        retile_phase(frames, dets, mode)
+    del frames
+    calibration_phase()
+
+    launches = {"decode_gop_blocks": scan["decode_gop_blocks"],
+                "dct_quant": ingest["dct_quant"],
+                "idct_dequant": ingest["idct_dequant"]}
     print(json.dumps({"kernels": [{
-        "name": "decode_gop_blocks", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": p["launches"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]}), flush=True)
+        "name": name, "route": "cuda", **KERNELS[name],
+        "launches": launches[name],
+        "max_abs_err": numbers[name]["max_abs_err"],
+        "ms": numbers[name]["ms"], "plain_ms": numbers[name]["plain_ms"],
+        "bound_ms": numbers[name]["bound_ms"],
+        "bound_by": numbers[name]["bound_by"], "library_ms": None}
+        for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,20 +6,23 @@ frame (closed-loop, like a real encoder, so decode drift is zero).  A tile is
 an independently decodable unit: encoding never references pixels outside the
 tile — exactly the HEVC tile property TASM exploits.
 
-The implementation is numpy and is the decode oracle: the batched CUDA
-decode (``codec/batch.py`` over ``kernels/decode``) is validated against
-this path; decode cost remains proportional to (pixels, tiles) on both,
-which is what the calibrated cost model captures.
+``encode_tile`` / ``decode_tile`` are numpy and are the oracles: the
+batched CUDA decode (``codec/batch.py`` over ``kernels/decode``) and the
+device encoder ``encode_tiles`` (over ``kernels/dct`` and ``kernels/idct``)
+are validated against them; decode cost remains proportional to (pixels,
+tiles) on both, which is what the calibrated cost model captures.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repro_torch.codec import bitstream
 from repro_torch.codec.quant import quant_matrix
-from repro_torch.codec.transform import dct_matrix
+from repro_torch.codec.transform import dct_matrix, to_blocks
 
 
 @dataclass(frozen=True)
@@ -86,6 +89,101 @@ def encode_tile(frames: np.ndarray, cfg: EncoderConfig) -> dict:
     size = bitstream.stream_bytes_np(kq) + bitstream.stream_bytes_np(pq)
     return {"kq": kq, "pq": pq, "h": h, "w": w, "gop": cfg.gop, "qp": cfg.qp,
             "size_bytes": float(size), "n_frames": t}
+
+
+def _stream_index(rects, h: int, w: int, b: int):
+    """Frame-block indices of every tile's blocks, tile after tile, each
+    tile's row-major (the order ``encode_tile`` gives its blocks), and each
+    tile's ``(offset, n_blocks, height, width)`` in that stream."""
+    idx, spans, off = [], [], 0
+    for rect in rects:
+        y1, x1, y2, x2 = (int(v) for v in rect)
+        if (any(v % b for v in (y1, x1, y2, x2)) or not 0 <= y1 < y2 <= h
+                or not 0 <= x1 < x2 <= w):
+            raise ValueError(f"tile {rect} must lie on the {b}-pixel grid "
+                             f"inside the {h}x{w} frame")
+        rows = np.arange(y1 // b, y2 // b)[:, None] * (w // b)
+        blocks = (rows + np.arange(x1 // b, x2 // b)[None, :]).ravel()
+        idx.append(blocks)
+        spans.append((off, blocks.size, y2 - y1, x2 - x1))
+        off += blocks.size
+    return np.concatenate(idx).astype(np.int64), spans
+
+
+def encode_tiles(frames: np.ndarray, rects, cfg: EncoderConfig, *,
+                 device) -> list[dict]:
+    """Encode every tile ``rect`` of one SOT at once on ``device``.
+
+    ``frames``: [T, H, W] in [0, 255], T a multiple of ``cfg.gop``;
+    ``rects``: ``(y1, x1, y2, x2)`` tiles on the 8-pixel grid.  Returns one
+    dict per rect, as ``encode_tile(frames[:, y1:y2, x1:x2], cfg)`` does.
+
+    The closed loop of ``encode_tile``, run for all tiles together: the
+    codec has no intra or motion prediction, so a tile's blocks are a
+    gather of the frame's blocks, and every frame of the SOT is one stream
+    of all tiles' blocks.  Per GOP, one ``dct_quant_op`` over the
+    keyframe's stream and ``recon = idct_dequant_op(kq)``; per P-frame
+    ``q = dct_quant_op(frame - recon)`` and ``recon += idct_dequant_op(q)``
+    (skipped after the GOP's last frame, whose reconstruction is unused).
+    On a CUDA device the frames go over once through pinned memory, the
+    kernels launch on the current stream, the coefficients come back once
+    as int16, and the stream is synchronised before any host read.  A
+    block's arithmetic depends only on that block, so a tile encodes the
+    same bits in any batch of tiles.  ``size_bytes`` is the host size
+    model ``stream_bytes_np``, exactly the reference's formula.
+    """
+    # late import: the kernels import this package's quant and transform
+    from repro_torch.kernels.dct.ops import dct_quant_op
+    from repro_torch.kernels.idct.ops import idct_dequant_op
+
+    frames = np.ascontiguousarray(frames, dtype=np.float32)
+    t, h, w = frames.shape
+    b, gop, qp = cfg.block, cfg.gop, cfg.qp
+    if t % gop or h % b or w % b:
+        raise ValueError(f"frames {frames.shape} must hold whole GOPs of "
+                         f"{gop} frames of {b}-pixel blocks")
+    idx, spans = _stream_index(rects, h, w, b)
+    device = torch.device(device)
+    on_cuda = device.type == "cuda"
+    guard = torch.cuda.device(device) if on_cuda else contextlib.nullcontext()
+    with guard:
+        host = torch.from_numpy(frames)
+        if on_cuda:
+            staged = torch.empty(host.shape, dtype=host.dtype,
+                                 pin_memory=True)
+            staged.copy_(host)
+            host = staged.to(device, non_blocking=True)
+        # [T, N, 8, 8]: each frame's stream of all tiles' blocks
+        x = to_blocks(host)[:, torch.from_numpy(idx).to(device)]
+        del host
+        coeffs = []
+        for g in range(t // gop):
+            f0 = g * gop
+            q = dct_quant_op(x[f0], qp=qp, intra=True)
+            coeffs.append(q)
+            if gop > 1:
+                recon = idct_dequant_op(q, qp=qp, intra=True)
+            for i in range(1, gop):
+                q = dct_quant_op(x[f0 + i] - recon, qp=qp, intra=False)
+                coeffs.append(q)
+                if i < gop - 1:
+                    recon = recon + idct_dequant_op(q, qp=qp, intra=False)
+        q = torch.stack(coeffs)
+        if on_cuda:
+            out = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
+            out.copy_(q, non_blocking=True)
+            torch.cuda.current_stream().synchronize()
+            q = out
+    arr = q.numpy().reshape(t // gop, gop, len(idx), b, b)
+    encs = []
+    for off, nb, th, tw in spans:
+        # copies: ``arr`` may be pinned memory the allocator reuses
+        kq = arr[:, 0, off:off + nb].copy()
+        pq = arr[:, 1:, off:off + nb].copy()
+        size = bitstream.stream_bytes_np(kq) + bitstream.stream_bytes_np(pq)
+        encs.append({"kq": kq, "pq": pq, "h": th, "w": tw, "gop": gop,
+                     "qp": qp, "size_bytes": float(size), "n_frames": t})
+    return encs
 
 
 def decode_tile(enc: dict, gop_indices=None,

@@ -10,6 +10,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 # JPEG luminance base quantization matrix
 _BASE = np.array([
@@ -32,3 +33,20 @@ def quant_matrix(qp: int, intra: bool) -> np.ndarray:
         m = np.maximum(m * 0.75, 1.0)  # flatter for residuals
     return np.maximum(m, 1.0).astype(np.float32)
 
+
+
+def _matrix(qp: int, intra: bool, device) -> torch.Tensor:
+    return torch.from_numpy(quant_matrix(qp, intra)).to(device)
+
+
+def quantize(coeffs: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
+    """``round(coeffs / M)`` to int16: IEEE division, round half to even
+    (as ``np.round``), clamped to the int16 range."""
+    m = _matrix(qp, intra, coeffs.device)
+    q = torch.round(coeffs.to(torch.float32) / m)
+    return q.clamp_(-32768, 32767).to(torch.int16)
+
+
+def dequantize(q: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
+    """``q * M`` in f32."""
+    return q.to(torch.float32) * _matrix(qp, intra, q.device)

@@ -145,9 +145,11 @@ class DecodeConfig:
       either way).
     - ``max_workers`` — decode worker-pool size; ``None`` sizes from the
       CPU count.
-    - ``device`` — where the batched decode runs; ``None`` means
-      ``"cuda"``, and resolving raises if no CUDA device is available (no
-      silent CPU fallback: pass ``"cpu"`` to decode on the CPU).
+    - ``device`` — where the store's codec runs: the batched decode and
+      the ingest/retile encode (``codec.encode.encode_tiles``).  ``None``
+      means ``"cuda"``, and resolving raises if no CUDA device is
+      available (no silent CPU fallback: pass ``"cpu"`` to decode and
+      encode on the CPU with the kernels' plain versions).
     """
     backend: Optional[str] = None
     roi: bool = True

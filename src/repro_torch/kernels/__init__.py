@@ -1,2 +1,9 @@
 # Hand-written CUDA kernels for the hot spots the reference runs as Pallas
-# TPU kernels: <name>/csrc/*.cu + the wrapper + ops.py + ref.py.
+# TPU kernels: <name>/csrc/*.cu + the wrapper + ops.py + ref.py, built by
+# build.py at first use.
+from repro_torch.kernels.dct import dct_quant_op, dct_quant_ref
+from repro_torch.kernels.decode import decode_fused_op, decode_fused_ref
+from repro_torch.kernels.idct import idct_dequant_op, idct_dequant_ref
+
+__all__ = ["dct_quant_op", "dct_quant_ref", "decode_fused_op",
+           "decode_fused_ref", "idct_dequant_op", "idct_dequant_ref"]

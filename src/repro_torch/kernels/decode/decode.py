@@ -8,43 +8,29 @@ launches, so a run can show that its decodes went through the kernel.
 """
 from __future__ import annotations
 
-import threading
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.codec.quant import quant_matrix
 from repro_torch.codec.transform import dct_matrix
+from repro_torch.kernels.build import LaunchCounter
 from repro_torch.kernels.decode import build
-
-
-class LaunchCounter:
-    """Launch count of one kernel, safe to bump from worker threads."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def count(self) -> int:
-        return self._n
 
 
 LAUNCHES = LaunchCounter()
 
 
+@functools.lru_cache(maxsize=None)
 def _tables(qp: int) -> np.ndarray:
-    return np.ascontiguousarray(np.concatenate(
+    """D, the intra and the inter matrix of ``qp`` as 192 floats, built
+    once per qp (read-only: every launch of that qp shares it)."""
+    t = np.ascontiguousarray(np.concatenate(
         [dct_matrix().ravel(), quant_matrix(qp, True).ravel(),
          quant_matrix(qp, False).ravel()]), dtype=np.float32)
+    t.flags.writeable = False
+    return t
 
 
 def decode_gop_blocks(q: torch.Tensor, qp: int) -> torch.Tensor:

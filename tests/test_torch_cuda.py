@@ -1,18 +1,24 @@
-"""The CUDA decode kernel on the card: against its plain PyTorch version,
-column by column independent of the batch, and under the batched decode
-and the engine against the numpy oracle.  Marked ``cuda``; each test skips
-where no CUDA device is present.  This file imports no JAX, so it also runs
-where only the port is installed:
+"""The CUDA kernels on the card: each against its plain PyTorch version,
+block by block independent of the batch, and under the batched decode,
+the device encoder and the engine against the numpy oracles.  Marked
+``cuda``; each test skips where no CUDA device is present.  This file
+imports no JAX, so it also runs where only the port is installed:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.codec.batch import decode_tile_batch
-from repro_torch.codec.encode import EncoderConfig, decode_tile, encode_tile
-from repro_torch.core import (CacheConfig, DecodeConfig, VideoStore,
-                              uniform_layout)
-from repro_torch.data.video_gen import generate, sparse_spec
+from repro_torch.codec.encode import (EncoderConfig, decode_tile, encode_tile,
+                                      encode_tiles)
+from repro_torch.codec.psnr import psnr
+from repro_torch.core import (CacheConfig, DecodeConfig, RegretPolicy,
+                              TuningConfig, VideoStore, uniform_layout)
+from repro_torch.core.cost import CostModel
+from repro_torch.data.video_gen import (ObjectSpec, VideoSpec, generate,
+                                        sparse_spec)
+from repro_torch.kernels import dct as dct_kernel
+from repro_torch.kernels import idct as idct_kernel
 from repro_torch.kernels.decode import (LAUNCHES, decode_fused_ref,
                                         decode_gop_blocks)
 
@@ -119,3 +125,154 @@ def test_store_on_cuda_serial_equals_merged_and_oracle(cuda):
             np.testing.assert_allclose(ra[-1], ro[-1], atol=ATOL, rtol=RTOL)
     for s in stores.values():
         s.close()
+
+
+# ------------------------------------------------------- encode kernels
+def pixel_blocks(rng, n, residual):
+    """Pixel-scale blocks ([0, 255]) or residuals (small, centred)."""
+    if residual:
+        return (rng.standard_normal((n, 8, 8)) * 12).astype(np.float32)
+    return (rng.random((n, 8, 8)) * 255).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 4099, 32400])
+@pytest.mark.parametrize("qp,intra", [(4, True), (8, False), (16, True)])
+def test_dct_quant_matches_plain_version(cuda, n, qp, intra):
+    x = torch.from_numpy(pixel_blocks(np.random.default_rng(n + qp), n,
+                                      not intra)).to(cuda)
+    before = dct_kernel.LAUNCHES.count
+    got = dct_kernel.dct_quant(x, qp, intra)
+    torch.cuda.synchronize()
+    assert dct_kernel.LAUNCHES.count == before + 1
+    assert got.dtype == torch.int16 and got.shape == x.shape
+    want = dct_kernel.dct_quant_ref(x, qp, intra)
+    # the kernel pins the plain version's rounding: every product and sum
+    # rounded separately in the same order, IEEE division, half to even
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 4099, 32400])
+@pytest.mark.parametrize("qp,intra", [(8, True), (12, False)])
+def test_idct_dequant_matches_plain_version(cuda, n, qp, intra):
+    q = torch.from_numpy(np.random.default_rng(n).integers(
+        -300, 300, size=(n, 8, 8)).astype(np.int16)).to(cuda)
+    before = idct_kernel.LAUNCHES.count
+    got = idct_kernel.idct_dequant(q, qp, intra)
+    torch.cuda.synchronize()
+    assert idct_kernel.LAUNCHES.count == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, idct_kernel.idct_dequant_ref(q, qp, intra))
+
+
+def test_encode_kernels_block_independent_of_batch(cuda):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(pixel_blocks(rng, 1001, False)).to(cuda)
+    q = dct_kernel.dct_quant(x, 8, True)
+    y = idct_kernel.idct_dequant(q, 8, True)
+    for lo, hi in [(0, 1), (3, 4), (5, 260), (998, 1001)]:
+        assert torch.equal(dct_kernel.dct_quant(x[lo:hi].contiguous(), 8,
+                                                True), q[lo:hi])
+        assert torch.equal(idct_kernel.idct_dequant(q[lo:hi].contiguous(),
+                                                    8, True), y[lo:hi])
+
+
+def test_encode_kernels_reject_bad_input(cuda):
+    dct, idct = dct_kernel.dct_quant, idct_kernel.idct_dequant
+    with pytest.raises(TypeError):
+        dct(torch.zeros((4, 8, 8), dtype=torch.float64, device=cuda), 8, True)
+    with pytest.raises(TypeError):
+        idct(torch.zeros((4, 8, 8), device=cuda), 8, True)
+    for shape in [(4, 8, 4), (4, 64), (0, 8, 8), (2, 4, 8, 8)]:
+        with pytest.raises(ValueError):
+            dct(torch.zeros(shape, device=cuda), 8, True)
+        with pytest.raises(ValueError):
+            idct(torch.zeros(shape, dtype=torch.int16, device=cuda), 8, True)
+    with pytest.raises(ValueError):
+        dct(torch.zeros((8, 8, 4), device=cuda).transpose(1, 2), 8, True)
+    with pytest.raises(ValueError):
+        idct(torch.zeros((8, 8, 4), dtype=torch.int16,
+                         device=cuda).transpose(1, 2), 8, True)
+
+
+def _oracle_share_and_psnr(frames, rects, encs, cfg):
+    equal = total = 0
+    got = np.zeros_like(frames)
+    want = np.zeros_like(frames)
+    for (y1, x1, y2, x2), enc in zip(rects, encs):
+        ref = encode_tile(np.ascontiguousarray(frames[:, y1:y2, x1:x2]), cfg)
+        for k in ("kq", "pq"):
+            assert enc[k].shape == ref[k].shape and enc[k].dtype == np.int16
+            equal += int((enc[k] == ref[k]).sum())
+            total += ref[k].size
+        got[:, y1:y2, x1:x2] = decode_tile(enc)
+        want[:, y1:y2, x1:x2] = decode_tile(ref)
+    return equal / total, psnr(frames, got), psnr(frames, want)
+
+
+def test_device_encode_matches_oracle_and_cpu(cuda):
+    frames, _ = generate(sparse_spec(seed=6, n_frames=32, height=192,
+                                     width=320))
+    cfg = EncoderConfig(gop=16, qp=8)
+    rects = uniform_layout(192, 320, 3, 4).tile_rects()
+    before = dct_kernel.LAUNCHES.count, idct_kernel.LAUNCHES.count
+    encs = encode_tiles(frames, rects, cfg, device=cuda)
+    assert dct_kernel.LAUNCHES.count - before[0] == 32
+    assert idct_kernel.LAUNCHES.count - before[1] == 30
+    share, p_dev, p_ref = _oracle_share_and_psnr(frames, rects, encs, cfg)
+    assert share >= 0.999 and abs(p_dev - p_ref) <= 0.1
+    # same arithmetic as the plain versions on the CPU, block by block
+    for enc, cpu in zip(encs, encode_tiles(frames, rects, cfg,
+                                           device="cpu")):
+        assert np.array_equal(enc["kq"], cpu["kq"])
+        assert np.array_equal(enc["pq"], cpu["pq"])
+        assert enc["size_bytes"] == cpu["size_bytes"]
+
+
+def test_store_ingest_and_retile_encode_on_cuda(cuda):
+    # the small_video fixture's spec: its cars make RegretPolicy retile
+    frames, dets = generate(VideoSpec(
+        height=96, width=160, n_frames=32, seed=5,
+        objects=[ObjectSpec("car", 2, (16, 24), 2.0),
+                 ObjectSpec("person", 1, (18, 10), 1.0)]))
+    cfg = EncoderConfig(gop=16, qp=8)
+    for mode in ("inline", "background"):
+        store = VideoStore(decode=DecodeConfig(device=str(cuda)),
+                           tuning=TuningConfig(mode=mode),
+                           cache=CacheConfig(budget_bytes=0))
+        model = CostModel(beta=1.4e-8, gamma=1e-5)
+        model.encode_per_pixel, model.encode_per_tile = 3.4e-8, 1e-4
+        store.add_video("v", encoder=cfg, policy=RegretPolicy(),
+                        cost_model=model)
+        before = dct_kernel.LAUNCHES.count
+        store.ingest("v", frames)
+        assert dct_kernel.LAUNCHES.count - before == 32
+        store.add_detections("v", {f: d for f, d in enumerate(dets)})
+        before = dct_kernel.LAUNCHES.count, idct_kernel.LAUNCHES.count
+        for _ in range(12):
+            store.scan("v").labels("car").frames(0, 32).execute()
+            store.drain_tuner(timeout=120)
+            if any(store.epochs("v").values()):
+                break
+        assert any(store.epochs("v").values()), mode
+        assert dct_kernel.LAUNCHES.count > before[0]
+        assert idct_kernel.LAUNCHES.count > before[1]
+        ts = store.video("v").store
+        for rec in ts.sots:
+            rects = rec.layout.tile_rects()
+            encs = [ts._read_tile(rec, i) for i in range(len(rects))]
+            src = frames[rec.frame_start:rec.frame_end]
+            if rec.epoch == 0:
+                share, p_dev, p_ref = _oracle_share_and_psnr(src, rects,
+                                                             encs, cfg)
+                assert share >= 0.999 and abs(p_dev - p_ref) <= 0.1
+        oracle = np.zeros_like(frames)
+        for rec in ts.sots:
+            for i, (y1, x1, y2, x2) in enumerate(rec.layout.tile_rects()):
+                oracle[rec.frame_start:rec.frame_end, y1:y2, x1:x2] = \
+                    decode_tile(ts._read_tile(rec, i))
+        res = store.scan("v").labels("car").frames(0, 32).execute()
+        assert res.regions
+        for frame, (y1, x1, y2, x2), px in res.regions:
+            np.testing.assert_allclose(px, oracle[frame, y1:y2, x1:x2],
+                                       atol=ATOL, rtol=RTOL)
+        store.close()

@@ -41,17 +41,26 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_cpu_scan_loads_neither_jax_nor_reference():
+    # an ingest, a retile (both encode through encode_tiles) and scans
     code = textwrap.dedent("""
         import sys
-        from repro_torch.core import DecodeConfig, NoTilingPolicy, VideoStore
+        from repro_torch.core import (DecodeConfig, NoTilingPolicy,
+                                      VideoStore, uniform_layout)
         from repro_torch.data.video_gen import generate, sparse_spec
         frames, dets = generate(sparse_spec(seed=1, n_frames=16, height=96,
                                             width=160))
         store = VideoStore(decode=DecodeConfig(device="cpu"))
         store.ingest("v", frames, detections=dets, policy=NoTilingPolicy())
         res = store.scan("v").labels("car").frames(0, 16).execute()
+        assert res.regions and res.stats.tiles_decoded > 0
+        assert store.retile("v", 0, uniform_layout(96, 160, 2, 2)) > 0
+        assert store.epochs("v") == {0: 1}
+        res = store.scan("v").labels("car").frames(0, 16).execute()
         store.close()
         assert res.regions and res.stats.tiles_decoded > 0
+        for m in ("repro_torch.codec.encode", "repro_torch.kernels.dct.ops",
+                  "repro_torch.kernels.idct.ops"):
+            assert m in sys.modules, m
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not loaded, loaded
