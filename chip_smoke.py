@@ -6,7 +6,7 @@
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the three CUDA kernels from their ``csrc/`` (one ``nvcc`` per
+2. builds the four CUDA kernels from their ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints ``build_s``;
 3. decode kernel phase: holds ``decode_gop_blocks`` against its plain
    PyTorch version on the card for F in {1, 4, 16}, M in {64, 4096,
@@ -40,8 +40,34 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 8. calibration: ``calibrated_cost_model`` on the card at its small default
    sizes (10 timed repeats of each decode sample), with finite positive
    beta and encode_per_pixel and a finite, non-negative gamma;
-9. prints one JSON line with the kernels' numbers, then as its last line
+9. attention kernel phase: holds ``flash_attention`` against its plain
+   version (atol 2e-5 in f32, 2e-2 in bf16) for (B, H, KV, S, D) in
+   {(2,4,4,128,32), (2,4,2,256,64), (2,8,1,256,32), (8,9,3,512,64),
+   (1,9,3,4096,64), (3,9,3,100,64), (1,9,3,1,64)}, causal and not, bf16
+   and f32, on ``randn`` inputs from the seed; times it, the plain version
+   and ``scaled_dot_product_attention`` (the library yardstick, which the
+   port never calls) in bf16 at the prefill shape (8,9,3,512,64) and at
+   (1,9,3,4096,64), with the byte and operation bounds, and the wrapper's
+   host cost per call;
+10. serve phase, ``smollm-135m`` at full width (30 layers, d_model 576,
+   ``make_serve_config(cfg, 1)``, bf16 weights from the seed) on the card:
+   (a) ``greedy_generate`` of 8 prompts of 512 tokens, 64 new tokens; the
+   prefill launches ``flash_attention`` 30 times; TTFT of the prefill and
+   steady decode tokens/s; (b) the same with the prefill attention
+   switched to the plain version (a test-only patch of the attention
+   module): last-position prefill logits within 5e-2, greedy-token
+   agreement printed; (c) the same in f32 at 4 layers: logits within 1e-3,
+   greedy agreement >= 0.99; (d) ``ContinuousBatcher(slots=8,
+   max_len=640)`` over 16 requests of 64-512 prompt tokens and 16-64 new
+   tokens: every request finishes, 30 launches per wave, stats printed;
+   (e) the device time of one prefill and of one decode step, split by
+   ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
+   the device's busy share of their wall time;
+11. prints one JSON line with the kernels' numbers, then as its last line
    ``{"ok": true, "device": {...}}``.
+
+f32 products on the card stay f32 (``allow_tf32`` is set False for
+matmuls and cuDNN) in every comparison.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.  Any failed check raises, and the script exits non-zero
@@ -51,6 +77,7 @@ checkout.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -76,6 +103,13 @@ FLOPS_PER_BLOCK_FRAME = 64 * (2 * 16 + 2)
 #: the divide or the dequant multiply)
 BYTES_PER_BLOCK = 64 * 4 + 64 * 2
 FLOPS_PER_BLOCK = 64 * (2 * 15 + 1)
+#: bf16 dense tensor-core peak of the H100 SXM (NVIDIA data sheet)
+BF16_FLOPS = 989e12
+#: tolerances of the attention kernel against its plain version (the
+#: reference's, tests/test_kernels.py), and of the serve comparisons
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LOGITS_ATOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
+AGREE_F32 = 0.99
 #: GPU cycles the timing spin holds the stream for (~30 ms at 1.98 GHz):
 #: longer than the host takes to enqueue 50 launches of any wrapper here
 SPIN_CYCLES = 60_000_000
@@ -89,6 +123,17 @@ H, W, N_FRAMES = 1080, 1920, 64
 GOP, QP = 16, 8
 LAYOUT = (6, 8)
 RETILE_FRAMES = 32
+#: the serve path's configuration
+ARCH = "smollm-135m"
+SERVE_B, SERVE_S, SERVE_NEW = 8, 512, 64
+F32_LAYERS = 4
+FLASH_SHAPES = [(2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
+                (8, 9, 3, 512, 64), (1, 9, 3, 4096, 64), (3, 9, 3, 100, 64),
+                (1, 9, 3, 1, 64)]
+BATCH_SLOTS, BATCH_MAX_LEN, BATCH_REQUESTS = 8, 640, 16
+BATCH_PROMPT, BATCH_NEW = (64, 512), (16, 64)
+FLASH_MAIN = (8, 9, 3, 512, 64)
+FLASH_LONG = (1, 9, 3, 4096, 64)
 
 KERNELS = {
     "decode_gop_blocks": dict(
@@ -100,14 +145,19 @@ KERNELS = {
     "idct_dequant": dict(
         source="src/repro_torch/kernels/idct/csrc/idct_dequant.cu",
         replaces="src/repro/kernels/idct/idct.py:30"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash.py:63"),
 }
 
 
 def counters() -> dict:
-    from repro_torch.kernels import dct, decode, idct
+    from repro_torch.kernels import dct, decode, flash_attention, idct
 
     return {"decode_gop_blocks": decode.LAUNCHES, "dct_quant": dct.LAUNCHES,
-            "idct_dequant": idct.LAUNCHES}
+            "idct_dequant": idct.LAUNCHES,
+            "flash_attention": flash_attention.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -187,14 +237,16 @@ def check(cond: bool, what: str) -> None:
 
 
 def build_all() -> float:
-    """Build the three kernels, one ``nvcc`` per source, all at once."""
+    """Build the four kernels, one ``nvcc`` per source, all at once."""
     from repro_torch.kernels.dct import LIBRARY as DCT
     from repro_torch.kernels.decode.build import LIBRARY as DECODE
+    from repro_torch.kernels.flash_attention import LIBRARY as FLASH
     from repro_torch.kernels.idct import LIBRARY as IDCT
 
+    libs = (FLASH, DECODE, DCT, IDCT)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda lib: lib.build(), (DECODE, DCT, IDCT)))
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(), libs))
     return time.perf_counter() - t0
 
 
@@ -647,6 +699,283 @@ def calibration_phase() -> None:
           f"calibrated gamma={model.gamma}")
 
 
+# ------------------------------------------------------ attention and serving
+def _qkv(rng, b, h, kv, s, d, dtype):
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(DEVICE, dtype)
+            for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))]
+
+
+def flash_bound_ms(shape, dtype, causal: bool) -> tuple[float, str]:
+    """Least time for one attention: q, k, v read and o written once over
+    the HBM rate, against the products these inputs need (QK^T and PV, 2
+    FLOPs per multiply-add, over the live (query, key) pairs) over the
+    card's peak for their type."""
+    b, h, kv, s, d = shape
+    elt = torch.finfo(dtype).bits // 8
+    n_bytes = b * s * d * (2 * h + 2 * kv) * elt
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * h * d * pairs
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_kernel_phase(seed: int) -> dict:
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(seed + 2)
+    worst = 0.0
+    timed = {}
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv(rng, *shape, dtype)
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal)
+                want = attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                check(err <= FLASH_TOL[dtype],
+                      f"flash_attention vs plain {shape} {dtype} causal="
+                      f"{causal}: max |diff| {err} > {FLASH_TOL[dtype]}")
+                worst = max(worst, err)
+            if shape not in (FLASH_MAIN, FLASH_LONG) \
+                    or dtype != torch.bfloat16:
+                continue
+            k_ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
+            r_ms = cuda_ms(lambda: attention_ref(q, k, v), iters=3,
+                           warmup=1)
+            l_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True), iters=20)
+            b_ms, b_by = flash_bound_ms(shape, dtype, True)
+            t_bytes = flash_bound_ms(shape, dtype, False)
+            print(f"flash_attention {shape} bf16 causal: kernel_ms="
+                  f"{k_ms:.6f} plain_ms={r_ms:.6f} sdpa_ms={l_ms:.6f} "
+                  f"bound_ms={b_ms:.6f} ({b_by}) share_of_bound="
+                  f"{b_ms / k_ms:.3f} (non-causal bound "
+                  f"{t_bytes[0]:.6f} ms, {t_bytes[1]})", flush=True)
+            timed[shape] = dict(ms=k_ms, plain_ms=r_ms, library_ms=l_ms,
+                                bound_ms=b_ms, bound_by=b_by)
+    q, k, v = _qkv(rng, 1, 9, 3, 16, 64, torch.bfloat16)
+    at_main = dict(timed[FLASH_MAIN], max_abs_err=worst,
+                   host_us=host_us(lambda: flash_attention(q, k, v)))
+    print(f"flash_attention max_abs_err={worst:.3g} wrapper host cost: "
+          f"{at_main['host_us']:.3f} us/call", flush=True)
+    return at_main
+
+
+def _serve_config(**kw):
+    from repro_torch.configs.base import get_config, make_serve_config
+
+    cfg = make_serve_config(get_config(ARCH), model_axis=1)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _plain_prefill_attention():
+    """A test-only patch: the attention module's kernel entry replaced by
+    the plain version, so the same model prefills without the kernel."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models import attention
+
+    return mock.patch.object(
+        attention, "flash_attention_op",
+        lambda q, k, v, causal=True: attention_ref(q, k, v, causal=causal))
+
+
+def _device_split(what: str, fn) -> dict:
+    """Device time of ``fn()``, by kind, from the profiler (None where it
+    recorded no device time); prints the largest other kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {"flash_attention_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    others = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.device_time_total / 1e3
+        name = evt.key.lower()
+        if "flash_attention" in name:
+            split["flash_attention_ms"] += ms
+        # cuBLAS's Hopper kernels are named nvjet_*, older ones *gemm*
+        elif any(t in name for t in ("nvjet", "gemm", "gemv", "matmul",
+                                     "xmma", "cutlass", "cublas")):
+            split["matmul_ms"] += ms
+        else:
+            split["other_ms"] += ms
+            others[evt.key[:60]] = others.get(evt.key[:60], 0.0) + ms
+    if sum(split.values()) == 0.0:
+        return {k: None for k in split}
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+    print(f"serve (e) {what}, largest other kernels: " +
+          "; ".join(f"{k} {v:.6f} ms" for k, v in top), flush=True)
+    return split
+
+
+def _generate(model, cfg, prompts) -> tuple:
+    """(prefill logits, greedy tokens [B, SERVE_NEW], TTFT s, decode tok/s,
+    generate wall s, launches of ``greedy_generate``): one timed prefill
+    and decode loop, then ``greedy_generate`` itself with the counts set
+    to 0 just before it and read just after."""
+    from repro_torch.serve import (greedy_generate, make_decode_step,
+                                   make_prefill_step)
+
+    prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
+    decode = make_decode_step(cfg, device=DEVICE)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, {"tokens": prompts})
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        t0 = time.perf_counter()
+        for i in range(SERVE_NEW - 1):
+            step, caches = decode(model, caches, {"tokens": tok},
+                                  SERVE_S + i)
+            tok = torch.argmax(step[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        tok_s = SERVE_B * (SERVE_NEW - 1) / (time.perf_counter() - t0)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(model, cfg, prompts, max_new=SERVE_NEW,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return logits, out, ttft, tok_s, wall, read_counts()
+
+
+def serve_phase(seed: int) -> dict:
+    """The LM serving slice at full width; returns the launches of the
+    main path's prefill."""
+    from repro_torch.models import init_model
+    from repro_torch.serve import (ContinuousBatcher, greedy_generate,
+                                   make_decode_step, make_prefill_step)
+
+    rng = np.random.default_rng(seed + 3)
+    cfg = _serve_config()
+    model = init_model(cfg, seed, device=DEVICE)
+    check(cfg.n_layers == 30 and cfg.d_model == 576
+          and model.embed.table.dtype == torch.bfloat16,
+          f"serving {cfg.name} with {cfg.n_layers} layers")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve {cfg.name}: {n_params} parameters (param_count "
+          f"{cfg.param_count()}), {cfg.param_dtype} weights, "
+          f"{cfg.compute_dtype} compute, kv_repeat={cfg.kv_repeat}",
+          flush=True)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SERVE_B, SERVE_S))).to(DEVICE)
+    greedy_generate(model, cfg, prompts[:, :64], max_new=2, device=DEVICE)
+
+    # (a) the main path through the kernel
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"greedy_generate launched flash_attention "
+          f"{launches['flash_attention']} times, want {cfg.n_layers} (one "
+          f"prefill)")
+    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+          and bool(torch.isfinite(logits).all()),
+          f"greedy_generate gave {tuple(out.shape)}")
+    print(f"serve (a) B={SERVE_B} S={SERVE_S} new={SERVE_NEW}: "
+          f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
+          f"greedy_generate_wall_s={wall:.6f} launches={launches}",
+          flush=True)
+
+    # (b) the same model with the plain prefill attention
+    with _plain_prefill_attention():
+        p_logits, p_out, p_ttft, _, _, p_launches = _generate(model, cfg,
+                                                              prompts)
+    check(p_launches["flash_attention"] == 0,
+          "the plain prefill launched the kernel")
+    err = float((logits - p_logits).abs().max())
+    agree = float((out == p_out).float().mean())
+    print(f"serve (b) bf16 kernel vs plain prefill attention: logits "
+          f"max_abs_err={err:.6g} greedy_agreement={agree:.6f} "
+          f"plain ttft_s={p_ttft:.6f}", flush=True)
+    check(err <= LOGITS_ATOL[torch.bfloat16],
+          f"bf16 prefill logits differ by {err}")
+
+    # (c) f32 at 4 layers
+    cfg32 = _serve_config(param_dtype="float32", compute_dtype="float32",
+                          n_layers=F32_LAYERS)
+    m32 = init_model(cfg32, seed, device=DEVICE)
+    l32, o32, _, _, _, k32 = _generate(m32, cfg32, prompts)
+    check(k32["flash_attention"] == F32_LAYERS,
+          f"f32 greedy_generate launched {k32}")
+    with _plain_prefill_attention():
+        pl32, po32, _, _, _, _ = _generate(m32, cfg32, prompts)
+    err32 = float((l32 - pl32).abs().max())
+    agree32 = float((o32 == po32).float().mean())
+    print(f"serve (c) f32, {F32_LAYERS} layers, kernel vs plain: logits "
+          f"max_abs_err={err32:.6g} greedy_agreement={agree32:.6f}",
+          flush=True)
+    check(err32 <= LOGITS_ATOL[torch.float32] and agree32 >= AGREE_F32,
+          f"f32 serving: logits differ by {err32}, agreement {agree32}")
+    del m32
+
+    # (d) the continuous batcher
+    batcher = ContinuousBatcher(cfg, model, slots=BATCH_SLOTS,
+                                max_len=BATCH_MAX_LEN, device=DEVICE)
+    want = []
+    for _ in range(BATCH_REQUESTS):
+        n = int(rng.integers(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1))
+        new = int(rng.integers(BATCH_NEW[0], BATCH_NEW[1] + 1))
+        batcher.submit(rng.integers(0, cfg.vocab, n), max_new=new)
+        want.append(new)
+    waves = -(-BATCH_REQUESTS // BATCH_SLOTS)
+    reset_counts()
+    stats = batcher.run_until_drained()
+    torch.cuda.synchronize()
+    b_launches = read_counts()["flash_attention"]
+    check(stats["requests"] == BATCH_REQUESTS
+          and sorted(len(r.out_tokens) for r in batcher.finished)
+          == sorted(want),
+          f"batcher finished {stats['requests']} requests")
+    check(b_launches == waves * cfg.n_layers,
+          f"batcher launched flash_attention {b_launches} times for "
+          f"{waves} waves, want {waves * cfg.n_layers}")
+    print(f"serve (d) ContinuousBatcher(slots={BATCH_SLOTS}, max_len="
+          f"{BATCH_MAX_LEN}), {BATCH_REQUESTS} requests: {json.dumps(stats)} "
+          f"launches={b_launches}", flush=True)
+
+    # (e) where a prefill's and a decode step's device time goes
+    prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
+    decode = make_decode_step(cfg, device=DEVICE)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(model,
+                                                   {"tokens": prompts})
+
+    def run_decode():
+        tok = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        decode(model, state["caches"], {"tokens": tok}, SERVE_S)
+
+    for what, fn, wall in (("prefill", run_prefill, ttft),
+                           ("decode step", run_decode, SERVE_B / tok_s)):
+        split = _device_split(what, fn)
+        busy = (None if split["other_ms"] is None
+                else sum(split.values()) / 1e3 / wall)
+        print(f"serve (e) one B={SERVE_B} S={SERVE_S} {what}, device time "
+              f"(torch.profiler): " +
+              " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
+                       for k, v in split.items()) +
+              f"; device busy share of its wall time "
+              f"({wall:.6f} s, unprofiled): "
+              f"{'not measured' if busy is None else f'{busy:.4f}'}",
+              flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -654,6 +983,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.data.video_gen import generate, sparse_spec
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -666,6 +997,7 @@ def main() -> int:
 
     numbers = {"decode_gop_blocks": decode_kernel_phase(args.seed)}
     numbers.update(encode_kernel_phase(args.seed))
+    numbers["flash_attention"] = flash_kernel_phase(args.seed)
 
     t0 = time.perf_counter()
     frames, dets = generate(sparse_spec(seed=args.seed, height=H, width=W,
@@ -677,17 +1009,20 @@ def main() -> int:
         retile_phase(frames, dets, mode)
     del frames
     calibration_phase()
+    serve = serve_phase(args.seed)
 
     launches = {"decode_gop_blocks": scan["decode_gop_blocks"],
                 "dct_quant": ingest["dct_quant"],
-                "idct_dequant": ingest["idct_dequant"]}
+                "idct_dequant": ingest["idct_dequant"],
+                "flash_attention": serve["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", **KERNELS[name],
         "launches": launches[name],
         "max_abs_err": numbers[name]["max_abs_err"],
         "ms": numbers[name]["ms"], "plain_ms": numbers[name]["plain_ms"],
         "bound_ms": numbers[name]["bound_ms"],
-        "bound_by": numbers[name]["bound_by"], "library_ms": None}
+        "bound_by": numbers[name]["bound_by"],
+        "library_ms": numbers[name].get("library_ms")}
         for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,10 @@
 # build.py at first use.
 from repro_torch.kernels.dct import dct_quant_op, dct_quant_ref
 from repro_torch.kernels.decode import decode_fused_op, decode_fused_ref
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention_op)
 from repro_torch.kernels.idct import idct_dequant_op, idct_dequant_ref
 
-__all__ = ["dct_quant_op", "dct_quant_ref", "decode_fused_op",
-           "decode_fused_ref", "idct_dequant_op", "idct_dequant_ref"]
+__all__ = ["attention_ref", "dct_quant_op", "dct_quant_ref",
+           "decode_fused_op", "decode_fused_ref", "flash_attention_op",
+           "idct_dequant_op", "idct_dequant_ref"]

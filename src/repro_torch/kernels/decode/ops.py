@@ -35,15 +35,16 @@ def pad_bucket(n: int, lo: int = 8) -> int:
 
 
 def resolve_device(device) -> torch.device:
-    """The decode device; raises if it names a CUDA device this process
-    cannot reach (there is no silent CPU fallback)."""
+    """The device of a store's decode and encode, or of a model; raises if
+    it names a CUDA device this process cannot reach (there is no silent
+    CPU fallback)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"decode device {str(dev)!r} requested but no CUDA device is "
-            f"available; pass device='cpu' to decode on the CPU")
+            f"device {str(dev)!r} requested but no CUDA device is "
+            f"available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"decode device must be cuda or cpu, got {dev}")
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
     return dev
 
 

@@ -1,9 +1,13 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
 block by block independent of the batch, and under the batched decode,
-the device encoder and the engine against the numpy oracles.  Marked
+the device encoder, the engine and LM serving against the numpy oracles
+and the plain versions.  Marked
 ``cuda``; each test skips where no CUDA device is present.  This file
 imports no JAX, so it also runs where only the port is installed:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import dataclasses
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -17,10 +21,15 @@ from repro_torch.core import (CacheConfig, DecodeConfig, RegretPolicy,
 from repro_torch.core.cost import CostModel
 from repro_torch.data.video_gen import (ObjectSpec, VideoSpec, generate,
                                         sparse_spec)
+from repro_torch.configs.base import get_config, make_serve_config
 from repro_torch.kernels import dct as dct_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import idct as idct_kernel
 from repro_torch.kernels.decode import (LAUNCHES, decode_fused_ref,
                                         decode_gop_blocks)
+from repro_torch.models import attention as attention_mod
+from repro_torch.models import init_model
+from repro_torch.serve import ContinuousBatcher, make_prefill_step
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 1e-3, 1e-5
@@ -276,3 +285,103 @@ def test_store_ingest_and_retile_encode_on_cuda(cuda):
             np.testing.assert_allclose(px, oracle[frame, y1:y2, x1:x2],
                                        atol=ATOL, rtol=RTOL)
         store.close()
+
+
+# ------------------------------------------------------------ flash_attention
+#: the reference's tolerances (tests/test_kernels.py): f32 2e-5, bf16 2e-2
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(seed, b, h, kv, s, d, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(device=device, dtype=dtype)
+            for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 7, 100, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain_version(cuda, dtype, d, s, causal):
+    q, k, v = _qkv(s + d, 2, 6, 2, s, d, dtype, cuda)
+    before = flash_kernel.LAUNCHES.count
+    got = flash_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_kernel.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+
+
+def test_flash_attention_causal_row_ignores_later_positions(cuda):
+    q, k, v = _qkv(1, 1, 9, 3, 200, 64, torch.float32, cuda)
+    out = flash_kernel.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 70:] = 9.0
+    v2[:, :, 70:] = -9.0
+    assert torch.equal(flash_kernel.flash_attention(q, k2, v2)[:, :, :70],
+                       out[:, :, :70])
+
+
+def test_flash_attention_rejects_bad_input(cuda):
+    fa = flash_kernel.flash_attention
+    q, k, v = _qkv(0, 1, 4, 2, 16, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        fa(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):  # head dim 48
+        fa(*_qkv(0, 1, 4, 2, 16, 48, torch.float32, cuda))
+    with pytest.raises(ValueError):  # 4 query heads on 3 KV heads
+        fa(*_qkv(0, 1, 4, 3, 16, 64, torch.float32, cuda))
+    with pytest.raises(ValueError):  # k and v of other lengths than q
+        fa(q, k[:, :, :8].contiguous(), v[:, :, :8].contiguous())
+    with pytest.raises(ValueError):  # 3-d
+        fa(q[0], k[0], v[0])
+    with pytest.raises(ValueError):  # not contiguous
+        fa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    with pytest.raises(ValueError):  # one tensor on the CPU
+        fa(q, k.cpu(), v)
+
+
+def _full_width_smollm(cuda, **kw):
+    cfg = make_serve_config(get_config("smollm-135m"), model_axis=1)
+    cfg = dataclasses.replace(cfg, **kw)
+    return cfg, init_model(cfg, 0, device=cuda)
+
+
+def test_full_width_prefill_launches_flash_attention_per_layer(cuda):
+    cfg, model = _full_width_smollm(cuda)
+    assert cfg.n_layers == 30 and model.embed.table.dtype == torch.bfloat16
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (2, 100))
+    prefill = make_prefill_step(cfg, 128, device=str(cuda))
+    before = flash_kernel.LAUNCHES.count
+    logits, caches = prefill(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count - before == 30
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    plain = lambda q, k, v, causal=True: flash_kernel.attention_ref(  # noqa
+        q, k, v, causal=causal)
+    with mock.patch.object(attention_mod, "flash_attention_op", plain):
+        want, _ = prefill(model, {"tokens": prompt})
+    assert flash_kernel.LAUNCHES.count - before == 30
+    torch.testing.assert_close(logits, want, atol=5e-2, rtol=0)
+
+
+def test_batcher_on_cuda_prefills_through_the_kernel(cuda):
+    cfg, model = _full_width_smollm(cuda, n_layers=2)
+    batcher = ContinuousBatcher(cfg, model, slots=2, max_len=64,
+                                device=str(cuda))
+    assert batcher.caches["layers"]["k"].device.type == "cuda"
+    rng = np.random.default_rng(1)
+    for n in (5, 17, 9):
+        batcher.submit(rng.integers(0, cfg.vocab, n), max_new=4)
+    before = flash_kernel.LAUNCHES.count
+    stats = batcher.run_until_drained()
+    assert stats["requests"] == 3
+    assert flash_kernel.LAUNCHES.count - before == 2 * 2  # 2 waves x layers
+    assert all(len(r.out_tokens) == 4 for r in batcher.finished)

@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package ``repro``, a CPU scan runs without
-either in ``sys.modules``, and a store with no device named decodes on CUDA
-or refuses to start."""
+neither JAX nor the reference package ``repro``, a CPU scan and a CPU
+greedy generation run without either in ``sys.modules``, and a store with
+no device named decodes on CUDA or refuses to start."""
 import ast
 import os
 import pathlib
@@ -41,7 +41,8 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_cpu_scan_loads_neither_jax_nor_reference():
-    # an ingest, a retile (both encode through encode_tiles) and scans
+    # an ingest, a retile (both encode through encode_tiles), scans and a
+    # greedy generation
     code = textwrap.dedent("""
         import sys
         from repro_torch.core import (DecodeConfig, NoTilingPolicy,
@@ -58,8 +59,22 @@ def test_cpu_scan_loads_neither_jax_nor_reference():
         res = store.scan("v").labels("car").frames(0, 16).execute()
         store.close()
         assert res.regions and res.stats.tiles_decoded > 0
+        # the model side: greedy decoding of a narrow smollm on the CPU
+        import dataclasses
+        import numpy as np
+        from repro_torch.configs.base import get_config, make_serve_config
+        from repro_torch.models import init_model
+        from repro_torch.serve import greedy_generate
+        cfg = make_serve_config(dataclasses.replace(
+            get_config("smollm-135m"), n_layers=2, d_model=64, n_heads=4,
+            n_kv_heads=2, head_dim=32, d_ff=128, vocab=256), model_axis=1)
+        model = init_model(cfg, 0, device="cpu")
+        out = greedy_generate(model, cfg, np.ones((2, 9), np.int64),
+                              max_new=3, device="cpu")
+        assert tuple(out.shape) == (2, 3)
         for m in ("repro_torch.codec.encode", "repro_torch.kernels.dct.ops",
-                  "repro_torch.kernels.idct.ops"):
+                  "repro_torch.kernels.idct.ops", "repro_torch.models.zoo",
+                  "repro_torch.kernels.flash_attention.ops"):
             assert m in sys.modules, m
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
