@@ -6,7 +6,7 @@
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the four CUDA kernels from their ``csrc/`` (one ``nvcc`` per
+2. builds the five CUDA kernels from their ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints ``build_s``;
 3. decode kernel phase: holds ``decode_gop_blocks`` against its plain
    PyTorch version on the card for F in {1, 4, 16}, M in {64, 4096,
@@ -18,29 +18,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    {4, 8, 16}, intra and inter, on pixel-scale blocks and residuals from the
    seed; times both at qp 8 against the bound N*384 B, and each wrapper's
    host cost per call;
-5. ingest phase: ``VideoStore.ingest`` of a 1080p, 64-frame synthetic video
-   (gop 16, qp 8) under a 6x8 uniform layout (48 tiles; a frame is one
-   32,400-block launch) encodes on the card; the encode launch counters
-   must grow; SOT 0's stored coefficients are held against the numpy
-   ``encode_tile`` (equal share >= 0.999, PSNR within 0.1 dB), and so are
-   the other SOTs', both encode wall times printed, and one SOT's encode
-   split by device time
-   (``torch.profiler``) and the host time of the size model;
-6. scan phase: a full-frame scan, a label (ROI) scan, ``execute_many`` of
-   four overlapping scans and a ``serve()`` session of four requests on the
-   ingested store; every region is held against the numpy ``decode_tile``
-   oracle at atol=1e-3, rtol=1e-5, merged and served results must equal the
-   serial ones bit for bit, and the decode launch counter must grow;
-7. retile phase, twice (inline tuning, then the background tuner with
-   ``drain_tuner``): ``RegretPolicy`` with ``CostModel(beta=1.4e-8,
-   gamma=1e-5)`` over repeated ``car`` scans of frames 0-32 of the same
-   1080p video until a SOT's epoch rises; the encode launch counters must
-   grow, and every region of a scan after the retile is held against the
-   numpy oracle of the new tiles;
-8. calibration: ``calibrated_cost_model`` on the card at its small default
-   sizes (10 timed repeats of each decode sample), with finite positive
-   beta and encode_per_pixel and a finite, non-negative gamma;
-9. attention kernel phase: holds ``flash_attention`` against its plain
+5. attention kernel phase: holds ``flash_attention`` against its plain
    version (atol 2e-5 in f32, 2e-2 in bf16) for (B, H, KV, S, D) in
    {(2,4,4,128,32), (2,4,2,256,64), (2,8,1,256,32), (8,9,3,512,64),
    (1,9,3,4096,64), (3,9,3,100,64), (1,9,3,1,64)}, causal and not, bf16
@@ -49,7 +27,53 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    port never calls) in bf16 at the prefill shape (8,9,3,512,64) and at
    (1,9,3,4096,64), with the byte and operation bounds, and the wrapper's
    host cost per call;
-10. serve phase, ``smollm-135m`` at full width (30 layers, d_model 576,
+6. sad kernel phase: holds ``sad_search`` against its plain version for
+   (b, r) in {(8, 4), (16, 8), (8, 8), (4, 0)} and N in {1, 7, 64, 500,
+   32400}: on integer pixels in [0, 255] (with a constant window) all
+   three outputs equal, ties included; on ``randn * 25`` pixels ``sad``
+   within rtol 1e-5 and ``dy``/``dx`` equal except at near-ties (counted);
+   times it, the plain version and the wrapper's host cost at both motion
+   path shapes against the bound (no single PyTorch call computes it);
+7. motion path: frames 0 and 1 of the 1080p video (b=8, r=8: 32,400
+   blocks) and a 720p pair (b=16, r=8: 3,600 blocks), each through
+   ``frame_motion_blocks``, one pinned H2D copy, one ``sad_search_op``
+   launch and one D2H copy, with host times; held against the plain
+   version (exact on the frames rounded to 8 bits); then a 1080p frame
+   rolled by (3, -2), whose inner blocks must match at (r-3, r+2) with SAD 0;
+8. ingest phase: ``VideoStore.ingest`` of a 1080p, 64-frame synthetic video
+   (gop 16, qp 8) under a 6x8 uniform layout (48 tiles; a frame is one
+   32,400-block launch) encodes on the card; the encode launch counters
+   must grow; SOT 0's stored coefficients are held against the numpy
+   ``encode_tile`` (equal share >= 0.999, PSNR within 0.1 dB), and so are
+   the other SOTs', both encode wall times printed, and one SOT's encode
+   split by device time
+   (``torch.profiler``) and the host time of the size model;
+9. scan phase: a full-frame scan, a label (ROI) scan, ``execute_many`` of
+   four overlapping scans and a ``serve()`` session of four requests on the
+   ingested store; every region is held against the numpy ``decode_tile``
+   oracle at atol=1e-3, rtol=1e-5, merged and served results must equal the
+   serial ones bit for bit, and the decode launch counter must grow;
+10. video server phase: the same store (tuning off, cache off) served
+   in-process by ``VideoStoreServer`` on a Unix socket to 4 client threads,
+   each with its own ``RemoteVideoStore`` sending 8 scans (full frames 0-16,
+   ``car`` scans), once over the socket transport, where shared memory
+   exists once over shm, and where msgpack is the default once more over
+   the socket with JSON; every reply bit-identical to the in-process scan
+   (which is held against the oracle), the decode launch counter growing;
+   p50/p95 latency, requests/s, reply bytes and the wire codec printed;
+   then ``python -m repro_torch.tasm_serve --device cuda`` as a subprocess
+   over a small store root answers ``ping``, ``config()`` (a cuda decode)
+   and one scan, and exits 0 on ``shutdown_server()``;
+11. retile phase, twice (inline tuning, then the background tuner with
+   ``drain_tuner``): ``RegretPolicy`` with ``CostModel(beta=1.4e-8,
+   gamma=1e-5)`` over repeated ``car`` scans of frames 0-32 of the same
+   1080p video until a SOT's epoch rises; the encode launch counters must
+   grow, and every region of a scan after the retile is held against the
+   numpy oracle of the new tiles;
+12. calibration: ``calibrated_cost_model`` on the card at its small default
+   sizes (10 timed repeats of each decode sample), with finite positive
+   beta and encode_per_pixel and a finite, non-negative gamma;
+13. serve phase, ``smollm-135m`` at full width (30 layers, d_model 576,
    ``make_serve_config(cfg, 1)``, bf16 weights from the seed) on the card:
    (a) ``greedy_generate`` of 8 prompts of 512 tokens, 64 new tokens; the
    prefill launches ``flash_attention`` 30 times; TTFT of the prefill and
@@ -63,7 +87,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
    the device's busy share of their wall time;
-11. prints one JSON line with the kernels' numbers, then as its last line
+14. prints one JSON line with the kernels' numbers, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 f32 products on the card stay f32 (``allow_tf32`` is set False for
@@ -80,8 +104,12 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -94,6 +122,9 @@ sys.path.insert(0, str(ROOT / "src"))
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+#: fp32 adds the card issues per second: half the FLOP/s peak, which counts
+#: an FMA as two operations
+FP32_ADDS = FP32_FLOPS / 2
 #: per 8x8 block-frame of the decode: int16 in + f32 out; 64 pixels x
 #: (16 FMAs + dequant multiply + running-sum add)
 BYTES_PER_BLOCK_FRAME = 64 * 2 + 64 * 4
@@ -134,6 +165,18 @@ BATCH_SLOTS, BATCH_MAX_LEN, BATCH_REQUESTS = 8, 640, 16
 BATCH_PROMPT, BATCH_NEW = (64, 512), (16, 64)
 FLASH_MAIN = (8, 9, 3, 512, 64)
 FLASH_LONG = (1, 9, 3, 4096, 64)
+#: the motion search: the sweep of the sad kernel phase, and the two frame
+#: pairs of the motion path, (height, width, b, r); the first is the main
+#: path's shape (1080 is not a multiple of 16, so it takes b=8)
+SAD_SWEEP_BR = [(8, 4), (16, 8), (8, 8), (4, 0)]
+SAD_SWEEP_N = [1, 7, 64, 500, 32400]
+SAD_TOL = 1e-5
+MOTION_PAIRS = [(H, W, 8, 8), (720, 1280, 16, 8)]
+PLANT = (3, -2)
+#: the video server phase: client threads, requests per client, queries
+SERVER_CLIENTS, SERVER_REQUESTS = 4, 8
+SERVER_QUERIES = [("frame", (0, 16)), ("car", (0, 64)), ("car", (16, 48))]
+CLI_SPEC = (192, 320, 32)
 
 KERNELS = {
     "decode_gop_blocks": dict(
@@ -149,15 +192,19 @@ KERNELS = {
         source="src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash.py:63"),
+    "sad_search": dict(
+        source="src/repro_torch/kernels/sad/csrc/sad_search.cu",
+        replaces="src/repro/kernels/sad/sad.py:41"),
 }
 
 
 def counters() -> dict:
-    from repro_torch.kernels import dct, decode, flash_attention, idct
+    from repro_torch.kernels import dct, decode, flash_attention, idct, sad
 
     return {"decode_gop_blocks": decode.LAUNCHES, "dct_quant": dct.LAUNCHES,
             "idct_dequant": idct.LAUNCHES,
-            "flash_attention": flash_attention.LAUNCHES}
+            "flash_attention": flash_attention.LAUNCHES,
+            "sad_search": sad.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -237,13 +284,14 @@ def check(cond: bool, what: str) -> None:
 
 
 def build_all() -> float:
-    """Build the four kernels, one ``nvcc`` per source, all at once."""
+    """Build the five kernels, one ``nvcc`` per source, all at once."""
     from repro_torch.kernels.dct import LIBRARY as DCT
     from repro_torch.kernels.decode.build import LIBRARY as DECODE
     from repro_torch.kernels.flash_attention import LIBRARY as FLASH
     from repro_torch.kernels.idct import LIBRARY as IDCT
+    from repro_torch.kernels.sad import LIBRARY as SAD
 
-    libs = (FLASH, DECODE, DCT, IDCT)
+    libs = (FLASH, DECODE, DCT, IDCT, SAD)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(), libs))
@@ -413,13 +461,15 @@ def ingest_phase(frames, dets) -> tuple:
     from repro_torch.codec.encode import (EncoderConfig, decode_tile,
                                           encode_tile, encode_tiles)
     from repro_torch.codec.psnr import psnr
-    from repro_torch.core import (CacheConfig, DecodeConfig, VideoStore,
-                                  uniform_layout)
+    from repro_torch.core import (CacheConfig, DecodeConfig, TuningConfig,
+                                  VideoStore, uniform_layout)
 
     cfg = EncoderConfig(gop=GOP, qp=QP)
-    # cache off: every scan of the scan phase decodes
+    # cache off: every scan of the scan and server phases decodes; tuning
+    # off: the served and in-process scans see one layout
     store = VideoStore(decode=DecodeConfig(device=DEVICE),
-                       cache=CacheConfig(budget_bytes=0))
+                       cache=CacheConfig(budget_bytes=0),
+                       tuning=TuningConfig(mode="off"))
     check(store.decode_backend == "batched"
           and store.decode_config.device.startswith(DEVICE),
           f"store decodes with {store.decode_backend} on "
@@ -562,7 +612,8 @@ def _scan_split(store) -> dict:
     return split
 
 
-def scan_phase(store) -> dict:
+def scan_phase(store) -> tuple:
+    """(launches, oracle frames): the scan paths against the oracle."""
     n = N_FRAMES
     store.add_detections("v", {f: [("frame", (0, 0, H, W))]
                                for f in range(n)})
@@ -629,7 +680,171 @@ def scan_phase(store) -> dict:
                    for k, v in split.items()), flush=True)
     print(f"scan setup: oracle_s={oracle_s:.3f} "
           f"regions_checked max_abs_err={worst:.3g}", flush=True)
-    return launches
+    return launches, oracle
+
+
+# ------------------------------------------------------------ video serving
+def _shm_pool_bytes() -> int:
+    """A shared-memory pool budget within the free space of /dev/shm: a
+    reply written past a full tmpfs would fault, so the pool stays at half
+    the free space (replies beyond it ride the npz payload)."""
+    st = os.statvfs("/dev/shm")
+    return min(1 << 30, st.f_bavail * st.f_frsize // 2)
+
+
+def video_server_phase(store, oracle) -> None:
+    """The 1080p, 48-tile store served in-process through the port's
+    ``VideoStoreServer`` on a Unix socket, driven by client threads, each
+    with its own ``RemoteVideoStore``, once per transport, and once more
+    over the socket with the JSON codec where msgpack is the default;
+    every reply is held bit for bit against the same scan in-process."""
+    from repro_torch.core import RemoteVideoStore, VideoStoreServer, wire
+    from repro_torch.core.shm import shm_available
+
+    want = {}
+    for lbl, fr in SERVER_QUERIES:
+        res = store.scan("v").labels(lbl).frames(*fr).execute()
+        _check_regions(res.regions, oracle, f"server reference {lbl}{fr}")
+        want[(lbl, fr)] = res.regions
+    default = wire.default_codec()
+    passes = [("socket", default)] + (
+        [("shm", default)] if shm_available() else []) + (
+        [("socket", "json")] if default != "json" else [])
+    pool_bytes = _shm_pool_bytes() if shm_available() else 0
+    print(f"server: default codec={default} msgpack="
+          f"{wire._msgpack is not None} passes={passes} "
+          f"shm_pool_bytes={pool_bytes}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="tasm")
+    try:
+        for transport, codec in passes:
+            sock = os.path.join(tmp, f"{transport}_{codec}.sock")
+            lat, seen, errors = [], [], []
+            lock = threading.Lock()
+
+            def client(k):
+                try:
+                    with RemoteVideoStore(sock, transport=transport,
+                                          timeout=600) as cli:
+                        for i in range(SERVER_REQUESTS):
+                            q = SERVER_QUERIES[(k + i) % len(SERVER_QUERIES)]
+                            t0 = time.perf_counter()
+                            res = cli.scan("v").labels(q[0]) \
+                                .frames(*q[1]).execute()
+                            dt = time.perf_counter() - t0
+                            _check_identical(want[q], res.regions,
+                                             f"{transport} client {k} {q}")
+                            with lock:
+                                lat.append(dt)
+                                seen.append((res.stats.transport,
+                                             res.stats.payload_bytes))
+                            del res
+                except BaseException as e:  # noqa: BLE001 - raised below
+                    errors.append(e)
+
+            with VideoStoreServer(store, path=sock, owns_store=False,
+                                  codec=codec,
+                                  shm_max_bytes=max(pool_bytes, 1)):
+                reset_counts()
+                threads = [threading.Thread(target=client, args=(k,))
+                           for k in range(SERVER_CLIENTS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+            check(not any(t.is_alive() for t in threads),
+                  f"{transport}: a client hung")
+            if errors:
+                raise errors[0]
+            n = SERVER_CLIENTS * SERVER_REQUESTS
+            check(len(lat) == n, f"{transport}: {len(lat)} of {n} replies")
+            check(launches["decode_gop_blocks"] > 0,
+                  f"{transport}: served scans never launched the decode "
+                  f"kernel: {launches}")
+            by = {}
+            for t, _ in seen:
+                by[t] = by.get(t, 0) + 1
+            p50, p95 = np.percentile(lat, [50, 95])
+            print(f"server {transport}: {SERVER_CLIENTS} clients x "
+                  f"{SERVER_REQUESTS} requests, wall_s={wall:.6f} "
+                  f"requests_per_s={n / wall:.3f} latency_p50_s={p50:.6f} "
+                  f"latency_p95_s={p95:.6f} latency_max_s={max(lat):.6f} "
+                  f"reply_bytes={int(sum(b for _, b in seen))} "
+                  f"replies_by_transport={by} codec={codec} "
+                  f"decode_launches={launches['decode_gop_blocks']} "
+                  f"(bit-identical to in-process)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_server_phase(seed: int) -> None:
+    """``python -m repro_torch.tasm_serve --device cuda`` as a subprocess
+    over a small store root: ``ping``, ``config()``, one scan, and a clean
+    exit on ``shutdown_server()``; every wait has a timeout."""
+    from repro_torch.codec.encode import decode_tile
+    from repro_torch.core import (DecodeConfig, NoTilingPolicy,
+                                  RemoteVideoStore, TuningConfig, VideoStore)
+    from repro_torch.data.video_gen import generate, sparse_spec
+
+    h, w, n = CLI_SPEC
+    frames, dets = generate(sparse_spec(seed=seed + 5, height=h, width=w,
+                                        n_frames=n))
+    tmp = tempfile.mkdtemp(prefix="tasm")
+    root, sock = os.path.join(tmp, "root"), os.path.join(tmp, "cli.sock")
+    local = VideoStore(store_root=root, decode=DecodeConfig(device=DEVICE),
+                       tuning=TuningConfig(mode="off"))
+    local.ingest("cam", frames, detections=dets, policy=NoTilingPolicy())
+    want = local.scan("cam").labels("car").frames(0, n).execute().regions
+    ts = local.video("cam").store
+    oracle = np.zeros((n, h, w), np.float32)
+    for rec in ts.sots:
+        for i, (y1, x1, y2, x2) in enumerate(rec.layout.tile_rects()):
+            oracle[rec.frame_start:rec.frame_end, y1:y2, x1:x2] = \
+                decode_tile(ts._read_tile(rec, i))
+    local.close()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "repro_torch.tasm_serve", "--device",
+           DEVICE, "--socket", sock, "--store-root", root, "--tuning", "off"]
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.perf_counter()
+        while not os.path.exists(sock):
+            if proc.poll() is not None:
+                raise AssertionError(f"tasm_serve exited {proc.returncode} "
+                                     f"before serving: {proc.stdout.read()}")
+            check(time.perf_counter() - t0 < 180,
+                  "tasm_serve's socket never appeared")
+            time.sleep(0.05)
+        start_s = time.perf_counter() - t0
+        with RemoteVideoStore(sock, timeout=300) as cli:
+            pong = cli.ping()
+            cfg = cli.config()
+            t1 = time.perf_counter()
+            res = cli.scan("cam").labels("car").frames(0, n).execute()
+            scan_s = time.perf_counter() - t1
+            cli.shutdown_server()
+        rc = proc.wait(timeout=120)
+        log = proc.stdout.read().strip()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(pong.get("pong") is True, f"tasm_serve ping: {pong}")
+    check(cfg["decode"].device.startswith(DEVICE),
+          f"tasm_serve decodes on {cfg['decode'].device}")
+    _check_identical(want, res.regions, "tasm_serve scan")
+    worst = _check_regions(res.regions, oracle, "tasm_serve scan")
+    check(rc == 0, f"tasm_serve exited {rc}")
+    print(f"tasm_serve subprocess ({h}x{w}, {n} frames): {log!r}; "
+          f"start_s={start_s:.3f} scan_s={scan_s:.6f} regions="
+          f"{len(res.regions)} max_abs_err={worst:.3g} decode="
+          f"{cfg['decode']} exit={rc}", flush=True)
 
 
 def retile_phase(frames, dets, mode: str) -> dict:
@@ -765,6 +980,201 @@ def flash_kernel_phase(seed: int) -> dict:
     print(f"flash_attention max_abs_err={worst:.3g} wrapper host cost: "
           f"{at_main['host_us']:.3f} us/call", flush=True)
     return at_main
+
+
+# ------------------------------------------------------------ motion search
+def sad_bound_ms(n: int, b: int, r: int) -> tuple[float, str]:
+    """Least time for one search: blocks and windows read and the three
+    [N] outputs written once over the HBM rate, against the two fp32 adds
+    (a subtract, an add of the absolute value) of every (pixel, candidate)
+    pair over the card's fp32 add rate."""
+    w = b + 2 * r
+    n_bytes = n * 4 * (b * b + w * w) + 12 * n
+    adds = 2 * n * (2 * r + 1) ** 2 * b * b
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, adds / FP32_ADDS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sad_at(cur, win, dy, dx):
+    """The plain SAD of candidate (dy[n], dx[n]) of every block n."""
+    b = cur.shape[-1]
+    idx = torch.arange(b, device=cur.device)
+    rows = dy.long()[:, None] + idx
+    cols = dx.long()[:, None] + idx
+    cand = win[torch.arange(cur.shape[0], device=cur.device)[:, None, None],
+               rows[:, :, None], cols[:, None, :]]
+    return (cur - cand).abs().sum(dim=(1, 2))
+
+
+def check_sad(got, want, cur, win, what: str, exact: bool) -> int:
+    """Hold a search result against the plain one: all three outputs equal
+    on integer-valued pixels (ties included); else ``sad`` within
+    ``SAD_TOL`` and ``dy``/``dx`` equal except at near-ties, where the
+    chosen candidate's plain SAD is within ``SAD_TOL`` of the plain
+    minimum.  Returns the number of near-ties."""
+    (dy, dx, sad), (rdy, rdx, rsad) = got, want
+    check(dy.dtype == dx.dtype == torch.int32 and sad.dtype == torch.float32
+          and dy.shape == dx.shape == sad.shape == (cur.shape[0],),
+          f"{what}: outputs {dy.dtype} {dx.dtype} {sad.dtype} "
+          f"{tuple(sad.shape)}")
+    if exact:
+        check(torch.equal(dy, rdy) and torch.equal(dx, rdx)
+              and torch.equal(sad, rsad),
+              f"{what}: not equal to the plain version on integer pixels "
+              f"({int(((dy != rdy) | (dx != rdx)).sum())} choices differ, "
+              f"max |sad diff| {float((sad - rsad).abs().max())})")
+        return 0
+    rel = float(((sad - rsad).abs() / rsad.abs().clamp_min(1e-30)).max())
+    check(rel <= SAD_TOL, f"{what}: sad differs by rtol {rel} > {SAD_TOL}")
+    off = (dy != rdy) | (dx != rdx)
+    if bool(off.any()):
+        chosen = _sad_at(cur, win, dy, dx)
+        near = (chosen - rsad).abs() <= SAD_TOL * rsad.abs()
+        check(bool(near[off].all()),
+              f"{what}: {int((off & ~near).sum())} choices differ beyond a "
+              f"near-tie")
+    return int(off.sum())
+
+
+def _sad_inputs(rng, n: int, b: int, r: int, integer: bool):
+    w = b + 2 * r
+    if integer:
+        cur = rng.integers(0, 256, (n, b, b)).astype(np.float32)
+        win = rng.integers(0, 256, (n, w, w)).astype(np.float32)
+        win[0] = 77.0  # a constant window: every candidate ties at (0, 0)
+    else:
+        cur = (rng.standard_normal((n, b, b)) * 25).astype(np.float32)
+        win = (rng.standard_normal((n, w, w)) * 25).astype(np.float32)
+    return torch.from_numpy(cur).to(DEVICE), torch.from_numpy(win).to(DEVICE)
+
+
+def sad_kernel_phase(seed: int) -> dict:
+    from repro_torch.kernels.sad import sad_search, sad_search_ref
+
+    rng = np.random.default_rng(seed + 4)
+    near_ties = worst = 0
+    for b, r in SAD_SWEEP_BR:
+        for n in SAD_SWEEP_N:
+            for integer in (True, False):
+                cur, win = _sad_inputs(rng, n, b, r, integer)
+                got = sad_search(cur, win)
+                want = sad_search_ref(cur, win)
+                torch.cuda.synchronize()
+                what = (f"sad_search b={b} r={r} N={n} "
+                        f"{'integer' if integer else 'float'}")
+                near_ties += check_sad(got, want, cur, win, what, integer)
+                if integer:
+                    check((int(got[0][0]), int(got[1][0])) == (0, 0),
+                          f"{what}: a constant window chose "
+                          f"({int(got[0][0])}, {int(got[1][0])})")
+                worst = max(worst, float((got[2] - want[2]).abs().max()))
+    print(f"sad_search sweep: (b, r) in {SAD_SWEEP_BR}, N in {SAD_SWEEP_N}, "
+          f"integer and float pixels: integer exact (ties and a constant "
+          f"window included), float near_ties={near_ties} "
+          f"max_abs_err={worst:.3g}", flush=True)
+    timed = {}
+    for h, w, b, r in MOTION_PAIRS:
+        n = (h // b) * (w // b)
+        cur, win = _sad_inputs(rng, n, b, r, False)
+        k_ms = cuda_ms(lambda: sad_search(cur, win), iters=20)
+        r_ms = cuda_ms(lambda: sad_search_ref(cur, win), iters=3, warmup=1)
+        b_ms, b_by = sad_bound_ms(n, b, r)
+        one, one_w = cur[:1].contiguous(), win[:1].contiguous()
+        h_us = host_us(lambda: sad_search(one, one_w))
+        print(f"sad_search N={n} b={b} r={r} ({h}p pair): kernel_ms="
+              f"{k_ms:.6f} plain_ms={r_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+              f"share_of_bound={b_ms / k_ms:.3f} wrapper host_us={h_us:.3f}",
+              flush=True)
+        timed[(h, w)] = dict(ms=k_ms, plain_ms=r_ms, bound_ms=b_ms,
+                             bound_by=b_by, host_us=h_us)
+    return dict(timed[MOTION_PAIRS[0][:2]], max_abs_err=worst,
+                library_ms=None)
+
+
+def motion_path_phase(seed: int, frames) -> int:
+    """Motion search between consecutive frames of the synthetic video at
+    1080p (b=8) and 720p (b=16): ``frame_motion_blocks`` on the host, one
+    pinned H2D copy, one launch, one D2H copy per pair, held against the
+    plain version; then the planted shift on a real frame.  Returns the
+    launches of the two pairs."""
+    from repro_torch.data.video_gen import generate, sparse_spec
+    from repro_torch.kernels.sad import (frame_motion_blocks, sad_search_op,
+                                         sad_search_ref)
+
+    pairs = {(H, W): frames[:2]}
+    f720, _ = generate(sparse_spec(seed=seed, height=720, width=1280,
+                                   n_frames=2))
+    pairs[(720, 1280)] = f720
+
+    def run(cur, ref, b, r):
+        t0 = time.perf_counter()
+        blocks, windows = frame_motion_blocks(cur, ref, b=b, r=r)
+        t1 = time.perf_counter()
+        host = (torch.from_numpy(blocks).pin_memory(),
+                torch.from_numpy(windows).pin_memory())
+        dev = [x.to(DEVICE, non_blocking=True) for x in host]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = sad_search_op(*dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        res = [x.cpu() for x in out]
+        t4 = time.perf_counter()
+        times = dict(blocks_s=t1 - t0, h2d_s=t2 - t1, kernel_s=t3 - t2,
+                     d2h_s=t4 - t3)
+        return dev, out, res, times
+
+    reset_counts()
+    runs = {}
+    for h, w, b, r in MOTION_PAIRS:
+        f = pairs[(h, w)]
+        runs[(h, w)] = run(f[1], f[0], b, r)
+    launches = read_counts()
+    check(launches["sad_search"] == len(MOTION_PAIRS)
+          and sum(launches.values()) == len(MOTION_PAIRS),
+          f"the motion path launched {launches}, want one sad_search per "
+          f"pair")
+    near_ties = 0
+    for h, w, b, r in MOTION_PAIRS:
+        dev, out, res, times = runs[(h, w)]
+        what = f"motion {h}p b={b} r={r}"
+        near_ties += check_sad(out, sad_search_ref(*dev), *dev, what, False)
+        check(all(torch.equal(a, c.cpu()) for a, c in zip(res, out)),
+              f"{what}: D2H copy differs")
+        f8 = np.clip(np.round(pairs[(h, w)]), 0, 255).astype(np.float32)
+        dev8, out8, _, _ = run(f8[1], f8[0], b, r)
+        check_sad(out8, sad_search_ref(*dev8), *dev8, f"{what} 8-bit", True)
+        moved = float(((out[0] != r) | (out[1] != r)).float().mean())
+        print(f"{what}: N={dev[0].shape[0]} " +
+              " ".join(f"{k}={v:.6f}" for k, v in times.items()) +
+              f" moved_share={moved:.4f} mean_sad={float(out[2].mean()):.3f}"
+              f" (8-bit frames: exact)", flush=True)
+    # the planted shift of tests/test_kernels.py on a real 8-bit frame:
+    # cur[y, x] == ref[y - 3, x + 2], so inner blocks match at (r-3, r+2)
+    h, w, b, r = MOTION_PAIRS[0]
+    ref = np.clip(np.round(frames[0]), 0, 255).astype(np.float32)
+    cur = np.roll(ref, shift=PLANT, axis=(0, 1))
+    dev = [torch.from_numpy(x).to(DEVICE)
+           for x in frame_motion_blocks(cur, ref, b=b, r=r)]
+    out = sad_search_op(*dev)
+    check_sad(out, sad_search_ref(*dev), *dev, "planted shift", True)
+    dy, dx, sad = (x.cpu().numpy() for x in out)
+    nby, nbx = h // b, w // b
+    inner = np.zeros((nby, nbx), bool)
+    inner[1:-1, 1:-1] = True
+    inner = inner.ravel()
+    hit = (dy == r - PLANT[0]) & (dx == r - PLANT[1])
+    check(bool((sad[inner] == 0).all()),
+          f"planted shift: {int((sad[inner] != 0).sum())} inner blocks have "
+          f"a nonzero SAD")
+    share = float(hit[inner].mean())
+    print(f"motion planted shift {PLANT} on a {h}p frame: inner blocks "
+          f"{int(inner.sum())}, found at (r-3, r+2): {share:.6f} (the rest "
+          f"tie at SAD 0 with an earlier candidate); near_ties in the "
+          f"pairs={near_ties}", flush=True)
+    check(share >= 0.5, f"planted shift found in only {share} of blocks")
+    return launches["sad_search"]
 
 
 def _serve_config(**kw):
@@ -998,13 +1408,19 @@ def main() -> int:
     numbers = {"decode_gop_blocks": decode_kernel_phase(args.seed)}
     numbers.update(encode_kernel_phase(args.seed))
     numbers["flash_attention"] = flash_kernel_phase(args.seed)
+    numbers["sad_search"] = sad_kernel_phase(args.seed)
 
     t0 = time.perf_counter()
     frames, dets = generate(sparse_spec(seed=args.seed, height=H, width=W,
                                         n_frames=N_FRAMES))
     print(f"generate_s={time.perf_counter() - t0:.3f}", flush=True)
+    motion = motion_path_phase(args.seed, frames)
     store, ingest = ingest_phase(frames, dets)
-    scan = scan_phase(store)
+    scan, oracle = scan_phase(store)
+    video_server_phase(store, oracle)
+    store.close()
+    del store, oracle
+    cli_server_phase(args.seed)
     for mode in ("inline", "background"):
         retile_phase(frames, dets, mode)
     del frames
@@ -1014,7 +1430,8 @@ def main() -> int:
     launches = {"decode_gop_blocks": scan["decode_gop_blocks"],
                 "dct_quant": ingest["dct_quant"],
                 "idct_dequant": ingest["idct_dequant"],
-                "flash_attention": serve["flash_attention"]}
+                "flash_attention": serve["flash_attention"],
+                "sad_search": motion}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", **KERNELS[name],
         "launches": launches[name],

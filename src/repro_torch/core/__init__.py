@@ -5,7 +5,18 @@ tiling policies, the tile store, and the VideoStore engine with its
 epoch-keyed tile cache, merging scan scheduler and background physical
 tuner, copied from the reference.  Decodes run as fused dispatches of the
 CUDA decode kernel on ``DecodeConfig(device=...)`` (``"cuda"`` by default).
+
+Cross-process serving, copied too: ``VideoStoreServer`` (``server.py``)
+exposes one store over a Unix/TCP socket (``wire.py``), and
+``RemoteVideoStore`` (``client.py``) mirrors the declarative surface, so
+many client processes share one scheduler, tile cache, tuner and card;
+same-host clients negotiate the shared-memory reply transport
+(``shm.py``).  ``python -m repro_torch.tasm_serve`` is the entry point.
+The deprecated single-video ``TASM`` facade remains as a shim.
 """
+from repro_torch.core import wire
+from repro_torch.core.client import (RemoteError, RemoteScanQuery,
+                                     RemoteServingSession, RemoteVideoStore)
 from repro_torch.core.config import (CacheConfig, DecodeConfig, TuningConfig,
                                      DEFAULT_CACHE_BYTES)
 from repro_torch.core.cost import (CostModel, calibrate, calibrate_io,
@@ -34,6 +45,9 @@ from repro_torch.core.query import (PhysicalPlan, ScanPlan, ScanQuery,
                                     merge_results, split_plan)
 from repro_torch.core.scheduler import ScanScheduler, ServingSession
 from repro_torch.core.semantic_index import SemanticIndex
+from repro_torch.core.server import VideoStoreServer
+from repro_torch.core.shm import SegmentPool, shm_available
 from repro_torch.core.storage import SOTRecord, TileStore
+from repro_torch.core.tasm import TASM
 from repro_torch.core.tile_cache import CacheStats, TileCache, WorkloadPredictor
 from repro_torch.core.tuner import PhysicalTuner, TunerStats

@@ -6,7 +6,10 @@ from repro_torch.kernels.decode import decode_fused_op, decode_fused_ref
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_op)
 from repro_torch.kernels.idct import idct_dequant_op, idct_dequant_ref
+from repro_torch.kernels.sad import (frame_motion_blocks, sad_search_op,
+                                     sad_search_ref)
 
 __all__ = ["attention_ref", "dct_quant_op", "dct_quant_ref",
            "decode_fused_op", "decode_fused_ref", "flash_attention_op",
-           "idct_dequant_op", "idct_dequant_ref"]
+           "frame_motion_blocks", "idct_dequant_op", "idct_dequant_ref",
+           "sad_search_op", "sad_search_ref"]

@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
 block by block independent of the batch, and under the batched decode,
-the device encoder, the engine and LM serving against the numpy oracles
-and the plain versions.  Marked
+the device encoder, the engine, the video server and LM serving against
+the numpy oracles and the plain versions.  Marked
 ``cuda``; each test skips where no CUDA device is present.  This file
 imports no JAX, so it also runs where only the port is installed:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
@@ -16,8 +16,9 @@ from repro_torch.codec.batch import decode_tile_batch
 from repro_torch.codec.encode import (EncoderConfig, decode_tile, encode_tile,
                                       encode_tiles)
 from repro_torch.codec.psnr import psnr
-from repro_torch.core import (CacheConfig, DecodeConfig, RegretPolicy,
-                              TuningConfig, VideoStore, uniform_layout)
+from repro_torch.core import (CacheConfig, DecodeConfig, NoTilingPolicy,
+                              RegretPolicy, RemoteVideoStore, TuningConfig,
+                              VideoStore, VideoStoreServer, uniform_layout)
 from repro_torch.core.cost import CostModel
 from repro_torch.data.video_gen import (ObjectSpec, VideoSpec, generate,
                                         sparse_spec)
@@ -25,6 +26,7 @@ from repro_torch.configs.base import get_config, make_serve_config
 from repro_torch.kernels import dct as dct_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import idct as idct_kernel
+from repro_torch.kernels import sad as sad_kernel
 from repro_torch.kernels.decode import (LAUNCHES, decode_fused_ref,
                                         decode_gop_blocks)
 from repro_torch.models import attention as attention_mod
@@ -385,3 +387,127 @@ def test_batcher_on_cuda_prefills_through_the_kernel(cuda):
     assert stats["requests"] == 3
     assert flash_kernel.LAUNCHES.count - before == 2 * 2  # 2 waves x layers
     assert all(len(r.out_tokens) == 4 for r in batcher.finished)
+
+
+# ----------------------------------------------------------------- sad_search
+SAD_RTOL = 1e-5
+
+
+def _sad_inputs(seed, n, b, r, integer=False):
+    rng = np.random.default_rng(seed)
+    w = b + 2 * r
+    if integer:
+        return (rng.integers(0, 4, (n, b, b)).astype(np.float32),
+                rng.integers(0, 4, (n, w, w)).astype(np.float32))
+    return ((rng.standard_normal((n, b, b)) * 25).astype(np.float32),
+            (rng.standard_normal((n, w, w)) * 25).astype(np.float32))
+
+
+def _sad_at(cur, win, dy, dx):
+    """The plain SAD of candidate (dy[n], dx[n]) of every block n."""
+    b = cur.shape[-1]
+    rows = (dy.long()[:, None] + torch.arange(b, device=cur.device))
+    cols = (dx.long()[:, None] + torch.arange(b, device=cur.device))
+    cand = win[torch.arange(cur.shape[0], device=cur.device)[:, None, None],
+               rows[:, :, None], cols[:, None, :]]
+    return (cur - cand).abs().sum(dim=(1, 2))
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 500])
+@pytest.mark.parametrize("b,r", [(8, 4), (16, 8), (8, 8), (4, 0)])
+def test_sad_search_matches_plain_version(cuda, b, r, n):
+    cur, win = (torch.from_numpy(x).to(cuda)
+                for x in _sad_inputs(b * 100 + r * 10 + n, n, b, r))
+    before = sad_kernel.LAUNCHES.count
+    dy, dx, sad = sad_kernel.sad_search(cur, win)
+    torch.cuda.synchronize()
+    assert sad_kernel.LAUNCHES.count == before + 1
+    assert (dy.dtype, dx.dtype, sad.dtype) == (torch.int32, torch.int32,
+                                               torch.float32)
+    rdy, rdx, rsad = sad_kernel.sad_search_ref(cur, win)
+    torch.testing.assert_close(sad, rsad, rtol=SAD_RTOL, atol=0)
+    # equal choices except at near-ties, where the kernel's candidate is
+    # as good as the plain minimum to within the tolerance
+    off = (dy != rdy) | (dx != rdx)
+    chosen = _sad_at(cur, win, dy, dx)
+    assert bool(((chosen - rsad).abs() <= SAD_RTOL * rsad.abs())[off].all())
+
+
+def test_sad_search_at_the_1080p_motion_shape(cuda):
+    cur, win = (torch.from_numpy(x).to(cuda)
+                for x in _sad_inputs(32400, 32400, 8, 8))
+    dy, dx, sad = sad_kernel.sad_search_op(cur, win)
+    rdy, rdx, rsad = sad_kernel.sad_search_ref(cur, win)
+    torch.testing.assert_close(sad, rsad, rtol=SAD_RTOL, atol=0)
+    off = (dy != rdy) | (dx != rdx)
+    assert int(off.sum()) <= 32  # near-ties only
+    chosen = _sad_at(cur, win, dy, dx)
+    assert bool(((chosen - rsad).abs() <= SAD_RTOL * rsad.abs())[off].all())
+
+
+@pytest.mark.parametrize("b,r,n", [(8, 4, 64), (16, 8, 9), (4, 0, 5),
+                                   (8, 8, 333), (3, 2, 17)])
+def test_sad_search_integer_pixels_exact_with_ties(cuda, b, r, n):
+    cur, win = _sad_inputs(n + b, n, b, r, integer=True)
+    win[0] = 3.0  # every candidate ties: the first, (0, 0), wins
+    cur, win = torch.from_numpy(cur).to(cuda), torch.from_numpy(win).to(cuda)
+    got = sad_kernel.sad_search(cur, win)
+    want = sad_kernel.sad_search_ref(cur, win)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (int(got[0][0]), int(got[1][0])) == (0, 0)
+
+
+def test_sad_search_planted_motion_on_a_frame(cuda):
+    rng = np.random.default_rng(0)
+    ref = rng.uniform(0, 255, (64, 64)).astype(np.float32)
+    cur = np.roll(ref, shift=(3, -2), axis=(0, 1))
+    blocks, windows = sad_kernel.frame_motion_blocks(cur, ref, b=16, r=8)
+    dy, dx, sad = sad_kernel.sad_search_op(torch.from_numpy(blocks).to(cuda),
+                                           torch.from_numpy(windows).to(cuda))
+    for i in (5, 6, 9, 10):
+        assert (int(dy[i]), int(dx[i]), float(sad[i])) == (5, 10, 0.0)
+
+
+def test_sad_search_rejects_bad_input(cuda):
+    cur, win = (torch.from_numpy(x).to(cuda) for x in _sad_inputs(0, 4, 8, 4))
+    before = sad_kernel.LAUNCHES.count
+    with pytest.raises(ValueError):  # one tensor on the CPU
+        sad_kernel.sad_search(cur, win.cpu())
+    with pytest.raises(TypeError):
+        sad_kernel.sad_search(cur.double(), win.double())
+    with pytest.raises(ValueError):  # not contiguous
+        sad_kernel.sad_search(cur.transpose(1, 2), win)
+    with pytest.raises(ValueError):  # window narrower than the block
+        sad_kernel.sad_search(cur, win[:, :6, :6].contiguous())
+    big = torch.zeros((1, 16, 16), device=cuda)
+    with pytest.raises(ValueError):  # the tiles exceed shared memory
+        sad_kernel.sad_search(big, torch.zeros((1, 116, 116), device=cuda))
+    assert sad_kernel.LAUNCHES.count == before
+    # the op casts any real dtype to f32 on the card
+    dy, dx, sad = sad_kernel.sad_search_op(cur.double(), win.half().float())
+    assert sad.dtype == torch.float32
+
+
+# ------------------------------------------------------------ video server
+def test_server_scan_on_cuda_bit_identical_to_execute(cuda, tmp_path):
+    frames, dets = generate(sparse_spec(seed=4, n_frames=32, height=96,
+                                        width=160))
+    store = VideoStore(decode=DecodeConfig(device=str(cuda)),
+                       cache=CacheConfig(budget_bytes=0),
+                       tuning=TuningConfig(mode="off"))
+    store.ingest("v", frames, detections=dets, policy=NoTilingPolicy())
+    sock = str(tmp_path / "cuda.sock")
+    try:
+        with VideoStoreServer(store, path=sock, owns_store=False).start(), \
+                RemoteVideoStore(sock, timeout=120) as client:
+            assert client.config()["decode"].device.startswith("cuda")
+            before = LAUNCHES.count
+            got = client.scan("v").labels("car").frames(0, 32).execute()
+            assert LAUNCHES.count > before
+            want = store.scan("v").labels("car").frames(0, 32).execute()
+            assert got.regions and len(got.regions) == len(want.regions)
+            for g, w in zip(got.regions, want.regions):
+                assert g[:-1] == w[:-1] and np.array_equal(g[-1], w[-1])
+    finally:
+        store.close()
