@@ -11,7 +11,8 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 3. decode kernel phase: holds ``decode_gop_blocks`` against its plain
    PyTorch version on the card for F in {1, 4, 16}, M in {64, 4096,
    32768}, qp in {4, 8, 12} (max |diff| <= 1e-3 on pixel-scale output) and
-   times both, with the bound F*M*384 B over the card's published HBM rate;
+   times both, with the bound F*M*384 B over the card's published HBM rate
+   and the kernel's achieved GB/s beside its share of the bound;
 4. encode kernel phase: holds ``dct_quant`` (share of equal int16 outputs
    >= 0.999, no |diff| above 1) and ``idct_dequant`` (atol 1e-3, rtol 1e-5)
    against their plain versions for N in {64, 4096, 32400, 131072}, qp in
@@ -87,7 +88,9 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
    the device's busy share of their wall time;
-14. prints one JSON line with the kernels' numbers, then as its last line
+14. prints the times of the kernels redesigned for this card beside the
+   times recorded before the redesign (``BEFORE_REDESIGN``, from PERF.md),
+   one JSON line with the kernels' numbers, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 f32 products on the card stay f32 (``allow_tf32`` is set False for
@@ -177,6 +180,16 @@ PLANT = (3, -2)
 SERVER_CLIENTS, SERVER_REQUESTS = 4, 8
 SERVER_QUERIES = [("frame", (0, 16)), ("car", (0, 64)), ("car", (16, 48))]
 CLI_SPEC = (192, 320, 32)
+
+#: device ms of the redesigned kernels before their redesign, at the main
+#: path's shapes (PERF.md section 6: chip_smoke.py on an NVIDIA H100 80GB
+#: HBM3 at 700.00 W, with the first versions of both kernels), printed
+#: beside this run's
+BEFORE_REDESIGN = {
+    "decode_gop_blocks F=16 M=32768": 0.158934,
+    f"flash_attention {FLASH_MAIN} bf16 causal": 0.221118,
+    f"flash_attention {FLASH_LONG} bf16 causal": 1.557814,
+}
 
 KERNELS = {
     "decode_gop_blocks": dict(
@@ -324,11 +337,12 @@ def decode_kernel_phase(seed: int) -> dict:
                                warmup=1)
                 b_ms, b_by = bound_ms(n_frames * m, BYTES_PER_BLOCK_FRAME,
                                       FLOPS_PER_BLOCK_FRAME)
+                gb_s = n_frames * m * BYTES_PER_BLOCK_FRAME / k_ms / 1e6
                 print(f"decode F={n_frames:2d} M={m:5d} qp={qp}: "
                       f"kernel_ms={k_ms:.6f} ref_ms={r_ms:.6f} "
-                      f"bound_ms={b_ms:.6f} ({b_by}) "
-                      f"share_of_bound={b_ms / k_ms:.3f} max_abs_err={err:.3g}",
-                      flush=True)
+                      f"bound_ms={b_ms:.6f} ({b_by}) achieved_GB_s="
+                      f"{gb_s:.1f} share_of_bound={b_ms / k_ms:.3f} "
+                      f"max_abs_err={err:.3g}", flush=True)
                 if (n_frames, m) == (16, 32768):
                     at_main = dict(ms=k_ms, plain_ms=r_ms, bound_ms=b_ms,
                                    bound_by=b_by)
@@ -976,7 +990,8 @@ def flash_kernel_phase(seed: int) -> dict:
                                 bound_ms=b_ms, bound_by=b_by)
     q, k, v = _qkv(rng, 1, 9, 3, 16, 64, torch.bfloat16)
     at_main = dict(timed[FLASH_MAIN], max_abs_err=worst,
-                   host_us=host_us(lambda: flash_attention(q, k, v)))
+                   host_us=host_us(lambda: flash_attention(q, k, v)),
+                   long_ms=timed[FLASH_LONG]["ms"])
     print(f"flash_attention max_abs_err={worst:.3g} wrapper host cost: "
           f"{at_main['host_us']:.3f} us/call", flush=True)
     return at_main
@@ -1426,6 +1441,18 @@ def main() -> int:
     del frames
     calibration_phase()
     serve = serve_phase(args.seed)
+
+    now = {"decode_gop_blocks F=16 M=32768":
+           numbers["decode_gop_blocks"]["ms"],
+           f"flash_attention {FLASH_MAIN} bf16 causal":
+           numbers["flash_attention"]["ms"],
+           f"flash_attention {FLASH_LONG} bf16 causal":
+           numbers["flash_attention"]["long_ms"]}
+    print("redesigned kernels, this run against the time before the "
+          "redesign (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W): " +
+          "; ".join(f"{k}: {now[k]:.6f} ms, before {v:.6f} ms "
+                    f"({v / now[k]:.2f}x)"
+                    for k, v in BEFORE_REDESIGN.items()), flush=True)
 
     launches = {"decode_gop_blocks": scan["decode_gop_blocks"],
                 "dct_quant": ingest["dct_quant"],

@@ -11,30 +11,51 @@
 // Bound: memory.  One block-frame reads 128 B (int16 in) and writes 256 B
 // (f32 out) for about 2 kFLOP (16 FMAs per pixel plus the dequant and the
 // running sum), ~5.7 FLOP/B against the card's ~20 fp32 FLOP/B balance
-// point, so the floor is F*M*384 B over HBM bandwidth.
+// point, so the floor is F*M*384 B over HBM bandwidth.  Reaching it takes
+// 15-20 KB of loads in flight on every SM (bandwidth x latency / 132 SMs).
 //
-// Design (simple first): a thread block of 256 threads owns 4 columns; each
-// thread owns one output pixel (i, l) of one column.  Per frame the column's
-// dequantized coefficients go through shared memory for the two separable
-// 8-point products (t = D^T C, then x = t D), and each thread keeps the
-// running GOP sum for its pixel in a register while it walks F in order, so
-// nothing but the input and the final per-frame output touches HBM.  All
-// arithmetic is fp32 FMA on the CUDA cores: TF32 tensor cores would break the
-// 1e-3 tolerance against the numpy oracle.  A thread's arithmetic depends
-// only on its own column, never on M or on the column's position, so a
-// column decodes bit-identically in any batch.
+// Design: warp-level, with loads in flight.  A group of 8 lanes owns one
+// column and lane i of the group owns row i of its 8x8 block, so a warp owns
+// 4 neighbouring columns (512 contiguous bytes of each frame) and nothing in
+// the frame loop waits on another warp:
+//   - a lane loads its row of a frame as one 16-byte word (8 int16) and
+//     keeps the loads of the next kAhead frames in flight in a register
+//     ring, 64 bytes outstanding per lane, issued before the current frame
+//     is computed;
+//   - the first product mixes rows (t[i][l] = sum_j D[j][i] C[j][l]): each
+//     lane writes its dequantized row C[i][.] to a warp-private shared tile,
+//     one __syncwarp, and every lane reads the whole block back as 16 float4
+//     broadcasts (two tiles alternate by frame, so one __syncwarp a frame
+//     keeps every read ahead of the next write; the column tiles are padded
+//     by 16 bytes so a warp's 4 columns read 4 distinct bank groups);
+//   - the second product (x[i][l] = sum_k t[i][k] D[k][l]) stays in the
+//     lane's row, with D[k][l] read from the kernel's parameter bank;
+//   - the running GOP sum of the lane's row stays in 8 registers, and every
+//     frame's output row is written once, straight from them, as two float4.
+// Every pixel keeps the first version's arithmetic and order: (float)q * m,
+// t as an fmaf chain over j ascending from 0.0f, x as an fmaf chain over k
+// ascending from 0.0f, then acc += x; all fp32 FMA on the CUDA cores (TF32
+// tensor cores would break the 1e-3 tolerance against the numpy oracle).  A
+// lane's arithmetic depends only on its own column, never on M or on the
+// column's position, so a column decodes bit-identically in any batch.
+// Groups past the last column neither load nor store; offsets are 64-bit.
 //
 // The tables (D and both quant matrices) are passed by value as a kernel
 // parameter, not through a __constant__ symbol: concurrent host threads
 // decode groups of different qp, and a kernel argument is private to its
-// launch.
+// launch.  Every read of them has a compile-time index, so they stay in the
+// parameter bank.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kCols = 4;              // columns per thread block
-constexpr int kThreads = kCols * 64;  // one thread per pixel of each column
+constexpr int kWarps = 8;                      // per thread block
+constexpr int kThreads = kWarps * 32;
+constexpr int kColsPerWarp = 4;                // 8 lanes per column
+constexpr int kCols = kWarps * kColsPerWarp;   // columns per thread block
+constexpr int kAhead = 4;                      // frames in flight per lane
+constexpr int kTileStride = 64 + 4;            // floats per column tile
 
 struct Tables {
   float d[64];      // DCT-II basis, row-major D[k][i]
@@ -42,59 +63,112 @@ struct Tables {
   float inter[64];  // residual quant matrix
 };
 
+__device__ __forceinline__ uint4 load_row(const int16_t* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
 __global__ void __launch_bounds__(kThreads)
 decode_gop_blocks_kernel(const int16_t* __restrict__ q,
                          float* __restrict__ out, const Tables tables,
                          int n_frames, long long n_cols) {
-  __shared__ float s_d[64];
-  __shared__ float s_intra[64];
-  __shared__ float s_inter[64];
-  __shared__ float s_c[kCols][64];  // dequantized coefficients C
-  __shared__ float s_t[kCols][64];  // D^T C
+  // per warp: two alternating tiles of its 4 columns' dequantized blocks
+  __shared__ __align__(16) float s_c[kWarps][2][kColsPerWarp][kTileStride];
 
-  const int tid = threadIdx.x;
-  const int lc = tid >> 6;  // local column
-  const int p = tid & 63;   // pixel (row-major)
-  const int i = p >> 3;
-  const int l = p & 7;
-  const long long col = (long long)blockIdx.x * kCols + lc;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane >> 3;  // column within the warp
+  const int i = lane & 7;     // this lane's row of the 8x8 block
+  const long long col =
+      ((long long)blockIdx.x * kWarps + warp) * kColsPerWarp + grp;
   const bool valid = col < n_cols;
 
-  if (tid < 64) {
-    s_d[tid] = tables.d[tid];
-    s_intra[tid] = tables.intra[tid];
-    s_inter[tid] = tables.inter[tid];
-  }
-  __syncthreads();
-
-  float acc = 0.0f;
-  for (int f = 0; f < n_frames; ++f) {
-    const long long off = ((long long)f * n_cols + col) * 64 + p;
-    if (valid) {
-      const float m = f == 0 ? s_intra[p] : s_inter[p];
-      s_c[lc][p] = (float)q[off] * m;
+  // this lane's column of D and rows of the two quant matrices
+  float d_col[8], m_intra[8], m_inter[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if (i == r) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        d_col[j] = tables.d[j * 8 + r];
+        m_intra[j] = tables.intra[r * 8 + j];
+        m_inter[j] = tables.inter[r * 8 + j];
+      }
     }
-    __syncthreads();
-    // t[i][l] = sum_j D[j][i] * C[j][l], j ascending
-    float t = 0.0f;
-    for (int j = 0; j < 8; ++j) t = fmaf(s_d[j * 8 + i], s_c[lc][j * 8 + l], t);
-    s_t[lc][p] = t;
-    __syncthreads();
-    // x[i][l] = sum_k t[i][k] * D[k][l], k ascending
-    float x = 0.0f;
-    for (int k = 0; k < 8; ++k) x = fmaf(s_t[lc][i * 8 + k], s_d[k * 8 + l], x);
-    acc += x;
-    if (valid) out[off] = acc;
-    // s_c of frame f+1 is written after the second barrier of frame f, and
-    // s_t of frame f+1 after the first barrier of frame f+1, so two
-    // barriers per frame keep every read ahead of the next write.
+  }
+
+  const long long frame = n_cols * 64;  // elements per frame
+  const int16_t* src = q + col * 64 + i * 8;
+  float* dst = out + col * 64 + i * 8;
+  uint4 ring[kAhead];
+#pragma unroll
+  for (int p = 0; p < kAhead; ++p) {
+    ring[p] = make_uint4(0u, 0u, 0u, 0u);
+    if (valid && p < n_frames) ring[p] = load_row(src + p * frame);
+  }
+
+  float acc[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) acc[l] = 0.0f;
+  for (int f0 = 0; f0 < n_frames; f0 += kAhead) {
+#pragma unroll
+    for (int p = 0; p < kAhead; ++p) {
+      const int f = f0 + p;
+      if (f >= n_frames) break;  // the same for every lane of the block
+      const uint4 u = ring[p];
+      if (valid && f + kAhead < n_frames)
+        ring[p] = load_row(src + (f + kAhead) * frame);
+
+      // C[i][l] = (float)q * m, written to the warp's tile of this frame
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
+      float c[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c[2 * e] = (float)(int16_t)(w[e] & 0xffffu);
+        c[2 * e + 1] = (float)(int16_t)(w[e] >> 16);
+      }
+#pragma unroll
+      for (int l = 0; l < 8; ++l) c[l] *= f == 0 ? m_intra[l] : m_inter[l];
+      float* tile = &s_c[warp][p & 1][grp][0];
+      reinterpret_cast<float4*>(tile + i * 8)[0] =
+          make_float4(c[0], c[1], c[2], c[3]);
+      reinterpret_cast<float4*>(tile + i * 8)[1] =
+          make_float4(c[4], c[5], c[6], c[7]);
+      __syncwarp();
+
+      // t[i][l] = sum_j D[j][i] * C[j][l], j ascending
+      float t[8];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) t[l] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 a = reinterpret_cast<const float4*>(tile + j * 8)[0];
+        const float4 b = reinterpret_cast<const float4*>(tile + j * 8)[1];
+        const float cj[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int l = 0; l < 8; ++l) t[l] = fmaf(d_col[j], cj[l], t[l]);
+      }
+      // x[i][l] = sum_k t[i][k] * D[k][l], k ascending; acc += x
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        float x = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) x = fmaf(t[k], tables.d[k * 8 + l], x);
+        acc[l] += x;
+      }
+      if (valid) {
+        float4* o = reinterpret_cast<float4*>(dst + f * frame);
+        o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+      }
+    }
   }
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(); never synchronises.
-// `tables` is a host pointer to 192 floats: D, the intra and the inter matrix.
+// `tables` is a host pointer to 192 floats: D, the intra and the inter
+// matrix.  `q` is contiguous and 16-byte aligned (the wrapper checks).
 extern "C" int decode_gop_blocks(const void* q, void* out, const void* tables,
                                  int n_frames, long long n_cols,
                                  void* stream) {

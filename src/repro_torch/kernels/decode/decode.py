@@ -1,10 +1,17 @@
 """Wrapper of the CUDA decode kernel ``csrc/decode_gop_blocks.cu``.
 
 One launch decodes a whole ``[F, M, 8, 8]`` block stream (see the source
-for the contract and the design).  The wrapper checks what the kernel
-takes, allocates the output, launches on PyTorch's current stream without
-synchronising, and raises if the launch was refused.  ``LAUNCHES`` counts
-launches, so a run can show that its decodes went through the kernel.
+for the contract and the design).  The kernel is bound by memory: its
+floor is ``F * M * 384`` bytes (int16 in, f32 out) over the card's HBM
+rate.  To come near it, eight lanes of a warp own one column, each lane
+loads its block row as one 16-byte word and keeps the next frames' loads
+in flight, and no barrier spans more than a warp.
+
+The wrapper checks what the kernel takes (a contiguous, 16-byte aligned
+int16 CUDA tensor, as the 16-byte row loads need), allocates the output,
+launches on PyTorch's current stream without synchronising, and raises if
+the launch was refused.  ``LAUNCHES`` counts launches, so a run can show
+that its decodes went through the kernel.
 """
 from __future__ import annotations
 
@@ -44,8 +51,9 @@ def decode_gop_blocks(q: torch.Tensor, qp: int) -> torch.Tensor:
             or q.shape[1] < 1:
         raise ValueError(f"decode_gop_blocks needs [F>=1, M>=1, 8, 8], got "
                          f"{tuple(q.shape)}")
-    if not q.is_contiguous():
-        raise ValueError("decode_gop_blocks needs a contiguous tensor")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("decode_gop_blocks needs a contiguous, 16-byte "
+                         "aligned tensor")
     lib = build.load()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     tables = _tables(qp)

@@ -2,6 +2,13 @@
 attention with an online softmax, q ``[B, H, S, D]``, k and v
 ``[B, KV, S, D]``, f32 or bf16, out in q's dtype.
 
+bf16 runs on the tensor cores (``mma.sync`` m16n8k16 with f32
+accumulators, K and V staged as bf16 through a 2-stage ``cp.async`` ring,
+P split into two bf16 parts for the PV product); f32 keeps the CUDA-core
+kernel, so it holds 2e-5 against the plain version.  The bound is the bytes of q, k,
+v and o at serving lengths and the causal ``S^2 D`` products over the bf16
+tensor-core rate for long prompts (see the source).
+
 The wrapper checks what the kernel takes (D in 32, 64, 128; one dtype for
 all three; matching shapes; ``H % KV == 0``; contiguous, 16-byte aligned
 CUDA tensors on one device), allocates the output, launches on PyTorch's

@@ -61,7 +61,8 @@ def random_stream(rng, n_frames, m, qp):
 
 @pytest.mark.parametrize("qp", [4, 8, 12])
 @pytest.mark.parametrize("n_frames,m", [(1, 64), (4, 4096), (16, 1000),
-                                        (3, 5)])
+                                        (3, 5)] + [
+    (f, m) for f in (1, 2, 17) for m in (1, 3, 5, 33, 65)])
 def test_kernel_matches_plain_version(cuda, n_frames, m, qp):
     q = torch.from_numpy(random_stream(np.random.default_rng(m + qp),
                                        n_frames, m, qp)).to(cuda)
@@ -75,12 +76,16 @@ def test_kernel_matches_plain_version(cuda, n_frames, m, qp):
 
 
 def test_kernel_column_independent_of_batch(cuda):
-    q = torch.from_numpy(random_stream(np.random.default_rng(1), 16, 777,
-                                       8)).to(cuda)
-    whole = decode_gop_blocks(q, 8)
-    for lo, hi in [(0, 1), (3, 260), (700, 777)]:
-        part = decode_gop_blocks(q[:, lo:hi].contiguous(), 8)
-        assert torch.equal(part, whole[:, lo:hi])
+    # a warp owns 4 columns and a thread block 32: the ragged splits cut
+    # through both, and F=17 is not a multiple of the frames kept in flight
+    for n_frames in (16, 17):
+        q = torch.from_numpy(random_stream(np.random.default_rng(1),
+                                           n_frames, 777, 8)).to(cuda)
+        whole = decode_gop_blocks(q, 8)
+        for lo, hi in [(0, 1), (3, 260), (700, 777), (1, 34), (5, 6),
+                       (31, 63), (33, 98), (64, 97), (2, 775)]:
+            part = decode_gop_blocks(q[:, lo:hi].contiguous(), 8)
+            assert torch.equal(part, whole[:, lo:hi])
 
 
 def test_kernel_rejects_bad_input(cuda):
@@ -92,6 +97,13 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         decode_gop_blocks(torch.zeros((1, 8, 64, 8), dtype=torch.int16,
                                       device=cuda).transpose(1, 2), 8)
+    # contiguous, but 2 bytes past a 16-byte boundary: the kernel loads
+    # each block row as one 16-byte word
+    flat = torch.zeros(64 * 64 + 1, dtype=torch.int16, device=cuda)
+    view = flat[1:].view(1, 64, 8, 8)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        decode_gop_blocks(view, 8)
 
 
 def test_batch_on_cuda_matches_oracle(cuda):
@@ -304,7 +316,7 @@ def _qkv(seed, b, h, kv, s, d, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("s", [1, 7, 100, 256])
+@pytest.mark.parametrize("s", [1, 7, 100, 256, 15, 17, 63, 65, 257])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_plain_version(cuda, dtype, d, s, causal):
     q, k, v = _qkv(s + d, 2, 6, 2, s, d, dtype, cuda)
@@ -318,8 +330,51 @@ def test_flash_attention_matches_plain_version(cuda, dtype, d, s, causal):
                                atol=FLASH_TOL[dtype], rtol=0)
 
 
-def test_flash_attention_causal_row_ignores_later_positions(cuda):
-    q, k, v = _qkv(1, 1, 9, 3, 200, 64, torch.float32, cuda)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 257])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_query_groups(cuda, g, d, s, causal):
+    # G = H / KV query heads on one KV head, at lengths around the 64-row
+    # tiles of the tensor-core path
+    q, k, v = _qkv(s + d + g, 2, 2 * g, 2, s, d, torch.bfloat16, cuda)
+    got = flash_kernel.flash_attention(q, k, v, causal=causal)
+    want = flash_kernel.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_writes_no_row_past_s(cuda, dtype, s):
+    """Rows >= S of a ragged tile are not written: the raw launch into a
+    buffer pre-filled past its end leaves the fill alone, and a causal
+    call of length S equals the first S rows of a longer one exactly."""
+    b, h, kv, d = 2, 6, 2, 64
+    q, k, v = _qkv(s, b, h, kv, s + 64, d, dtype, cuda)
+    q, k, v = (x[:, :, :s].contiguous() for x in (q, k, v))
+    fill = torch.full((b * h * s * d + 64 * d,), 7.0, dtype=dtype,
+                      device=cuda)
+    lib = flash_kernel.LIBRARY.load()
+    err = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), fill.data_ptr(), b, h, kv,
+        s, d, flash_kernel.flash.DTYPES[dtype], 1, d ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((fill[b * h * s * d:] == 7.0).all())
+    out = flash_kernel.flash_attention(q, k, v)
+    assert torch.equal(fill[:b * h * s * d].view(b, h, s, d), out)
+    q2, k2, v2 = _qkv(s, b, h, kv, s + 64, d, dtype, cuda)
+    longer = flash_kernel.flash_attention(q2, k2, v2)
+    assert torch.equal(out, longer[:, :, :s])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_causal_row_ignores_later_positions(cuda, dtype):
+    q, k, v = _qkv(1, 1, 9, 3, 200, 64, dtype, cuda)
     out = flash_kernel.flash_attention(q, k, v)
     k2, v2 = k.clone(), v.clone()
     k2[:, :, 70:] = 9.0

@@ -20,6 +20,7 @@ from repro.kernels.flash_attention.ref import \
 from repro_torch.kernels.flash_attention import (LAUNCHES, attention_ref,
                                                  flash_attention,
                                                  flash_attention_op)
+from repro_torch.kernels.flash_attention.ref import attention_bf16_mma_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -108,3 +109,24 @@ def test_wrapper_needs_cuda_tensors():
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention_op(q.to("meta"), k.to("meta"), v.to("meta"))
     assert LAUNCHES.count == before
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
+    (3, 9, 3, 1, 64), (3, 9, 3, 7, 64), (3, 9, 3, 100, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_rounding_within_tolerance(b, h, kv, s, d, causal):
+    """What the CPU can say of the bf16 kernel's design: its extra
+    rounding (P as two bf16 parts before PV) stays inside the bf16
+    tolerance of the plain version and of the Pallas kernel (interpret
+    mode) on the sweep's shapes.  The kernel itself is held on the card
+    (``tests/test_torch_cuda.py``)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(s + d, b, h, kv, s, d, "bfloat16")
+    got = attention_bf16_mma_ref(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    pallas = jax_flash_attention_op(jq, jk, jv, causal=causal, bq=64,
+                                    bkv=64, interpret=True)
+    tol = TOL["bfloat16"]
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol)
+    np.testing.assert_allclose(
+        _np(got), _np(attention_ref(tq, tk, tv, causal=causal)), atol=tol)
