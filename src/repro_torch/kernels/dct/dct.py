@@ -1,10 +1,12 @@
 """Wrapper of the CUDA kernel ``csrc/dct_quant.cu``: blockwise 8x8 DCT and
 quantization, ``[N, 8, 8] f32 -> [N, 8, 8] int16``.
 
-The wrapper checks what the kernel takes, allocates the output, launches
-on PyTorch's current stream without synchronising, and raises if the launch
-was refused.  ``LAUNCHES`` counts launches, so a run can show that its
-encodes went through the kernel.  The library is built at first use (see
+The wrapper checks what the kernel takes (a contiguous, 16-byte aligned
+f32 CUDA tensor, as each lane's two 16-byte row loads need), allocates the
+output (a fresh allocation, so aligned too), launches on PyTorch's current
+stream without synchronising, and raises if the launch was refused.
+``LAUNCHES`` counts launches, so a run can show that its encodes went
+through the kernel.  The library is built at first use (see
 ``repro_torch.kernels.build``).
 """
 from __future__ import annotations
@@ -57,8 +59,9 @@ def dct_quant(blocks: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
             or blocks.shape[0] < 1:
         raise ValueError(f"dct_quant needs [N>=1, 8, 8], got "
                          f"{tuple(blocks.shape)}")
-    if not blocks.is_contiguous():
-        raise ValueError("dct_quant needs a contiguous tensor")
+    if not blocks.is_contiguous() or blocks.data_ptr() % 16:
+        raise ValueError("dct_quant needs a contiguous, 16-byte aligned "
+                         "tensor")
     lib = LIBRARY.load()
     out = torch.empty(blocks.shape, dtype=torch.int16, device=blocks.device)
     tab = tables(int(qp), bool(intra))

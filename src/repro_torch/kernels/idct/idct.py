@@ -1,10 +1,12 @@
 """Wrapper of the CUDA kernel ``csrc/idct_dequant.cu``: blockwise
 dequantization and 8x8 IDCT, ``[N, 8, 8] int16 -> [N, 8, 8] f32``.
 
-The wrapper checks what the kernel takes, allocates the output, launches
-on PyTorch's current stream without synchronising, and raises if the launch
-was refused.  ``LAUNCHES`` counts launches, so a run can show that its
-encodes went through the kernel.  The library is built at first use (see
+The wrapper checks what the kernel takes (a contiguous, 16-byte aligned
+int16 CUDA tensor, as each lane's 16-byte row load needs), allocates the
+output (a fresh allocation, so aligned too), launches on PyTorch's current
+stream without synchronising, and raises if the launch was refused.
+``LAUNCHES`` counts launches, so a run can show that its encodes went
+through the kernel.  The library is built at first use (see
 ``repro_torch.kernels.build``).
 """
 from __future__ import annotations
@@ -40,8 +42,9 @@ def idct_dequant(q: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
     if q.dim() != 3 or tuple(q.shape[1:]) != (8, 8) or q.shape[0] < 1:
         raise ValueError(f"idct_dequant needs [N>=1, 8, 8], got "
                          f"{tuple(q.shape)}")
-    if not q.is_contiguous():
-        raise ValueError("idct_dequant needs a contiguous tensor")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("idct_dequant needs a contiguous, 16-byte aligned "
+                         "tensor")
     lib = LIBRARY.load()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     tab = tables(int(qp), bool(intra))

@@ -26,6 +26,7 @@ from repro_torch.configs.base import get_config, make_serve_config
 from repro_torch.kernels import dct as dct_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import idct as idct_kernel
+from repro_torch.kernels.dct.dct import tables as dct_tables
 from repro_torch.kernels import sad as sad_kernel
 from repro_torch.kernels.decode import (LAUNCHES, decode_fused_ref,
                                         decode_gop_blocks)
@@ -158,7 +159,13 @@ def pixel_blocks(rng, n, residual):
     return (rng.random((n, 8, 8)) * 255).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [1, 7, 64, 4099, 32400])
+#: block counts around a warp's 4 blocks, a thread block's 32, the card's
+#: resident thread blocks (past which each warp loops over rounds), and the
+#: main path's 32,400
+ENCODE_N = [1, 2, 3, 5, 7, 31, 33, 64, 4099, 32400, 131072]
+
+
+@pytest.mark.parametrize("n", ENCODE_N)
 @pytest.mark.parametrize("qp,intra", [(4, True), (8, False), (16, True)])
 def test_dct_quant_matches_plain_version(cuda, n, qp, intra):
     x = torch.from_numpy(pixel_blocks(np.random.default_rng(n + qp), n,
@@ -174,7 +181,7 @@ def test_dct_quant_matches_plain_version(cuda, n, qp, intra):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n", [1, 7, 64, 4099, 32400])
+@pytest.mark.parametrize("n", ENCODE_N)
 @pytest.mark.parametrize("qp,intra", [(8, True), (12, False)])
 def test_idct_dequant_matches_plain_version(cuda, n, qp, intra):
     q = torch.from_numpy(np.random.default_rng(n).integers(
@@ -192,7 +199,10 @@ def test_encode_kernels_block_independent_of_batch(cuda):
     x = torch.from_numpy(pixel_blocks(rng, 1001, False)).to(cuda)
     q = dct_kernel.dct_quant(x, 8, True)
     y = idct_kernel.idct_dequant(q, 8, True)
-    for lo, hi in [(0, 1), (3, 4), (5, 260), (998, 1001)]:
+    # a warp owns 4 blocks and a thread block 32: splits that start and end
+    # inside a warp's 4 blocks move every block to another lane group
+    for lo, hi in [(0, 1), (3, 4), (5, 260), (998, 1001), (1, 3), (2, 35),
+                   (6, 39), (31, 97), (129, 1001)]:
         assert torch.equal(dct_kernel.dct_quant(x[lo:hi].contiguous(), 8,
                                                 True), q[lo:hi])
         assert torch.equal(idct_kernel.idct_dequant(q[lo:hi].contiguous(),
@@ -215,6 +225,55 @@ def test_encode_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         idct(torch.zeros((8, 8, 4), dtype=torch.int16,
                          device=cuda).transpose(1, 2), 8, True)
+
+
+def test_encode_kernels_reject_misaligned_input(cuda):
+    # contiguous, but 4 (f32) or 2 (int16) bytes past a 16-byte boundary:
+    # a lane loads its block row in 16-byte words
+    for fn, dtype in ((dct_kernel.dct_quant, torch.float32),
+                      (idct_kernel.idct_dequant, torch.int16)):
+        flat = torch.zeros(5 * 64 + 1, dtype=dtype, device=cuda)
+        view = flat[1:].view(5, 8, 8)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        with pytest.raises(ValueError, match="aligned"):
+            fn(view, 8, True)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 33, 4099])
+def test_encode_kernels_write_nothing_past_n(cuda, n):
+    # raw launches through the C entry points into larger buffers filled
+    # with a sentinel: the blocks past N keep it
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(pixel_blocks(rng, n, True)).to(cuda)
+    tab = dct_tables(8, False)
+    stream = torch.cuda.current_stream().cuda_stream
+    q = torch.full((n + 37, 8, 8), 0x5A5A, dtype=torch.int16, device=cuda)
+    assert dct_kernel.LIBRARY.load().dct_quant(
+        x.data_ptr(), q.data_ptr(), tab.ctypes.data, n, stream) == 0
+    y = torch.full((n + 37, 8, 8), -1234.5, device=cuda)
+    assert idct_kernel.LIBRARY.load().idct_dequant(
+        q.data_ptr(), y.data_ptr(), tab.ctypes.data, n, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(q[:n], dct_kernel.dct_quant_ref(x, 8, False))
+    assert bool((q[n:] == 0x5A5A).all())
+    assert torch.equal(y[:n], idct_kernel.idct_dequant_ref(q[:n], 8, False))
+    assert bool((y[n:] == -1234.5).all())
+
+
+def test_dct_quant_clamps_to_int16(cuda):
+    # at qp 1 the DC divisor is 1: pixels of +-1e6 put coefficients far
+    # past the int16 range, and the kernel clamps them as the plain version
+    rng = np.random.default_rng(3)
+    x = np.concatenate([np.full((2, 8, 8), 1e6, np.float32),
+                        np.full((2, 8, 8), -1e6, np.float32),
+                        (rng.standard_normal((61, 8, 8)) * 1e6)
+                        .astype(np.float32)])
+    x = torch.from_numpy(x).to(cuda)
+    for intra in (True, False):
+        got = dct_kernel.dct_quant(x, 1, intra)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dct_kernel.dct_quant_ref(x, 1, intra))
+        assert int(got[0, 0, 0]) == 32767 and int(got[2, 0, 0]) == -32768
 
 
 def _oracle_share_and_psnr(frames, rects, encs, cfg):
