@@ -31,8 +31,11 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (1,9,3,4096,64), with the byte and operation bounds, and the wrapper's
    host cost per call;
 6. sad kernel phase: holds ``sad_search`` against its plain version for
-   (b, r) in {(8, 4), (16, 8), (8, 8), (4, 0)} and N in {1, 7, 64, 500,
-   32400}: on integer pixels in [0, 255] (with a constant window) all
+   (b, r) in {(8, 4), (16, 8), (8, 8), (4, 0), (8, 1), (8, 5), (16, 3),
+   (5, 2)} (the motion shapes (8, 8) and (16, 8) take the kernel's
+   fixed-shape path, the others its generic path, and r in {1, 3, 5}
+   leaves a short strip) and N in {1, 7, 64, 500, 32400}: on integer
+   pixels in [0, 255] (with a constant window) all
    three outputs equal, ties included; on ``randn * 25`` pixels ``sad``
    within rtol 1e-5 and ``dy``/``dx`` equal except at near-ties (counted);
    times it, the plain version and the wrapper's host cost at both motion
@@ -91,8 +94,9 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
    the device's busy share of their wall time;
-14. prints the times of the kernels redesigned for this card beside the
-   times recorded before the redesign (``BEFORE_REDESIGN``, from PERF.md),
+14. prints the times of the kernels redesigned for this card (all five:
+   ``sad_search`` at both motion shapes) beside the times recorded before
+   the redesign (``BEFORE_REDESIGN``, from PERF.md),
    one JSON line with the kernels' numbers, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -178,7 +182,8 @@ FLASH_LONG = (1, 9, 3, 4096, 64)
 #: the motion search: the sweep of the sad kernel phase, and the two frame
 #: pairs of the motion path, (height, width, b, r); the first is the main
 #: path's shape (1080 is not a multiple of 16, so it takes b=8)
-SAD_SWEEP_BR = [(8, 4), (16, 8), (8, 8), (4, 0)]
+SAD_SWEEP_BR = [(8, 4), (16, 8), (8, 8), (4, 0), (8, 1), (8, 5), (16, 3),
+                (5, 2)]
 SAD_SWEEP_N = [1, 7, 64, 500, 32400]
 SAD_TOL = 1e-5
 MOTION_PAIRS = [(H, W, 8, 8), (720, 1280, 16, 8)]
@@ -198,6 +203,8 @@ BEFORE_REDESIGN = {
     f"flash_attention {FLASH_LONG} bf16 causal": 1.557814,
     f"dct_quant N={H * W // 64} inter": 0.025238,
     f"idct_dequant N={H * W // 64} inter": 0.025610,
+    "sad_search N=32400 b=8 r=8": 0.223352,
+    "sad_search N=3600 b=16 r=8": 0.092842,
 }
 
 KERNELS = {
@@ -1150,9 +1157,11 @@ def sad_kernel_phase(seed: int) -> dict:
               f"share_of_bound={b_ms / k_ms:.3f} wrapper host_us={h_us:.3f}",
               flush=True)
         timed[(h, w)] = dict(ms=k_ms, plain_ms=r_ms, bound_ms=b_ms,
-                             bound_by=b_by, host_us=h_us)
+                             bound_by=b_by, host_us=h_us,
+                             label=f"sad_search N={n} b={b} r={r}")
     return dict(timed[MOTION_PAIRS[0][:2]], max_abs_err=worst,
-                library_ms=None)
+                library_ms=None,
+                by_shape={t["label"]: t["ms"] for t in timed.values()})
 
 
 def motion_path_phase(seed: int, frames) -> int:
@@ -1498,7 +1507,8 @@ def main() -> int:
            numbers["flash_attention"]["long_ms"],
            f"dct_quant N={H * W // 64} inter": numbers["dct_quant"]["ms"],
            f"idct_dequant N={H * W // 64} inter":
-           numbers["idct_dequant"]["ms"]}
+           numbers["idct_dequant"]["ms"],
+           **numbers["sad_search"]["by_shape"]}
     print("redesigned kernels, this run against the time before the "
           "redesign (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W): " +
           "; ".join(f"{k}: {now[k]:.6f} ms, before {v:.6f} ms "

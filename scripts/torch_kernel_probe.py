@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Card probe of the port's redesigned kernels: ``flash_attention`` (bf16
 on tensor cores), ``decode_gop_blocks``, ``dct_quant`` and
-``idct_dequant`` (warp-level).
+``idct_dequant`` (warp-level), and ``sad_search`` (a strip of candidates
+per thread).
 
     python3 scripts/torch_kernel_probe.py [--baseline DIR] [--seeds 0 1 2 3]
+                                          [--sad-only]
 
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
 1. prints the card's name and power limit, and what ``nvcc -Xptxas -v``
-   says of every kernel of the four sources (registers, shared memory,
+   says of every kernel of the five sources (registers, shared memory,
    stack frame, spills);
 2. times a 1-element ``add_`` as the encode kernels are timed (what the
    warm and the L2-cold timing cost a kernel that does next to nothing);
@@ -16,17 +18,27 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    one round of 4 blocks per warp (the grid covering N, its cap taken
    out) in place of the capped grid whose warps loop over rounds, in
    turns, warm and L2-cold, at N=32,400 and 131,072; and both back to back
-   over rotating inputs larger than the L2 cache;
+   over rotating inputs larger than the L2 cache; ``sad_search`` at both
+   motion shapes against a build of its source with two strips of 9 dx
+   per work item (at dx 0 and 8; ``kStripFixed`` 9 in place of 17), in
+   turns, and through its generic path (inputs 4 bytes off 16-byte
+   alignment); and where a build of its source with ``clock64`` counters
+   spends each warp's cycles at both motion shapes (waiting for a group's
+   copies and the block barrier; issuing the next group's copies and
+   writing the last group's results; the searches; the argmin merge);
 3. with ``--baseline DIR``, a tree holding another version's
    ``src/repro_torch/kernels/*/csrc/*.cu`` (for example ``git archive
    <commit> src/repro_torch/kernels | tar -x -C DIR``): builds those
    sources too, checks that both versions of ``decode_gop_blocks``,
-   ``dct_quant`` and ``idct_dequant`` give bit-identical output at ragged
-   and full shapes (the encode kernels for intra and inter at qp 4, 8 and
-   16), and times both versions of each kernel at the main path's shapes
+   ``dct_quant``, ``idct_dequant`` and ``sad_search`` give bit-identical
+   output at ragged and full shapes (the encode kernels for intra and
+   inter at qp 4, 8 and 16; the search at both motion shapes, N in {1, 7,
+   33, 500, 32400}, on float and integer pixels), and times both versions
+   of each kernel at the main path's shapes
    in turns (baseline, current, current, baseline; the encode kernels warm
    and L2-cold at N=32,400 and 131,072), with SDPA beside the attention
-   and the achieved GB/s beside the byte bound of the others;
+   and the achieved GB/s beside the byte bound of the others (the search:
+   its share of the operation bound and its GB/s);
 4. per seed, the bf16 prefill of full-width ``smollm-135m`` (B=8, S=512,
    random weights from the seed): the largest difference of the last
    position's logits from those of the plain-attention model, with the
@@ -41,6 +53,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib
 import pathlib
 import subprocess
@@ -61,6 +74,7 @@ from repro_torch.kernels.decode import decode_gop_blocks  # noqa: E402
 from repro_torch.kernels.flash_attention import flash as fmod  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bf16_mma_ref, attention_ref)
+from repro_torch.kernels.sad import sad as sad_mod  # noqa: E402
 
 dct_mod = importlib.import_module("repro_torch.kernels.dct.dct")
 idct_mod = importlib.import_module("repro_torch.kernels.idct.idct")
@@ -69,6 +83,8 @@ DECODE_SHAPES = [(1, 1), (2, 3), (17, 5), (16, 33), (3, 65), (16, 777),
                  (16, 32768)]
 ENCODE_N = [1, 2, 3, 5, 31, 33, 4099, 32400, 131072]
 ENCODE_TIMED_N = [32400, 131072]
+SAD_N = [1, 7, 33, 500, 32400]
+SAD_STRIP = "constexpr int kStripFixed = 17;"
 
 
 def ptxas_report(source: pathlib.Path) -> None:
@@ -97,7 +113,9 @@ def baseline_libraries(tree: pathlib.Path) -> dict:
             kernels / "dct" / "csrc" / dct_mod.SOURCE.name, dct_mod._bind),
         "idct": kbuild.CudaLibrary(
             kernels / "idct" / "csrc" / idct_mod.SOURCE.name,
-            idct_mod._bind)}
+            idct_mod._bind),
+        "sad": kbuild.CudaLibrary(
+            kernels / "sad" / "csrc" / sad_mod.SOURCE.name, sad_mod._bind)}
     for lib in libs.values():
         lib.build()
     return libs
@@ -117,6 +135,111 @@ def one_round_libraries() -> dict:
         libs[key] = kbuild.CudaLibrary(src, mod._bind)
         libs[key].build()
     return libs
+
+
+def two_strip_library() -> kbuild.CudaLibrary:
+    """``sad_search`` built with two strips of 9 dx per dy on its
+    fixed-shape path (7 current blocks of 34 items a thread block)."""
+    text = sad_mod.SOURCE.read_text()
+    cs.check(text.count(SAD_STRIP) == 1, f"{sad_mod.SOURCE.name}: no "
+                                         f"{SAD_STRIP}")
+    src = ROOT / "build" / "probe" / "sad_two_strips" / "csrc" / \
+        sad_mod.SOURCE.name
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text.replace(SAD_STRIP, "constexpr int kStripFixed = 9;"))
+    lib = kbuild.CudaLibrary(src, sad_mod._bind)
+    lib.build()
+    return lib
+
+
+#: ``clock64`` counters around the phases of the kernel's group loop, and
+#: an entry point that reads them: (anchor, text put after it)
+SAD_PHASE_PROBES = [
+    ("namespace {\n", "__device__ unsigned long long g_phase[5];\n"),
+    ("  for (; grp < p.n_groups; grp += gridDim.x, ++i) {\n",
+     "    const long long c0 = clock64();\n"),
+    ("  int i = 0;\n",
+     "  long long ph[4] = {0, 0, 0, 0};\n  const long long k0 = clock64();\n"),
+    ("    __syncthreads();  // group grp staged; group grp - grid done with\n",
+     "    const long long c1 = clock64();\n"),
+    ("    unsigned long long key = kNone;\n",
+     "    const long long c2 = clock64();\n"),
+    ("    merge_key(key, gl, p.group, s_key[i & 1]);\n",
+     "    const long long c4 = clock64();\n"),
+]
+
+
+def sad_phase_library() -> kbuild.CudaLibrary:
+    """``sad_search`` with ``clock64`` counters: per warp, the cycles of
+    each phase of its group loop, summed over the warps of a launch and
+    read (then zeroed) by ``sad_phase_cycles``."""
+    text = sad_mod.SOURCE.read_text()
+    for anchor, add in SAD_PHASE_PROBES:
+        cs.check(text.count(anchor) == 1, f"{sad_mod.SOURCE.name}: anchor "
+                                          f"{anchor!r}")
+        text = text.replace(anchor, anchor + add)
+    # c3 before the merge: the searches end there
+    merge = "    merge_key(key, gl, p.group, s_key[i & 1]);\n"
+    text = text.replace(merge, "    const long long c3 = clock64();\n" + merge)
+    end = "    const long long c4 = clock64();\n"
+    text = text.replace(end, end + (
+        "    ph[0] += c1 - c0; ph[1] += c2 - c1; ph[2] += c3 - c2;"
+        " ph[3] += c4 - c3;\n"))
+    last = "  if (i > 0) write_out(p, grp - gridDim.x, s_key[(i - 1) & 1]);\n}"
+    cs.check(text.count(last) == 1, f"{sad_mod.SOURCE.name}: no kernel end")
+    text = text.replace(last, last[:-1] + (
+        "  if ((threadIdx.x & 31) == 0) {\n"
+        "    for (int k = 0; k < 4; ++k) atomicAdd(&g_phase[k], "
+        "(unsigned long long)ph[k]);\n"
+        "    atomicAdd(&g_phase[4], (unsigned long long)(clock64() - k0));\n"
+        "  }\n}"))
+    text += ("\nextern \"C\" int sad_phase_cycles(void* host) {\n"
+             "  unsigned long long zero[5] = {0, 0, 0, 0, 0};\n"
+             "  cudaError_t e = cudaMemcpyFromSymbol(host, g_phase, "
+             "sizeof(zero));\n"
+             "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase, zero, "
+             "sizeof(zero));\n"
+             "  return (int)e;\n}\n")
+    src = ROOT / "build" / "probe" / "sad_phases" / "csrc" / \
+        sad_mod.SOURCE.name
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+
+    def bind(lib):
+        sad_mod._bind(lib)
+        lib.sad_phase_cycles.argtypes = [ctypes.c_void_p]
+        lib.sad_phase_cycles.restype = ctypes.c_int
+
+    lib = kbuild.CudaLibrary(src, bind)
+    lib.build()
+    return lib
+
+
+def sad_phases() -> None:
+    """Shares of the warps' cycles in each phase of the group loop, one
+    launch at each motion shape (the counters cost time themselves)."""
+    lib = sad_phase_library()
+    rng = np.random.default_rng(8)
+    names = ("wait for copies and barrier", "issue copies, write results",
+             "searches", "argmin merge")
+    for h, w, b, r in cs.MOTION_PAIRS:
+        n = (h // b) * (w // b)
+        cur, win = cs._sad_inputs(rng, n, b, r, False)
+        with library_patch(sad_mod)(lib):
+            want = sad_mod.sad_search(cur, win)
+            torch.cuda.synchronize()
+            cycles = (ctypes.c_ulonglong * 5)()
+            cs.check(lib.load().sad_phase_cycles(cycles) == 0, "read")
+            got = sad_mod.sad_search(cur, win)
+            torch.cuda.synchronize()
+            cs.check(lib.load().sad_phase_cycles(cycles) == 0, "read")
+        cs.check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                 "the counters changed the results")
+        total = cycles[4]
+        print(f"sad_search N={n} b={b} r={r} phases (share of the warps' "
+              f"cycles, clock64 build): " + "; ".join(
+                  f"{name} {cycles[k] / total:.3f}"
+                  for k, name in enumerate(names)), flush=True)
 
 
 def library_patch(mod):
@@ -189,6 +312,73 @@ def encode_versions(base: dict) -> None:
                          f"versions differ")
     print(f"dct_quant, idct_dequant: bit-identical to the baseline at N in "
           f"{ENCODE_N}, qp in (4, 8, 16), intra and inter", flush=True)
+
+
+def sad_versions(base) -> None:
+    """Old and new ``sad_search``: the same bits at both motion shapes and
+    ragged N, on float and integer pixels."""
+    patched = library_patch(sad_mod)
+    rng = np.random.default_rng(5)
+    for _, _, b, r in cs.MOTION_PAIRS:
+        for n in SAD_N:
+            for integer in (False, True):
+                cur, win = cs._sad_inputs(rng, n, b, r, integer)
+                new = sad_mod.sad_search(cur, win)
+                with patched(base):
+                    old = sad_mod.sad_search(cur, win)
+                torch.cuda.synchronize()
+                cs.check(all(torch.equal(x.view(torch.int32),
+                                         y.view(torch.int32))
+                             for x, y in zip(new, old)),
+                         f"sad_search b={b} r={r} N={n} integer={integer}: "
+                         f"the two versions differ")
+    print(f"sad_search: bit-identical to the baseline at (b, r) in "
+          f"{[m[2:] for m in cs.MOTION_PAIRS]}, N in {SAD_N}, float and "
+          f"integer pixels", flush=True)
+
+
+def sad_times(other, tag: str) -> None:
+    """``sad_search`` against ``other``'s library in turns at both motion
+    shapes, float pixels: device ms, share of the operation bound, GB/s."""
+    rng = np.random.default_rng(6)
+    for h, w, b, r in cs.MOTION_PAIRS:
+        n = (h // b) * (w // b)
+        cur, win = cs._sad_inputs(rng, n, b, r, False)
+        b_ms, b_by = cs.sad_bound_ms(n, b, r)
+        n_bytes = n * 4 * (b * b + (b + 2 * r) ** 2) + 12 * n
+        times = in_turns(
+            f"sad_search N={n} b={b} r={r} ({h}p pair; bound {b_ms:.6f} ms,"
+            f" {b_by})", library_patch(sad_mod), other,
+            lambda: cs.cuda_ms(lambda: sad_mod.sad_search(cur, win),
+                               iters=50), tag)
+        for t_tag, ts in times.items():
+            t = min(ts)
+            print(f"  {t_tag}: {b_ms / t:.3f} of the bound, "
+                  f"{n_bytes / t / 1e6:.1f} GB/s", flush=True)
+
+
+def sad_generic_path() -> None:
+    """The current ``sad_search`` at both motion shapes on views 4 bytes
+    off 16-byte alignment, which take its generic path."""
+    rng = np.random.default_rng(7)
+    for h, w, b, r in cs.MOTION_PAIRS:
+        n = (h // b) * (w // b)
+        cur, win = cs._sad_inputs(rng, n, b, r, False)
+        views = []
+        for x in (cur, win):
+            flat = torch.empty(x.numel() + 1, device="cuda")
+            views.append(flat[1:].view(x.shape))
+            views[-1].copy_(x)
+        cs.check(all(v.data_ptr() % 16 for v in views), "views aligned")
+        same = all(torch.equal(x, y) for x, y in
+                   zip(sad_mod.sad_search(*views),
+                       sad_mod.sad_search(cur, win)))
+        cs.check(same, f"sad_search b={b}: the generic path differs")
+        b_ms, _ = cs.sad_bound_ms(n, b, r)
+        t = cs.cuda_ms(lambda: sad_mod.sad_search(*views), iters=20)
+        print(f"sad_search N={n} b={b} r={r} generic path (misaligned "
+              f"views, same bits): {t:.6f} ms, {b_ms / t:.3f} of the bound",
+              flush=True)
 
 
 def launch_floor() -> None:
@@ -317,6 +507,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=pathlib.Path)
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2, 3])
+    ap.add_argument("--sad-only", action="store_true",
+                    help="stop after the ptxas reports and sad_search")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device available",
@@ -329,13 +521,21 @@ def main() -> int:
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     for source in (fmod.SOURCE, dbuild.SOURCE, dct_mod.SOURCE,
-                   idct_mod.SOURCE):
+                   idct_mod.SOURCE, sad_mod.SOURCE):
         ptxas_report(source)
     cs.build_all()
+    base = baseline_libraries(args.baseline) if args.baseline else None
+    if base is not None:
+        sad_versions(base["sad"])
+        sad_times(base["sad"], "baseline")
+    sad_times(two_strip_library(), "two strips")
+    sad_generic_path()
+    sad_phases()
+    if args.sad_only:
+        return 0
     launch_floor()
     encode_times(one_round_libraries(), "one round")
     encode_rotating()
-    base = baseline_libraries(args.baseline) if args.baseline else None
     if base is not None:
         encode_versions(base)
         encode_times(base, "baseline")

@@ -3,9 +3,12 @@ motion search, ``cur [N, B, B]`` and ``windows [N, B+2R, B+2R]`` f32 ->
 ``dy, dx [N] int32`` and ``sad [N] f32``.
 
 The wrapper checks what the kernel takes (f32, contiguous, on one CUDA
-device, the two tiles within the kernel's shared memory), allocates the
+device, the block and its window within ``MAX_TILE_BYTES``), allocates the
 outputs, launches on PyTorch's current stream without synchronising, and
-raises if the launch was refused.  ``LAUNCHES`` counts launches, so a run
+raises if the launch was refused.  Any data pointer is taken: the kernel
+stages with 16-byte copies only where both inputs are 16-byte aligned, and
+a contiguous view at another offset takes its scalar staging path, with
+the same results.  ``LAUNCHES`` counts launches, so a run
 can show that its motion search went through the kernel.  The library is
 built at first use (see ``repro_torch.kernels.build``).
 """
@@ -20,8 +23,8 @@ from repro_torch.kernels.build import CudaLibrary, LaunchCounter
 from repro_torch.kernels.sad.ref import search_geometry
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "sad_search.cu"
-#: the block and its window share 48 KB of shared memory with the kernel's
-#: argmin scratch (``kMaxTileBytes`` in the source)
+#: the largest block and window the kernel takes (``kMaxTileBytes`` in the
+#: source: 48 KB less 256 B, the first version's limit)
 MAX_TILE_BYTES = 48 * 1024 - 256
 
 

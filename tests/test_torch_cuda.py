@@ -528,7 +528,8 @@ def _sad_at(cur, win, dy, dx):
 
 
 @pytest.mark.parametrize("n", [1, 7, 64, 500])
-@pytest.mark.parametrize("b,r", [(8, 4), (16, 8), (8, 8), (4, 0)])
+@pytest.mark.parametrize("b,r", [(8, 4), (16, 8), (8, 8), (4, 0), (8, 1),
+                                 (8, 5), (16, 3), (5, 2)])
 def test_sad_search_matches_plain_version(cuda, b, r, n):
     cur, win = (torch.from_numpy(x).to(cuda)
                 for x in _sad_inputs(b * 100 + r * 10 + n, n, b, r))
@@ -601,6 +602,93 @@ def test_sad_search_rejects_bad_input(cuda):
     # the op casts any real dtype to f32 on the card
     dy, dx, sad = sad_kernel.sad_search_op(cur.double(), win.half().float())
     assert sad.dtype == torch.float32
+
+
+def _sad_in_contract_order(cur, win, chunk=2048):
+    """The kernel's contract, one separately rounded elementwise op at a
+    time: each candidate sums its row of |cur - cand| in x order from 0,
+    then the rows in y order; a NaN or +inf SAD is never taken, the first
+    least SAD in row-major (dy, dx) order wins, and (0, 0, +inf) where
+    none is taken."""
+    n, b, _ = cur.shape
+    r2 = win.shape[-1] - b + 1
+    outs = []
+    for lo in range(0, n, chunk):
+        c, w = cur[lo:lo + chunk], win[lo:lo + chunk]
+        cand = w.unfold(1, b, 1).unfold(2, b, 1)  # [n, r2, r2, b, b]
+        d = (c[:, None, None] - cand).abs()
+        tot = torch.zeros(d.shape[:3], device=d.device)
+        for y in range(b):
+            row = torch.zeros(d.shape[:3], device=d.device)
+            for x in range(b):
+                row = row + d[:, :, :, y, x]
+            tot = tot + row
+        tot = tot.reshape(len(c), r2 * r2)
+        tot = torch.where(torch.isnan(tot), torch.inf, tot)
+        best = torch.argmin(tot, dim=1)  # the first least value
+        outs.append(((best // r2).to(torch.int32),
+                     (best % r2).to(torch.int32),
+                     tot.gather(1, best[:, None])[:, 0]))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _assert_same_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.view(torch.int32),
+                                                  w.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 7, 33, 500, 32400])
+@pytest.mark.parametrize("b,r", [(8, 8), (16, 8)])
+def test_sad_search_bit_identical_to_the_contract_order(cuda, b, r, n):
+    # float pixels: every SAD rounds, so only the summation order of the
+    # contract gives these bits
+    cur, win = (torch.from_numpy(x).to(cuda)
+                for x in _sad_inputs(n * 3 + b, n, b, r))
+    got = sad_kernel.sad_search(cur, win)
+    _assert_same_bits(got, _sad_in_contract_order(cur, win))
+
+
+@pytest.mark.parametrize("b,r", [(8, 8), (16, 8), (5, 2), (8, 1)])
+def test_sad_search_nan_and_inf_never_taken(cuda, b, r):
+    n, w = 6, b + 2 * r
+    cur, win = (torch.from_numpy(x).to(cuda) for x in _sad_inputs(b, n, b, r))
+    win[0] = torch.nan  # every candidate NaN: none taken
+    win[1] = torch.inf  # every candidate +inf: none taken
+    win[2, 0, 0] = torch.nan  # candidate (0, 0) NaN, the rest finite
+    win[3, :, w - 1] = torch.inf  # the last column's candidates +inf
+    cur[4, 0, 0] = -torch.inf  # every candidate of block 4 +inf ...
+    win[4, r, r] = -torch.inf  # ... but (r, r): -inf - -inf is NaN
+    win[5, w - 1, :] = torch.nan  # the last dy's candidates NaN
+    got = sad_kernel.sad_search(cur, win)
+    want = _sad_in_contract_order(cur, win)
+    _assert_same_bits(got, want)
+    for i in (0, 1, 4):
+        assert (int(got[0][i]), int(got[1][i])) == (0, 0)
+        assert float(got[2][i]) == float("inf")
+    assert bool(torch.isfinite(got[2][[2, 3, 5]]).all())
+    assert (int(got[0][2]), int(got[1][2])) != (0, 0)
+
+
+@pytest.mark.parametrize("b,r", [(8, 8), (16, 8), (5, 2)])
+def test_sad_search_misaligned_views_give_the_same_bits(cuda, b, r):
+    # contiguous views 4 bytes past a 16-byte boundary take the kernel's
+    # scalar staging path, with the same results as an aligned copy
+    n, w = 40, b + 2 * r
+    cur, win = (torch.from_numpy(x).to(cuda) for x in _sad_inputs(7, n, b, r))
+    flat_c = torch.empty(n * b * b + 1, device=cuda)
+    flat_w = torch.empty(n * w * w + 1, device=cuda)
+    cur_v = flat_c[1:].view(n, b, b)
+    win_v = flat_w[1:].view(n, w, w)
+    cur_v.copy_(cur)
+    win_v.copy_(win)
+    assert cur_v.is_contiguous() and cur_v.data_ptr() % 16
+    assert win_v.is_contiguous() and win_v.data_ptr() % 16
+    before = sad_kernel.LAUNCHES.count
+    got = sad_kernel.sad_search(cur_v, win_v)
+    assert sad_kernel.LAUNCHES.count == before + 1
+    _assert_same_bits(got, sad_kernel.sad_search(cur, win))
+    _assert_same_bits(got, _sad_in_contract_order(cur, win))
 
 
 # ------------------------------------------------------------ video server
