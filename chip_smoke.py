@@ -71,16 +71,39 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    then ``python -m repro_torch.tasm_serve --device cuda`` as a subprocess
    over a small store root answers ``ping``, ``config()`` (a cuda decode)
    and one scan, and exits 0 on ``shutdown_server()``;
-11. retile phase, twice (inline tuning, then the background tuner with
+11. cluster phase: three ``python -m repro_torch.tasm_serve --device
+   cuda`` node processes (disk-backed, tuning and cache off) behind one
+   ``python -m repro_torch.tasm_router --replication 2`` process (first
+   checks that /dev/shm has twice the five servers' shm pools free);
+   three 1080p, 32-frame cameras ingested through a ``ClusterClient``
+   under the 6x8 layout, each onto 2 nodes; an in-process store on the
+   card from the same frames and its numpy oracle; 4 client threads x 8
+   routed scans (``car`` 0-32 of each camera, ``person`` 8-24, full frames
+   0-16 of cam1), then the same requests straight to each camera's
+   primary, p50/p95 and requests/s of both, with the card's
+   ``utilization.gpu`` sampled through the ingest and the waves; a second
+   routed wave during
+   which cam0's primary is SIGKILLed (no read fails, ``node_health``
+   reports it down, ``nvidia-smi`` drops its context within 30 s); a
+   routed retile of cam0 SOT 0 to 2x2; a fresh node ``d`` joined and the
+   lost node repaired through the router's CLI (``--join-node``,
+   ``--repair node=... --wait 300``, both exit 0), each copy read straight
+   from its new replica at the router's epochs; every live node's decode
+   device ``cuda`` (through the router's ``config()``) and its pid holding
+   a context in ``nvidia-smi``, the router's holding none; SIGTERM of the
+   router and nodes (exit 0, sockets gone) and no shared-memory segment
+   left behind.  Every reply is bit-identical to the in-process store and
+   within atol=1e-3, rtol=1e-5 of the oracle;
+12. retile phase, twice (inline tuning, then the background tuner with
    ``drain_tuner``): ``RegretPolicy`` with ``CostModel(beta=1.4e-8,
    gamma=1e-5)`` over repeated ``car`` scans of frames 0-32 of the same
    1080p video until a SOT's epoch rises; the encode launch counters must
    grow, and every region of a scan after the retile is held against the
    numpy oracle of the new tiles;
-12. calibration: ``calibrated_cost_model`` on the card at its small default
+13. calibration: ``calibrated_cost_model`` on the card at its small default
    sizes (10 timed repeats of each decode sample), with finite positive
    beta and encode_per_pixel and a finite, non-negative gamma;
-13. serve phase, ``smollm-135m`` at full width (30 layers, d_model 576,
+14. serve phase, ``smollm-135m`` at full width (30 layers, d_model 576,
    ``make_serve_config(cfg, 1)``, bf16 weights from the seed) on the card:
    (a) ``greedy_generate`` of 8 prompts of 512 tokens, 64 new tokens; the
    prefill launches ``flash_attention`` 30 times; TTFT of the prefill and
@@ -94,7 +117,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
    the device's busy share of their wall time;
-14. prints the times of the kernels redesigned for this card (all five:
+15. prints the times of the kernels redesigned for this card (all five:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
    one JSON line with the kernels' numbers, then as its last line
@@ -116,6 +139,7 @@ import json
 import pathlib
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -192,6 +216,11 @@ PLANT = (3, -2)
 SERVER_CLIENTS, SERVER_REQUESTS = 4, 8
 SERVER_QUERIES = [("frame", (0, 16)), ("car", (0, 64)), ("car", (16, 48))]
 CLI_SPEC = (192, 320, 32)
+#: the cluster phase: 1080p cameras of CLUSTER_FRAMES frames each (a
+#: 265 MB f32 ingest, just under the default 256 MiB frame cap, so nodes,
+#: router and clients take CLUSTER_FRAME_MB), and the retile's layout
+CLUSTER_CAMS, CLUSTER_FRAMES, CLUSTER_FRAME_MB = 3, 32, 1024
+CLUSTER_RETILE = (2, 2)
 
 #: device ms of the redesigned kernels before their redesign, at the main
 #: path's shapes (PERF.md section 6: chip_smoke.py on an NVIDIA H100 80GB
@@ -848,6 +877,14 @@ def video_server_phase(store, oracle) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _port_env() -> dict:
+    """The environment of a port subprocess: this checkout's ``src``
+    first on ``PYTHONPATH``."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+
+
 def cli_server_phase(seed: int) -> None:
     """``python -m repro_torch.tasm_serve --device cuda`` as a subprocess
     over a small store root: ``ping``, ``config()``, one scan, and a clean
@@ -873,9 +910,7 @@ def cli_server_phase(seed: int) -> None:
             oracle[rec.frame_start:rec.frame_end, y1:y2, x1:x2] = \
                 decode_tile(ts._read_tile(rec, i))
     local.close()
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in os.environ.get(
-            "PYTHONPATH", "").split(os.pathsep) if p]))
+    env = _port_env()
     cmd = [sys.executable, "-m", "repro_torch.tasm_serve", "--device",
            DEVICE, "--socket", sock, "--store-root", root, "--tuning", "off"]
     proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
@@ -914,6 +949,471 @@ def cli_server_phase(seed: int) -> None:
           f"start_s={start_s:.3f} scan_s={scan_s:.6f} regions="
           f"{len(res.regions)} max_abs_err={worst:.3g} decode="
           f"{cfg['decode']} exit={rc}", flush=True)
+
+
+# ---------------------------------------------------------------- cluster
+def _contexts() -> tuple:
+    """(processes holding a context on the card, memory used on it) from
+    ``nvidia-smi``.  In a container ``--query-compute-apps`` may list every
+    context under one pid, so the phase counts its lines and tells the
+    processes apart by their open device files (:func:`_device_files`)."""
+    def smi(query):
+        return subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()
+
+    apps = [line for line in smi("--query-compute-apps=pid,used_memory")
+            if line.strip()]
+    return len(apps), smi("--query-gpu=memory.used")[0].strip()
+
+
+def _device_files(pid: int) -> list:
+    """The NVIDIA device files process ``pid`` holds open: none for a
+    process that never touched the card (importing torch opens none)."""
+    out = []
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return out
+
+
+def _busy_while(fn) -> tuple:
+    """(``fn()``, the card's ``utilization.gpu`` samples while it ran):
+    ``nvidia-smi`` every 200 ms, each sample the percent of its period in
+    which a kernel of any process ran on the card."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu",
+                            "--format=csv,noheader,nounits", "-lms", "200"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+    finally:
+        smi.terminate()
+        text, _ = smi.communicate(timeout=60)
+    samples = [int(x) for x in text.split() if x.isdigit()]
+    check(samples, f"nvidia-smi gave no utilization sample: {text!r}")
+    return out, samples
+
+
+def _shm_names() -> set:
+    return set(os.listdir("/dev/shm"))
+
+
+class _Procs:
+    """The cluster phase's subprocesses, each logging to a file and waited
+    for until its socket appears; :meth:`close` kills what is left."""
+
+    def __init__(self, tmp: str):
+        self.tmp, self.procs, self.socks = tmp, {}, {}
+
+    def start(self, name: str, args: list) -> str:
+        sock = os.path.join(self.tmp, f"{name}.sock")
+        with open(os.path.join(self.tmp, f"{name}.log"), "w") as log:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", *args, "--socket", sock],
+                env=_port_env(), cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT)
+        self.socks[name] = sock
+        return sock
+
+    def node(self, name: str) -> str:
+        return self.start(name, [
+            "repro_torch.tasm_serve", "--device", DEVICE, "--tuning", "off",
+            "--cache-bytes", "0", "--max-frame-mb", str(CLUSTER_FRAME_MB),
+            "--store-root", os.path.join(self.tmp, f"store-{name}")])
+
+    def wait_ready(self, names, timeout: float = 180) -> float:
+        t0 = time.perf_counter()
+        for name in names:
+            while not os.path.exists(self.socks[name]):
+                check(self.procs[name].poll() is None,
+                      f"{name} exited {self.procs[name].returncode} before "
+                      f"serving: {self.log(name)}")
+                check(time.perf_counter() - t0 < timeout,
+                      f"{name}: its socket never appeared")
+                time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def pid(self, name: str) -> int:
+        return self.procs[name].pid
+
+    def log(self, name: str) -> str:
+        with open(os.path.join(self.tmp, f"{name}.log")) as f:
+            return f.read()[-4000:]
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+
+def _router_admin(router_sock: str, *args: str) -> tuple:
+    """``python -m repro_torch.tasm_router`` in an admin mode against the
+    running router: (exit code, output, wall seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.tasm_router",
+                          "--socket", router_sock, *args], env=_port_env(),
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    return (out.returncode, (out.stdout + out.stderr).strip(),
+            time.perf_counter() - t0)
+
+
+def _cluster_wave(opener, route, queries, want, what: str,
+                  on_reply=None) -> tuple:
+    """4 client threads, 8 requests each cycling over ``queries``; a
+    thread sends a query to ``route(camera)`` over its own client
+    ``opener(address)`` and holds every reply bit for bit against
+    ``want``; ``on_reply`` sees the count of replies so far.  Returns
+    (latencies, wall seconds, reply bytes)."""
+    lat, errors, nbytes = [], [], []
+    lock = threading.Lock()
+
+    def client(k):
+        clients = {}
+        try:
+            for i in range(SERVER_REQUESTS):
+                q = queries[(k + i) % len(queries)]
+                cam, lbl, fr = q
+                addr = route(cam)
+                if addr not in clients:
+                    clients[addr] = opener(addr)
+                t0 = time.perf_counter()
+                res = clients[addr].scan(cam).labels(lbl).frames(*fr) \
+                    .execute()
+                dt = time.perf_counter() - t0
+                _check_identical(want[q], res.regions,
+                                 f"{what} client {k} {q}")
+                with lock:
+                    lat.append(dt)
+                    nbytes.append(res.stats.payload_bytes)
+                    done = len(lat)
+                del res
+                if on_reply is not None:
+                    on_reply(done)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+        finally:
+            for c in clients.values():
+                c.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SERVER_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), f"{what}: a client hung")
+    if errors:
+        raise errors[0]
+    n = SERVER_CLIENTS * SERVER_REQUESTS
+    check(len(lat) == n, f"{what}: {len(lat)} of {n} replies")
+    return lat, wall, int(sum(nbytes))
+
+
+def _wave_line(what, wave, busy) -> str:
+    lat, wall, nbytes = wave
+    p50, p95 = np.percentile(lat, [50, 95])
+    return (f"{what}: {len(lat)} requests, wall_s={wall:.6f} "
+            f"requests_per_s={len(lat) / wall:.3f} latency_p50_s={p50:.6f} "
+            f"latency_p95_s={p95:.6f} latency_max_s={max(lat):.6f} "
+            f"reply_bytes={nbytes} card_busy_pct mean "
+            f"{np.mean(busy):.1f} max {max(busy)} over {len(busy)} samples")
+
+
+def cluster_phase(seed: int) -> None:
+    """Three ``tasm_serve --device cuda`` node processes behind one
+    ``tasm_router`` process (K=2) on this card: routed ingest of three
+    1080p cameras, routed scans from 4 client threads (beside the same
+    requests sent straight to the nodes), a SIGKILL of cam0's primary
+    under load, a routed retile, a fourth node joined and repaired onto
+    through the router's CLI, the device checks of ``nvidia-smi``, and a
+    clean SIGTERM of every process.  Replies are held bit for bit against
+    an in-process store on the card and within tolerance of the numpy
+    oracle; every wait has a timeout."""
+    from repro_torch.codec.encode import EncoderConfig
+    from repro_torch.core import (CacheConfig, ClusterClient, DecodeConfig,
+                                  NoTilingPolicy, RemoteVideoStore,
+                                  TuningConfig, VideoStore, uniform_layout)
+    from repro_torch.core.shm import DEFAULT_POOL_BYTES
+    from repro_torch.data.video_gen import generate, sparse_spec
+
+    t_phase = time.perf_counter()
+    # five socket servers (four nodes, the router) may each pool up to
+    # DEFAULT_POOL_BYTES of replies in /dev/shm, which is never checked
+    # against the tmpfs's free space: demand twice that, or stop here
+    st = os.statvfs("/dev/shm")
+    free, pools = st.f_bavail * st.f_frsize, 5 * DEFAULT_POOL_BYTES
+    check(free >= 2 * pools,
+          f"cluster: /dev/shm has {free} bytes free, want at least "
+          f"{2 * pools} (twice the five servers' shm pools)")
+    shm_before = _shm_names()
+    enc = EncoderConfig(gop=GOP, qp=QP)
+    h, w, n = H, W, CLUSTER_FRAMES
+    cams = [f"cam{k}" for k in range(CLUSTER_CAMS)]
+    layouts = {s: uniform_layout(h, w, *LAYOUT) for s in range(n // GOP)}
+    full = {f: [("frame", (0, 0, h, w))] for f in range(n)}
+    t0 = time.perf_counter()
+    video = {cam: generate(sparse_spec(seed=seed + 10 + k, height=h,
+                                       width=w, n_frames=n))
+             for k, cam in enumerate(cams)}
+    gen_s = time.perf_counter() - t0
+    queries = ([(cam, "car", (0, n)) for cam in cams]
+               + [(cam, "person", (8, 24)) for cam in cams]
+               + [("cam1", "frame", (0, 16))])
+
+    counted, used0 = _contexts()
+    check(counted <= 1, f"cluster: {counted} contexts on the card before "
+                        f"the phase")
+    tmp = tempfile.mkdtemp(prefix="tasm")
+    procs = _Procs(tmp)
+    ref = None
+    ok = False
+    try:
+        node_socks = {name: procs.node(name) for name in ("a", "b", "c")}
+        start_s = procs.wait_ready(node_socks)
+        router = procs.start("router", [
+            "repro_torch.tasm_router", "--replication", "2", "--timeout",
+            "300", "--max-frame-mb", str(CLUSTER_FRAME_MB), "--placement",
+            os.path.join(tmp, "placement.json"),
+            *[a for name, s in node_socks.items()
+              for a in ("--node", f"{name}={s}")]])
+        procs.wait_ready(["router"])
+
+        def cluster_client(addr=router):
+            return ClusterClient(addr, timeout=600,
+                                 max_frame_bytes=CLUSTER_FRAME_MB << 20)
+
+        def node_client(addr):
+            return RemoteVideoStore(addr, timeout=600,
+                                    max_frame_bytes=CLUSTER_FRAME_MB << 20)
+
+        # 1. routed ingest: every camera onto 2 of the 3 nodes
+        t0 = time.perf_counter()
+        per_cam = {}
+
+        def ingest():
+            with cluster_client() as cc:
+                for cam in cams:
+                    frames, dets = video[cam]
+                    cc.add_video(cam, encoder=enc, policy=NoTilingPolicy())
+                    t1 = time.perf_counter()
+                    stats = cc.ingest(cam, frames, detections=dets,
+                                      initial_layouts=layouts)
+                    per_cam[cam] = (round(time.perf_counter() - t1, 6),
+                                    round(stats.encode_s, 6))
+                cc.add_detections("cam1", full)
+                return cc.placement()["assignments"]
+
+        placement, busy = _busy_while(ingest)
+        ingest_s = time.perf_counter() - t0
+        check(sorted(placement) == cams
+              and all(len(set(r)) == 2 for r in placement.values()),
+              f"cluster placement {placement}")
+        print(f"cluster: 3 nodes up in {start_s:.3f} s; routed ingest of "
+              f"{len(cams)} cameras x {n}x{h}x{w}, "
+              f"{layouts[0].n_tiles} tiles, K=2: wall_s={ingest_s:.6f} "
+              f"(per camera: wall_s and one replica's encode_s "
+              f"{per_cam}; generate_s={gen_s:.3f}) card_busy_pct mean "
+              f"{np.mean(busy):.1f} max {max(busy)} over {len(busy)} "
+              f"samples; placement={placement}", flush=True)
+
+        # 2-3. the in-process store on the card, and the numpy oracle
+        reset_counts()
+        ref = VideoStore(decode=DecodeConfig(device=DEVICE),
+                         cache=CacheConfig(budget_bytes=0),
+                         tuning=TuningConfig(mode="off"))
+        t0 = time.perf_counter()
+        for cam in cams:
+            frames, dets = video[cam]
+            ref.ingest(cam, frames, detections=dets, encoder=enc,
+                       policy=NoTilingPolicy(), initial_layouts=layouts)
+        ref_ingest_s = time.perf_counter() - t0
+        ref.add_detections("cam1", full)
+        del video
+        counted, used = _contexts()
+        check(counted == 1 + len(node_socks),
+              f"cluster: {counted} contexts on the card after the ingest, "
+              f"want this process's and one per node ({1 + len(node_socks)})")
+        check(not _device_files(procs.pid("router")),
+              f"cluster: the router opened the card: "
+              f"{_device_files(procs.pid('router'))}")
+        mem = {"before the nodes": used0, "3 nodes": used}
+        print(f"cluster: the same ingest in this process: wall_s="
+              f"{ref_ingest_s:.6f}; {counted} contexts on the card",
+              flush=True)
+        oracle = {cam: _oracle_frames(ref.video(cam).store) for cam in cams}
+        want, worst = {}, 0.0
+        for q in queries:
+            cam, lbl, fr = q
+            res = ref.scan(cam).labels(lbl).frames(*fr).execute()
+            worst = max(worst, _check_regions(res.regions, oracle[cam],
+                                              f"cluster reference {q}"))
+            want[q] = res.regions
+        del oracle
+
+        # 4. routed scans, then the same requests straight to the nodes
+        routed = _busy_while(lambda: _cluster_wave(
+            cluster_client, lambda cam: router, queries, want,
+            "cluster routed"))
+        direct = _busy_while(lambda: _cluster_wave(
+            node_client, lambda cam: node_socks[placement[cam][0]],
+            queries, want, "cluster direct"))
+        hop = (np.percentile(routed[0][0], 50)
+               - np.percentile(direct[0][0], 50))
+        print(_wave_line("cluster scans through the router, 4 clients x "
+                         f"{SERVER_REQUESTS}", *routed) + " | " +
+              _wave_line("straight to each camera's primary", *direct) +
+              f" | router hop p50_s={hop:.6f} (bit-identical to "
+              f"in-process, max_abs_err vs numpy oracle {worst:.3g})",
+              flush=True)
+
+        # 5. SIGKILL cam0's primary while a second wave is in flight
+        dead = placement["cam0"][0]
+        killed = threading.Event()
+
+        def kill_mid_wave(done):
+            if done >= SERVER_CLIENTS and not killed.is_set():
+                killed.set()
+                procs.procs[dead].kill()
+
+        failover = _busy_while(lambda: _cluster_wave(
+            cluster_client, lambda cam: router, queries, want,
+            "cluster failover", on_reply=kill_mid_wave))
+        check(killed.is_set(), "cluster: the primary was never killed")
+        check(procs.procs[dead].wait(timeout=60) == -9,
+              f"cluster: node {dead} was not killed")
+        with cluster_client() as cc:
+            health = cc.node_health()
+        check(health.get(dead) is False and all(
+            v for k, v in health.items() if k != dead),
+              f"cluster: node_health after the kill: {health}")
+        t0 = time.perf_counter()
+        while _contexts()[0] != len(node_socks):
+            check(time.perf_counter() - t0 < 30,
+                  f"cluster: {_contexts()[0]} contexts 30 s after the "
+                  f"kill, want {len(node_socks)}")
+            time.sleep(0.5)
+        released_s = time.perf_counter() - t0
+        mem["after the kill"] = _contexts()[1]
+        print(_wave_line(f"cluster failover wave (SIGKILL of {dead}, "
+                         f"cam0's primary, after {SERVER_CLIENTS} replies)",
+                         *failover) +
+              f" failed_reads=0 node_health={health} "
+              f"context_released_s={released_s:.3f}", flush=True)
+
+        # 6. a routed retile: the surviving replica re-encodes on the card
+        new_layout = uniform_layout(h, w, *CLUSTER_RETILE)
+        with cluster_client() as cc:
+            t0 = time.perf_counter()
+            cc.retile("cam0", 0, new_layout)
+            retile_s = time.perf_counter() - t0
+            epochs = cc.epochs("cam0")
+        ref.retile("cam0", 0, new_layout)
+        check(epochs == ref.epochs("cam0") and epochs[0] >= 1,
+              f"cluster: routed retile epochs {epochs}, in-process "
+              f"{ref.epochs('cam0')}")
+
+        # 7. a fresh node joins, and the CLI repairs onto it
+        d_sock = procs.node("d")
+        procs.wait_ready(["d"])
+        rc, out, join_s = _router_admin(router, "--join-node", f"d={d_sock}")
+        check(rc == 0, f"cluster: --join-node exited {rc}: {out}")
+        rc, out, repair_s = _router_admin(router, "--repair", f"node={dead}",
+                                          "--wait", "300")
+        check(rc == 0, f"cluster: --repair exited {rc}: {out}")
+        with cluster_client() as cc:
+            status = cc.repair_status()
+            placement = cc.placement()["assignments"]
+        jobs = status["jobs"]
+        check(jobs and all(j["status"] == "done" for j in jobs)
+              and any(j["dst"] == "d" for j in jobs),
+              f"cluster: repair jobs {jobs}")
+        check(all(len(r) == 2 and dead not in r for r in placement.values()),
+              f"cluster: placement after the repair {placement}")
+        # each copy straight from the replica it built (the ring walk, not
+        # the phase, picks a copy's destination among the live nodes)
+        socks = dict(node_socks, d=d_sock)
+        for j in jobs:
+            cam = j["video"]
+            cam_oracle = _oracle_frames(ref.video(cam).store)
+            with node_client(socks[j["dst"]]) as dd:
+                check(dd.epochs(cam) == ref.epochs(cam),
+                      f"cluster: node {j['dst']} serves {cam} at epochs "
+                      f"{dd.epochs(cam)}, want {ref.epochs(cam)}")
+                for q in queries:
+                    if q[0] != cam:
+                        continue
+                    got = dd.scan(cam).labels(q[1]).frames(*q[2]).execute()
+                    _check_identical(ref.scan(cam).labels(q[1])
+                                     .frames(*q[2]).execute().regions,
+                                     got.regions,
+                                     f"cluster node {j['dst']} {q}")
+                    _check_regions(got.regions, cam_oracle,
+                                   f"cluster node {j['dst']} {q}")
+            del cam_oracle
+        print(f"cluster: retile of cam0 SOT 0 to {CLUSTER_RETILE} through "
+              f"the router retile_s={retile_s:.6f} epochs={epochs}; "
+              f"--join-node d {join_s:.3f} s, --repair node={dead} "
+              f"{repair_s:.3f} s: " + "; ".join(
+                  f"{j['video']} {j['src']}->{j['dst']} chunks "
+                  f"{j['chunks_done']}/{j['chunks_total']} bytes "
+                  f"{int(j['bytes_copied'])} retries {j['retries']} "
+                  f"restreams {j['restreams']}" for j in jobs) +
+              f"; copy_s={status['stats']['copy_s']:.6f}; placement="
+              f"{placement}; each copy read straight from its new replica "
+              f"at the router's epochs, bit-identical", flush=True)
+
+        # 8. device checks: every live node on the card, the router not
+        with cluster_client() as cc:
+            cfg = cc.config()["nodes"]
+        live = [m for m in ("a", "b", "c", "d") if m != dead]
+        check(cfg.get(dead) is None and all(
+            cfg[m] is not None and cfg[m]["decode"].device.startswith(DEVICE)
+            for m in live), f"cluster: node configs {cfg}")
+        counted, mem["4 nodes, one dead"] = _contexts()
+        check(counted == 1 + len(live),
+              f"cluster: {counted} contexts on the card, want this "
+              f"process's and one per live node ({1 + len(live)})")
+        files = {m: len(_device_files(procs.pid(m)))
+                 for m in live + ["router"]}
+        check(files["router"] == 0 and all(files[m] for m in live),
+              f"cluster: NVIDIA device files open per process: {files}")
+        print(f"cluster device: {counted} contexts on the card (this "
+              f"process and nodes {live}, each decoding on "
+              f"{sorted({cfg[m]['decode'].device for m in live})}); "
+              f"device files open {files}, none by the router (pid "
+              f"{procs.pid('router')}); card memory used {mem} (per "
+              f"process: not measured, nvidia-smi lists every context "
+              f"under one pid here)", flush=True)
+
+        # 9. SIGTERM: the router, then the nodes, each exits 0
+        for m in ["router"] + live:
+            procs.procs[m].send_signal(signal.SIGTERM)
+            rc = procs.procs[m].wait(timeout=120)
+            check(rc == 0, f"cluster: {m} exited {rc}: {procs.log(m)}")
+            check(not os.path.exists(procs.socks[m]),
+                  f"cluster: {m} left its socket behind")
+        ok = True
+    finally:
+        if not ok:
+            for m in procs.procs:
+                print(f"cluster: {m} log tail: {procs.log(m)!r}",
+                      file=sys.stderr, flush=True)
+        procs.close()
+        if ref is not None:
+            ref.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = sorted(_shm_names() - shm_before)
+    check(not left, f"cluster: shared-memory segments left behind: {left}")
+    print(f"cluster phase: wall_s={time.perf_counter() - t_phase:.3f} "
+          f"in-process reference launches={read_counts()}", flush=True)
 
 
 def retile_phase(frames, dets, mode: str) -> dict:
@@ -1493,6 +1993,7 @@ def main() -> int:
     store.close()
     del store, oracle
     cli_server_phase(args.seed)
+    cluster_phase(args.seed)
     for mode in ("inline", "background"):
         retile_phase(frames, dets, mode)
     del frames

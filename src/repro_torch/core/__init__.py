@@ -12,11 +12,20 @@ exposes one store over a Unix/TCP socket (``wire.py``), and
 many client processes share one scheduler, tile cache, tuner and card;
 same-host clients negotiate the shared-memory reply transport
 (``shm.py``).  ``python -m repro_torch.tasm_serve`` is the entry point.
+
+The cluster half, copied too: ``ClusterRouter`` (``cluster.py``) scales
+that out across node processes with consistent-hash placement
+(``PlacementMap``), K-way replication and epoch-checked failover, and
+the repair worker (``repair.py``) streams encoded tiles node to node to
+re-replicate after a node is lost.  The router does no device work;
+``python -m repro_torch.tasm_router`` is its entry point.
 The deprecated single-video ``TASM`` facade remains as a shim.
 """
 from repro_torch.core import wire
 from repro_torch.core.client import (RemoteError, RemoteScanQuery,
                                      RemoteServingSession, RemoteVideoStore)
+from repro_torch.core.cluster import (ClusterClient, ClusterRouter,
+                                      ClusterRouterServer, PlacementMap)
 from repro_torch.core.config import (CacheConfig, DecodeConfig, TuningConfig,
                                      DEFAULT_CACHE_BYTES)
 from repro_torch.core.cost import (CostModel, calibrate, calibrate_io,
@@ -40,6 +49,7 @@ from repro_torch.core.policies import (
     PretileAllPolicy,
     RegretPolicy,
 )
+from repro_torch.core.repair import RepairJob, RepairStats, RepairWorker
 from repro_torch.core.query import (PhysicalPlan, ScanPlan, ScanQuery,
                                     ScanResult, ScanStats, SOTScan,
                                     merge_results, split_plan)

@@ -95,6 +95,14 @@ class RemoteError(RuntimeError):
     """A server-side failure with no local builtin counterpart."""
 
 
+class ClientClosed(RuntimeError, wire.ConnectionClosed):
+    """A call on a closed client.  Still a ``RuntimeError``, and also a
+    ``ConnectionClosed``: a cluster router closes a node's channel when
+    any thread marks the node down, so another thread already holding
+    that channel must fail over like on any lost connection, not fail
+    its read."""
+
+
 def _raise_remote(err: dict):
     etype, msg = err.get("type", "Error"), err.get("message", "")
     exc = _ERROR_TYPES.get(etype)
@@ -291,7 +299,7 @@ class RemoteVideoStore:
         requests sent afterwards ride the new socket."""
         with self._send_lock:
             if self._closed:
-                raise RuntimeError("remote store is closed")
+                raise ClientClosed("remote store is closed")
             try:
                 self._sock.shutdown(socket.SHUT_RDWR)
             except OSError:
@@ -501,7 +509,7 @@ class RemoteVideoStore:
         fut.set_running_or_notify_cancel()
         with self._send_lock:
             if self._closed:
-                raise RuntimeError("remote store is closed")
+                raise ClientClosed("remote store is closed")
             rid = self._next_id
             self._next_id += 1
             with self._pending_lock:

@@ -1,11 +1,12 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
 block by block independent of the batch, and under the batched decode,
-the device encoder, the engine, the video server and LM serving against
-the numpy oracles and the plain versions.  Marked
+the device encoder, the engine, the video server, the cluster router and
+LM serving against the numpy oracles and the plain versions.  Marked
 ``cuda``; each test skips where no CUDA device is present.  This file
 imports no JAX, so it also runs where only the port is installed:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import dataclasses
+import threading
 from unittest import mock
 
 import numpy as np
@@ -16,9 +17,10 @@ from repro_torch.codec.batch import decode_tile_batch
 from repro_torch.codec.encode import (EncoderConfig, decode_tile, encode_tile,
                                       encode_tiles)
 from repro_torch.codec.psnr import psnr
-from repro_torch.core import (CacheConfig, DecodeConfig, NoTilingPolicy,
-                              RegretPolicy, RemoteVideoStore, TuningConfig,
-                              VideoStore, VideoStoreServer, uniform_layout)
+from repro_torch.core import (CacheConfig, ClusterRouter, DecodeConfig,
+                              NoTilingPolicy, RegretPolicy, RemoteVideoStore,
+                              TuningConfig, VideoStore, VideoStoreServer,
+                              uniform_layout)
 from repro_torch.core.cost import CostModel
 from repro_torch.data.video_gen import (ObjectSpec, VideoSpec, generate,
                                         sparse_spec)
@@ -713,3 +715,81 @@ def test_server_scan_on_cuda_bit_identical_to_execute(cuda, tmp_path):
                 assert g[:-1] == w[:-1] and np.array_equal(g[-1], w[-1])
     finally:
         store.close()
+
+
+# ------------------------------------------------------------ cluster
+def test_cluster_failover_on_cuda_bit_identical(cuda, tmp_path):
+    """Two in-process nodes on the card behind a K=2 router; the primary
+    is stopped while a routed ``execute_many`` is in flight to it.  Every
+    read returns, bit-identical to an in-process store on the card."""
+    frames, dets = generate(sparse_spec(seed=6, n_frames=32, height=96,
+                                        width=160))
+
+    def mk():
+        return VideoStore(decode=DecodeConfig(device=str(cuda)),
+                          cache=CacheConfig(budget_bytes=0),
+                          tuning=TuningConfig(mode="off"))
+
+    ref = mk()
+    ref.ingest("v", frames, detections=dets, policy=NoTilingPolicy())
+    stores, servers, nodes = {}, {}, {}
+    for n in ("n0", "n1"):
+        stores[n] = mk()
+        nodes[n] = str(tmp_path / f"{n}.sock")
+        servers[n] = VideoStoreServer(stores[n], path=nodes[n],
+                                      owns_store=False).start()
+    router = ClusterRouter(nodes, replication=2, timeout=120)
+    queries = [("car", (0, 32)), ("person", (8, 24)), ("car", (16, 32))]
+    try:
+        router.ingest("v", frames, detections=dets, policy=NoTilingPolicy())
+        primary = router.placement.primary("v")
+        want = [ref.scan("v").labels(lbl).frames(*fr).execute()
+                for lbl, fr in queries]
+        assert all(w.regions for w in want)
+        ch = router._channel(primary)
+        real = ch.execute_many
+        in_flight, stopped = threading.Event(), threading.Event()
+
+        def held(plans):
+            in_flight.set()
+            assert stopped.wait(timeout=120)
+            return real(plans)
+
+        ch.execute_many = held
+        out, errors = [], []
+
+        def batch():
+            try:
+                out.extend(router.execute_many(
+                    [router.scan("v").labels(lbl).frames(*fr)
+                     for lbl, fr in queries]))
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        t = threading.Thread(target=batch)
+        t.start()
+        assert in_flight.wait(timeout=120)
+        servers.pop(primary).stop()
+        stopped.set()
+        t.join(timeout=300)
+        assert not t.is_alive() and not errors, errors
+        assert primary in router._down
+        again = router.execute_many([router.scan("v").labels(lbl)
+                                     .frames(*fr) for lbl, fr in queries])
+        for got in (out, again):
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert len(g.regions) == len(w.regions)
+                for rg, rw in zip(g.regions, w.regions):
+                    assert rg[:-1] == rw[:-1]
+                    assert np.array_equal(rg[-1], rw[-1])
+        (survivor,) = [n for n in nodes if n != primary]
+        assert stores[survivor].stats()["tiles_decoded_total"] > 0
+        assert stores[primary].stats()["tiles_decoded_total"] == 0
+    finally:
+        router.close()
+        for srv in servers.values():
+            srv.stop()
+        for st in stores.values():
+            st.close()
+        ref.close()
