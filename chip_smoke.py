@@ -6,7 +6,7 @@
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the five CUDA kernels from their ``csrc/`` (one ``nvcc`` per
+2. builds the six CUDA kernels from their ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints ``build_s``;
 3. decode kernel phase: holds ``decode_gop_blocks`` against its plain
    PyTorch version on the card for F in {1, 4, 16}, M in {64, 4096,
@@ -117,7 +117,34 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
    the device's busy share of their wall time;
-15. prints the times of the kernels redesigned for this card (all five:
+15. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
+   dk, dv from the forward's o and row logsumexp) against its plain
+   version, relative to the largest |gradient| (1e-4 in f32, 8e-3 in
+   bf16), at the training shape (8, 9, 3, 2048, 64) bf16 causal and at
+   (2, 9, 3, 512, 64) f32, causal and not; times it, the plain version and
+   the backward of ``scaled_dot_product_attention`` (``enable_gqa``; the
+   library yardstick, which the port never calls) against the operation
+   bound (five causal-halved S^2 D products over the card's peak for the
+   type);
+16. train phase, ``smollm-135m`` at its published width (30 layers,
+   d_model 576, vocab 49,152), bf16 params with an f32 master copy, remat
+   on: (a) ``TRAIN_STEPS`` steps of ``make_train_step`` at B=8, S=2048 on
+   the structured synthetic stream, with the counts set to 0 just before
+   and read just after: per step 60 ``flash_attention`` launches (the
+   checkpointed forward runs twice) and 30 ``flash_attention_bwd``; the
+   median step time, tokens/s, peak memory, every loss finite, the mean
+   of the last 5 losses below the first; (b) one step's device time by
+   ``torch.profiler`` (forward and backward attention, matmuls, the rest)
+   and the busy share of its wall time; (c) an f32 step at 2 layers, full
+   width, B=2, S=256 on the card and on the CPU from the same weights:
+   loss within rtol 1e-5, every gradient within 1e-4 of its leaf's
+   largest, and the params after the AdamW update from the same gradients
+   within 1e-6 of their leaf's largest; (d) ``recoverable_train_loop``
+   with checkpoints every 2 steps and a simulated fault at step 3,
+   restored from the step-2 checkpoint bit for bit (``restarts == 1``);
+   (e) ``python -m repro_torch.launch.train --device cuda`` for 3 steps
+   with ``--checkpoint-dir``, then ``--resume`` to 5;
+17. prints the times of the kernels redesigned for this card (all five:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
    one JSON line with the kernels' numbers, then as its last line
@@ -194,6 +221,25 @@ LAYOUT = (6, 8)
 RETILE_FRAMES = 32
 #: the serve path's configuration
 ARCH = "smollm-135m"
+#: the train path: B x S at SmolLM-135M's context length, steps, the
+#: backward kernel's training shape and an f32 shape, and the f32
+#: card-against-CPU step (layers, B, S)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 20
+BWD_MAIN = (8, 9, 3, 2048, 64)
+BWD_F32 = (2, 9, 3, 512, 64)
+#: the backward kernel (fed the forward kernel's o and lse) against the
+#: plain gradient from the plain o and lse, each element over its row's
+#: largest |gradient| (at least 1e-2 of the largest of the call, since
+#: dq's causal row 0 and dq, dk at S = 1 are 0 up to rounding): bf16 one
+#: ulp of the row's largest (2^-7) and some f32 noise, f32 sums in another
+#: order; the phase prints its readings
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+BWD_FLOOR = 1e-2
+#: the row logsumexp against the plain one: about ten f32 ulps at the
+#: |lse| ~ 10 of these shapes
+LSE_ATOL = 1e-5
+TRAIN_F32 = (2, 2, 256)
+GRAD_RTOL = 1e-4
 SERVE_B, SERVE_S, SERVE_NEW = 8, 512, 64
 F32_LAYERS = 4
 FLASH_SHAPES = [(2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
@@ -253,6 +299,12 @@ KERNELS = {
     "sad_search": dict(
         source="src/repro_torch/kernels/sad/csrc/sad_search.cu",
         replaces="src/repro/kernels/sad/sad.py:41"),
+    # no Pallas kernel: the gradient the reference takes by autodiff of
+    # its chunked jnp attention
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:87"),
 }
 
 
@@ -262,7 +314,8 @@ def counters() -> dict:
     return {"decode_gop_blocks": decode.LAUNCHES, "dct_quant": dct.LAUNCHES,
             "idct_dequant": idct.LAUNCHES,
             "flash_attention": flash_attention.LAUNCHES,
-            "sad_search": sad.LAUNCHES}
+            "sad_search": sad.LAUNCHES,
+            "flash_attention_bwd": flash_attention.BWD_LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -371,14 +424,15 @@ def check(cond: bool, what: str) -> None:
 
 
 def build_all() -> float:
-    """Build the five kernels, one ``nvcc`` per source, all at once."""
+    """Build the six kernels, one ``nvcc`` per source, all at once."""
     from repro_torch.kernels.dct import LIBRARY as DCT
     from repro_torch.kernels.decode.build import LIBRARY as DECODE
+    from repro_torch.kernels.flash_attention import BWD_LIBRARY as BWD
     from repro_torch.kernels.flash_attention import LIBRARY as FLASH
     from repro_torch.kernels.idct import LIBRARY as IDCT
     from repro_torch.kernels.sad import LIBRARY as SAD
 
-    libs = (FLASH, DECODE, DCT, IDCT, SAD)
+    libs = (FLASH, BWD, DECODE, DCT, IDCT, SAD)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(), libs))
@@ -1769,9 +1823,10 @@ def _plain_prefill_attention():
         lambda q, k, v, causal=True: attention_ref(q, k, v, causal=causal))
 
 
-def _device_split(what: str, fn) -> dict:
+def _device_split(what: str, fn, *, bwd: bool = False) -> dict:
     """Device time of ``fn()``, by kind, from the profiler (None where it
-    recorded no device time); prints the largest other kernels."""
+    recorded no device time); prints the largest other kernels.  With
+    ``bwd`` the attention backward's kernels are a kind of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1780,13 +1835,17 @@ def _device_split(what: str, fn) -> dict:
         fn()
         torch.cuda.synchronize()
     split = {"flash_attention_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    if bwd:
+        split["flash_attention_bwd_ms"] = 0.0
     others = {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         ms = evt.device_time_total / 1e3
         name = evt.key.lower()
-        if "flash_attention" in name:
+        if bwd and "attention_bwd" in name:
+            split["flash_attention_bwd_ms"] += ms
+        elif "flash_attention" in name:
             split["flash_attention_ms"] += ms
         # cuBLAS's Hopper kernels are named nvjet_*, older ones *gemm*
         elif any(t in name for t in ("nvjet", "gemm", "gemv", "matmul",
@@ -1798,7 +1857,7 @@ def _device_split(what: str, fn) -> dict:
     if sum(split.values()) == 0.0:
         return {k: None for k in split}
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
-    print(f"serve (e) {what}, largest other kernels: " +
+    print(f"{what}, largest other kernels: " +
           "; ".join(f"{k} {v:.6f} ms" for k, v in top), flush=True)
     return split
 
@@ -1944,7 +2003,7 @@ def serve_phase(seed: int) -> dict:
 
     for what, fn, wall in (("prefill", run_prefill, ttft),
                            ("decode step", run_decode, SERVE_B / tok_s)):
-        split = _device_split(what, fn)
+        split = _device_split(f"serve (e) {what}", fn)
         busy = (None if split["other_ms"] is None
                 else sum(split.values()) / 1e3 / wall)
         print(f"serve (e) one B={SERVE_B} S={SERVE_S} {what}, device time "
@@ -1956,6 +2015,340 @@ def serve_phase(seed: int) -> dict:
               f"{'not measured' if busy is None else f'{busy:.4f}'}",
               flush=True)
     return launches
+
+
+# ---------------------------------------------------------------- training
+def flash_bwd_bound_ms(shape, dtype, causal: bool) -> tuple[float, str]:
+    """Least time for one attention backward: q, k, v, o, dO and the f32
+    lse read and dq, dk, dv written once over the HBM rate, against the
+    five products the gradient needs (recomputed scores, dP, dv, dk, dq; 2
+    FLOPs per multiply-add over the live (query, key) pairs) over the
+    card's peak for the type."""
+    b, h, kv, s, d = shape
+    elt = torch.finfo(dtype).bits // 8
+    n_bytes = (b * s * d * (4 * h + 4 * kv) * elt) + b * h * s * 4
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 5 * 2 * b * h * d * pairs
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_row_err(got: torch.Tensor, want: torch.Tensor,
+                floor: float) -> float:
+    """The largest |got - want| of one gradient, each element over the
+    largest |want| of its row (over D), that scale taken at least
+    ``floor``."""
+    w = want.float()
+    row = w.abs().amax(dim=-1, keepdim=True).clamp_min(floor)
+    return float(((got.float() - w).abs() / row).max())
+
+
+def flash_bwd_kernel_phase(seed: int) -> dict:
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(seed + 4)
+    worst, at_main = 0.0, None
+    for shape, dtype in ((BWD_MAIN, torch.bfloat16),
+                         (BWD_F32, torch.float32)):
+        q, k, v = _qkv(rng, *shape, dtype)
+        dout = _qkv(rng, *shape, dtype)[0]
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for causal in (True, False):
+            # the main path's chain: the forward kernel's o and lse into
+            # the backward kernel, each held against its plain version
+            o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+            got = flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+            o_ref = attention_ref(q, k, v, causal=causal)
+            lse_ref = attention_lse_ref(q, k, causal=causal)
+            torch.cuda.synchronize()
+            o_err = float((o.float() - o_ref.float()).abs().max())
+            lse_err = float((lse - lse_ref).abs().max())
+            check(o_err <= FLASH_TOL[dtype],
+                  f"flash_attention o vs plain {shape} {dtype} causal="
+                  f"{causal}: max |diff| {o_err} > {FLASH_TOL[dtype]}")
+            check(lse_err <= LSE_ATOL,
+                  f"flash_attention lse vs plain {shape} {dtype} causal="
+                  f"{causal}: max |diff| {lse_err} > {LSE_ATOL}")
+            want = attention_bwd_ref(q, k, v, o_ref, dout, lse_ref,
+                                     causal=causal)
+            floor = BWD_FLOOR * max(float(w.float().abs().max())
+                                    for w in want)
+            rel = {}
+            for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+                rel[gname] = bwd_row_err(a, w, floor)
+                check(rel[gname] <= BWD_TOL[dtype],
+                      f"flash_attention_bwd {gname} vs plain {shape} "
+                      f"{dtype} causal={causal}: {rel[gname]} of its row's "
+                      f"largest > {BWD_TOL[dtype]}")
+                worst = max(worst, float((a.float() - w.float()).abs().max()))
+            print(f"flash_attention_bwd {shape} {name} causal={causal} vs "
+                  f"plain: o {o_err:.3g}, lse {lse_err:.3g}, "
+                  + ", ".join(f"{g} {r:.3g}" for g, r in rel.items())
+                  + " of the row's largest", flush=True)
+            del got, want, o_ref, lse_ref
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        k_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, dout, lse),
+                       iters=5)
+        r_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, dout, lse),
+                       iters=2, warmup=1)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        ref_out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+        l_ms = cuda_ms(lambda: torch.autograd.grad(
+            ref_out, (qg, kg, vg), dout, retain_graph=True), iters=5)
+        b_ms, b_by = flash_bwd_bound_ms(shape, dtype, True)
+        print(f"flash_attention_bwd {shape} {name} causal: kernel_ms="
+              f"{k_ms:.6f} plain_ms={r_ms:.6f} sdpa_backward_ms={l_ms:.6f} "
+              f"bound_ms={b_ms:.6f} ({b_by}) share_of_bound="
+              f"{b_ms / k_ms:.3f}", flush=True)
+        if shape == BWD_MAIN:
+            at_main = dict(ms=k_ms, plain_ms=r_ms, library_ms=l_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+        del qg, kg, vg, ref_out
+    q, k, v = _qkv(rng, 1, 9, 3, 16, 64, torch.bfloat16)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    at_main.update(max_abs_err=worst, host_us=host_us(
+        lambda: flash_attention_bwd(q, k, v, o, q, lse)))
+    print(f"flash_attention_bwd max_abs_err={worst:.3g} wrapper host cost: "
+          f"{at_main['host_us']:.3f} us/call", flush=True)
+    return at_main
+
+
+def _grads(model, cfg, batch) -> tuple:
+    """(loss, {name: gradient}) of ``loss_fn`` on ``batch``."""
+    from repro_torch.models import loss_fn
+
+    params = dict(model.named_parameters())
+    model.requires_grad_(True)
+    loss, _ = loss_fn(model, cfg, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    model.requires_grad_(False)
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _f32_step_card_vs_cpu(seed: int) -> None:
+    """(c): the same f32 step on the card and on the CPU."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import init_model
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             init_opt_state)
+
+    layers, b, s = TRAIN_F32
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=layers,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    cpu = init_model(cfg, seed, device="cpu")
+    card = init_model(cfg, seed, device=DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed + 5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s + 1)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    reset_counts()
+    loss_d, g_d = _grads(card, cfg,
+                         {k: v.to(DEVICE) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    loss_h, g_h = _grads(cpu, cfg, batch)
+    check(counts["flash_attention_bwd"] == layers,
+          f"f32 card step launched {counts}")
+    rel = abs(float(loss_d) - float(loss_h)) / abs(float(loss_h))
+    check(rel <= 1e-5, f"f32 loss card {float(loss_d)} cpu {float(loss_h)}")
+    worst = 0.0
+    for name, gh in g_h.items():
+        diff = float((g_d[name].cpu() - gh).abs().max())
+        ratio = diff / max(float(gh.abs().max()), 1e-30)
+        check(ratio <= GRAD_RTOL, f"f32 gradient {name}: max |diff| {diff},"
+                                  f" {ratio} of the leaf's largest")
+        worst = max(worst, ratio)
+    # the update from the same gradients: the card's against the CPU's
+    opt_cfg = AdamWConfig(lr=1e-3)
+    p_d, p_h = dict(card.named_parameters()), dict(cpu.named_parameters())
+    adamw_update(g_d, init_opt_state(p_d), p_d, opt_cfg)
+    adamw_update({n: g_d[n].cpu() for n in g_d}, init_opt_state(p_h), p_h,
+                 opt_cfg)
+    upd = max(float((p_d[n].cpu() - p_h[n]).abs().max()
+                    / p_h[n].abs().max()) for n in p_h)
+    check(upd <= 1e-6, f"f32 AdamW update card vs cpu: {upd} of a leaf's "
+                       f"largest")
+    print(f"train (c) f32, {layers} layers at full width, B={b} S={s}, card "
+          f"vs cpu: loss {float(loss_d):.7f} / {float(loss_h):.7f} (rel "
+          f"{rel:.3g}); worst gradient diff {worst:.3g} of its leaf's "
+          f"largest; params after AdamW from the same gradients "
+          f"{upd:.3g} of their leaf's largest; "
+          f"launches {counts}", flush=True)
+
+
+def _recovery(seed: int) -> None:
+    """(d): the recoverable loop through a simulated fault."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import init_model
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import synthetic_token_batches
+    from repro_torch.train.elastic import LoopConfig, recoverable_train_loop
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    layers, b, s = TRAIN_F32
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=layers,
+                              param_dtype="bfloat16")
+    model = init_model(cfg, seed, device=DEVICE)
+    opt = init_opt_state(dict(model.named_parameters()))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=6))
+    saved = {}
+
+    def step_fn(state, batch):
+        model, opt = state
+        model, opt, metrics = step(model, opt, batch)
+        return (model, opt), metrics
+
+    def on_metrics(n, m):
+        if n == 2:
+            saved["embed"] = model.embed.table.detach().clone()
+
+    faults = {"armed": True}
+
+    def fault_hook(n):
+        if n == 3 and faults["armed"]:
+            faults["armed"] = False
+            saved["at_fault"] = model.embed.table.detach().clone()
+            raise RuntimeError("simulated node failure")
+
+    restored = {}
+    with tempfile.TemporaryDirectory() as ckdir:
+        ckpt = CheckpointManager(ckdir, keep=2)
+        real_restore = ckpt.restore
+
+        def restore(target, **kw):
+            out = real_restore(target, **kw)
+            restored["embed"] = model.embed.table.detach().clone()
+            return out
+
+        ckpt.restore = restore
+        t0 = time.perf_counter()
+        (model, opt), steps, restarts = recoverable_train_loop(
+            (model, opt), synthetic_token_batches(cfg.vocab, b, s, seed=seed),
+            step_fn, ckpt=ckpt,
+            cfg=LoopConfig(total_steps=6, checkpoint_every=2),
+            fault_hook=fault_hook, on_metrics=on_metrics)
+        wall = time.perf_counter() - t0
+        kept = ckpt.list_steps()
+    torch.cuda.synchronize()
+    check(restarts == 1 and steps == 6 and kept == [4, 6],
+          f"recoverable loop: restarts={restarts} steps={steps} kept={kept}")
+    check(torch.equal(restored["embed"], saved["embed"]),
+          "the restore did not bring back the step-2 parameters")
+    print(f"train (d) recoverable_train_loop, {layers} layers at full width:"
+          f" a fault at step 3, restored from step 2 bit for bit, "
+          f"restarts={restarts} steps={steps} checkpoints kept {kept} "
+          f"wall_s={wall:.3f}", flush=True)
+
+
+def _launcher(seed: int) -> None:
+    """(e): ``python -m repro_torch.launch.train --device cuda``, then
+    ``--resume``."""
+    with tempfile.TemporaryDirectory() as ckdir:
+        outs = []
+        for steps, extra in ((3, []), (5, ["--resume"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train",
+                 "--device", DEVICE, "--steps", str(steps),
+                 "--checkpoint-dir", ckdir, "--checkpoint-every", "3",
+                 *extra], env=_port_env(), capture_output=True, text=True,
+                timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"launch.train exited {proc.returncode}: {proc.stderr}")
+            outs.append(proc.stdout)
+            print(f"train (e) launch.train --steps {steps} {extra}: exit 0 "
+                  f"in {wall:.3f} s: " +
+                  " | ".join(proc.stdout.strip().splitlines()), flush=True)
+    check(f"device={DEVICE}" in outs[0] and "done: 3 steps" in outs[0],
+          f"launch.train: {outs[0]}")
+    check("resumed from step 3" in outs[1] and "done: 5 steps" in outs[1],
+          f"launch.train --resume: {outs[1]}")
+
+
+def train_phase(seed: int) -> int:
+    """The training slice at full width; returns the backward kernel's
+    launches over the main path's run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import init_model
+    from repro_torch.train.data import synthetic_token_batches
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config(ARCH), param_dtype="bfloat16")
+    model = init_model(cfg, seed, device=DEVICE)
+    opt = init_opt_state(dict(model.named_parameters()))
+    check(cfg.n_layers == 30 and cfg.d_model == 576 and cfg.vocab == 49152
+          and "master" in opt, f"training {cfg.name} at {cfg.n_layers} "
+                               f"layers")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                            total_steps=TRAIN_STEPS))
+    data = synthetic_token_batches(cfg.vocab, TRAIN_B, TRAIN_S, seed=seed)
+    batches = [next(data) for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the main path: TRAIN_STEPS steps through both attention kernels
+    losses, times, per_step = [], [], []
+    reset_counts()
+    for batch in batches[:TRAIN_STEPS]:
+        before = read_counts()
+        t0 = time.perf_counter()
+        model, opt, metrics = step(model, opt, batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        times.append(time.perf_counter() - t0)
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in
+                         ("flash_attention", "flash_attention_bwd")})
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    check(all(c == {"flash_attention": 2 * cfg.n_layers,
+                    "flash_attention_bwd": cfg.n_layers} for c in per_step),
+          f"per-step launches {per_step}")
+    check(launches["flash_attention_bwd"] == TRAIN_STEPS * cfg.n_layers,
+          f"train launches {launches}")
+    last5 = float(np.mean(losses[-5:]))
+    check(last5 < losses[0], f"loss did not fall: first {losses[0]}, mean "
+                             f"of the last 5 {last5}")
+    med = float(np.median(times[1:]))
+    print(f"train (a) {cfg.name} B={TRAIN_B} S={TRAIN_S}, bf16 params + "
+          f"f32 master, remat, {TRAIN_STEPS} steps: first step "
+          f"{times[0]:.6f} s, median step {med:.6f} s, tokens_per_s="
+          f"{TRAIN_B * TRAIN_S / med:.1f}, peak_memory_bytes={peak}, "
+          f"launches per step {per_step[-1]}, total {launches}; loss first "
+          f"{losses[0]:.6f}, mean of the last 5 {last5:.6f}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+
+    # (b) where one step's device time goes
+    split = _device_split("train (b) one step",
+                          lambda: step(model, opt, batches[TRAIN_STEPS]),
+                          bwd=True)
+    busy = (None if split["other_ms"] is None
+            else sum(split.values()) / 1e3 / med)
+    print("train (b) one step, device time (torch.profiler): " +
+          " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
+                   for k, v in split.items()) +
+          f"; device busy share of the median step ({med:.6f} s, "
+          f"unprofiled): {'not measured' if busy is None else f'{busy:.4f}'}",
+          flush=True)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+
+    _f32_step_card_vs_cpu(seed)
+    _recovery(seed)
+    _launcher(seed)
+    return launches["flash_attention_bwd"]
 
 
 def main() -> int:
@@ -1999,6 +2392,8 @@ def main() -> int:
     del frames
     calibration_phase()
     serve = serve_phase(args.seed)
+    numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
+    train = train_phase(args.seed)
 
     now = {"decode_gop_blocks F=16 M=32768":
            numbers["decode_gop_blocks"]["ms"],
@@ -2020,7 +2415,7 @@ def main() -> int:
                 "dct_quant": ingest["dct_quant"],
                 "idct_dequant": ingest["idct_dequant"],
                 "flash_attention": serve["flash_attention"],
-                "sad_search": motion}
+                "sad_search": motion, "flash_attention_bwd": train}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", **KERNELS[name],
         "launches": launches[name],

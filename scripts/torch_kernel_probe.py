@@ -10,7 +10,7 @@ per thread).
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
 1. prints the card's name and power limit, and what ``nvcc -Xptxas -v``
-   says of every kernel of the five sources (registers, shared memory,
+   says of every kernel of the six sources (registers, shared memory,
    stack frame, spills);
 2. times a 1-element ``add_`` as the encode kernels are timed (what the
    warm and the L2-cold timing cost a kernel that does next to nothing);
@@ -30,7 +30,10 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    ``src/repro_torch/kernels/*/csrc/*.cu`` (for example ``git archive
    <commit> src/repro_torch/kernels | tar -x -C DIR``): builds those
    sources too, checks that both versions of ``decode_gop_blocks``,
-   ``dct_quant``, ``idct_dequant`` and ``sad_search`` give bit-identical
+   ``dct_quant``, ``idct_dequant``, ``sad_search`` and ``flash_attention``
+   (over the smoke's shapes, bf16 and f32, causal and not, and with the
+   current kernel also writing its row logsumexp; the baseline's entry
+   must take the ``lse`` pointer too) give bit-identical
    output at ragged and full shapes (the encode kernels for intra and
    inter at qp 4, 8 and 16; the search at both motion shapes, N in {1, 7,
    33, 500, 32400}, on float and integer pixels), and times both versions
@@ -72,6 +75,8 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.decode import build as dbuild  # noqa: E402
 from repro_torch.kernels.decode import decode_gop_blocks  # noqa: E402
 from repro_torch.kernels.flash_attention import flash as fmod  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention_bwd import \
+    SOURCE as BWD_SOURCE  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bf16_mma_ref, attention_ref)
 from repro_torch.kernels.sad import sad as sad_mod  # noqa: E402
@@ -452,6 +457,24 @@ def flash_versions(base) -> None:
     patched = library_patch(fmod)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(1)
+    # the serving call (no lse) gives the baseline's bits, and asking for
+    # the lse changes no bit of o
+    n = 0
+    for shape in cs.FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = cs._qkv(rng, *shape, dtype)
+            for causal in (True, False):
+                cur = fmod.flash_attention(q, k, v, causal=causal)
+                with_lse, _ = fmod.flash_attention(q, k, v, causal=causal,
+                                                   return_lse=True)
+                with patched(base):
+                    old = fmod.flash_attention(q, k, v, causal=causal)
+                cs.check(torch.equal(cur, old) and torch.equal(cur, with_lse),
+                         f"flash_attention {shape} {dtype} causal={causal}: "
+                         f"not the baseline's bits")
+                n += 1
+    print(f"flash_attention: {n} cases bit-identical to the baseline, with "
+          f"and without lse", flush=True)
     for shape in (cs.FLASH_MAIN, cs.FLASH_LONG):
         q, k, v = cs._qkv(rng, *shape, torch.bfloat16)
         b_ms, b_by = cs.flash_bound_ms(shape, torch.bfloat16, True)
@@ -520,7 +543,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    for source in (fmod.SOURCE, dbuild.SOURCE, dct_mod.SOURCE,
+    for source in (fmod.SOURCE, BWD_SOURCE, dbuild.SOURCE, dct_mod.SOURCE,
                    idct_mod.SOURCE, sad_mod.SOURCE):
         ptxas_report(source)
     cs.build_all()

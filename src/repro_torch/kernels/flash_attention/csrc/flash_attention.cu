@@ -99,8 +99,9 @@ struct Elem<float> {
 template <typename T, int D>
 __global__ void __launch_bounds__(Shape<D>::kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int h,
-                       int kvh, int s, float scale, int causal) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int h, int kvh, int s,
+                       float scale, int causal) {
   constexpr int kTPR = Shape<D>::kTPR;
   constexpr int kThreads = Shape<D>::kThreads;
   constexpr int kPer16 = Elem<T>::kPer16;
@@ -218,6 +219,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!row_ok) return;
   const float denom = fmaxf(l, 1e-30f);
+  if (lse != nullptr && t == 0)  // natural log of the scaled scores
+    lse[(long long)bh * s + qpos] = m + logf(denom);
   T* orow = o + q_base + (long long)qpos * D;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
@@ -229,8 +232,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int h, int kvh, int s, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int h, int kvh, int s, float scale, int causal,
            cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D>;
   constexpr size_t smem = Shape<D>::kSmem;
@@ -242,21 +245,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((unsigned int)(b * h), (unsigned int)((s + kBQ - 1) / kBQ));
   kernel<<<grid, Shape<D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, kvh, s, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, h, kvh, s, scale,
+      causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
-               int h, int kvh, int s, int d, float scale, int causal,
-               cudaStream_t stream) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int h, int kvh, int s, int d, float scale,
+               int causal, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, b, h, kvh, s, scale, causal, stream);
+      return launch<T, 32>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                           stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, h, kvh, s, scale, causal, stream);
+      return launch<T, 64>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                           stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, h, kvh, s, scale, causal, stream);
+      return launch<T, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                            stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -362,8 +369,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int h, int kvh,
-                           int s, float scale_log2, int causal) {
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int h, int kvh, int s,
+                           float scale_log2, int causal) {
   using Sh = MmaShape<D>;
   constexpr int kRow = Sh::kRow;
   constexpr int kKSteps = D / 16;      // k-steps of Q K^T
@@ -522,6 +530,17 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     denom[r] = fmaxf(l_r[r], 1e-30f);
   }
+  // m and l are in the log2 domain of the scaled scores; lse is stored in
+  // the natural one, as the f32 kernel stores it: ln 2 (m + log2 l)
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wrow + g + 8 * r;
+      if (row < s)
+        lse[(long long)bh * s + row] =
+            (m_r[r] + log2f(denom[r])) * 0.6931471805599453f;
+    }
+  }
   // the warp's 16 rows of the Q tile are its own: stage O there, then
   // write 16-byte chunks of the rows < s
   __nv_bfloat16* so = sq + wrow * kRow;
@@ -547,9 +566,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
-               int h, int kvh, int s, float scale, int causal,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int h, int kvh, int s, float scale,
+               int causal, cudaStream_t stream) {
   auto kernel = flash_attention_mma_kernel<D>;
   constexpr size_t smem = MmaShape<D>::kSmem;
   if (smem > 48 * 1024) {
@@ -560,21 +579,24 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((unsigned int)(b * h), (unsigned int)((s + kBQ - 1) / kBQ));
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), h,
-      kvh, s, scale * 1.4426950408889634f, causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      lse, h, kvh, s, scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
-int dispatch_mma(const void* q, const void* k, const void* v, void* o, int b,
-                 int h, int kvh, int s, int d, float scale, int causal,
-                 cudaStream_t stream) {
+int dispatch_mma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int b, int h, int kvh, int s, int d, float scale,
+                 int causal, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch_mma<32>(q, k, v, o, b, h, kvh, s, scale, causal, stream);
+      return launch_mma<32>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                            stream);
     case 64:
-      return launch_mma<64>(q, k, v, o, b, h, kvh, s, scale, causal, stream);
+      return launch_mma<64>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                            stream);
     case 128:
-      return launch_mma<128>(q, k, v, o, b, h, kvh, s, scale, causal, stream);
+      return launch_mma<128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                             stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -585,17 +607,23 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o, int b,
 // Launches on `stream` and returns cudaGetLastError(); never synchronises.
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
 // All four tensors are contiguous and 16-byte aligned (the wrapper checks).
+// `lse` is null (serving) or an f32 [B, H, S] that receives each query
+// row's logsumexp of its scaled, masked scores, in the natural log domain:
+// the statistic the backward (flash_attention_bwd.cu) recomputes P from.
+// Writing it changes no arithmetic of o.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int b, int h, int kvh, int s, int d,
-                               int dtype, int causal, float scale,
-                               void* stream) {
+                               void* o, void* lse, int b, int h, int kvh,
+                               int s, int d, int dtype, int causal,
+                               float scale, void* stream) {
   if (b < 1 || h < 1 || kvh < 1 || s < 1 || h % kvh != 0 ||
       (long long)b * h > 0x7fffffffLL || (s + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, b, h, kvh, s, d, scale, causal, st);
+    return dispatch_d<float>(q, k, v, o, l, b, h, kvh, s, d, scale, causal,
+                             st);
   if (dtype == 1)
-    return dispatch_mma(q, k, v, o, b, h, kvh, s, d, scale, causal, st);
+    return dispatch_mma(q, k, v, o, l, b, h, kvh, s, d, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,12 @@ kernel, so it holds 2e-5 against the plain version.  The bound is the bytes of q
 v and o at serving lengths and the causal ``S^2 D`` products over the bf16
 tensor-core rate for long prompts (see the source).
 
+With ``return_lse`` the kernel also writes each query row's f32
+logsumexp of its scaled, masked scores (natural log), ``[B, H, S]``: the
+statistic the backward kernel (``flash_attention_bwd.py``) recomputes the
+probabilities from.  Without it the kernel gets a null pointer and ``o``
+is the same, bit for bit.
+
 The wrapper checks what the kernel takes (D in 32, 64, 128; one dtype for
 all three; matching shapes; ``H % KV == 0``; contiguous, 16-byte aligned
 CUDA tensors on one device), allocates the output, launches on PyTorch's
@@ -35,7 +41,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 +
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 +
                    [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -72,20 +78,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, return_lse: bool = False):
     """q: [B, H, S, D]; k, v: [B, KV, S, D] on a CUDA device.  Returns
-    [B, H, S, D] in q's dtype there."""
+    [B, H, S, D] in q's dtype there, and with ``return_lse`` also the f32
+    row logsumexp [B, H, S]."""
     _check(q, k, v)
     b, h, s, d = q.shape
     lib = LIBRARY.load()
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            k.shape[1], s, d, DTYPES[q.dtype], int(bool(causal)),
-            1.0 / math.sqrt(d), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, k.shape[1], s, d,
+            DTYPES[q.dtype], int(bool(causal)), 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES.add()
-    return out
+    return (out, lse) if return_lse else out

@@ -2,7 +2,10 @@
 
 Same function as ``csrc/flash_attention.cu`` and as the reference's
 ``attention_ref``: GQA attention in f32, masked scores ``-1e30``, cast
-back to q's dtype.  ``attention_bf16_mma_ref`` emulates the rounding of
+back to q's dtype.  ``attention_lse_ref`` is the row logsumexp the forward
+kernel writes for the backward, and ``attention_bwd_ref`` the gradient
+that ``csrc/flash_attention_bwd.cu`` computes from it.
+``attention_bf16_mma_ref`` emulates the rounding of
 the kernel's bf16 (tensor-core) path, so the CPU can hold its design to
 the tolerance; it is on no serving path.
 """
@@ -17,17 +20,56 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """q: [B, H, S, D]; k, v: [B, KV, S, D] with H % KV == 0."""
     b, h, s, d = q.shape
+    w = torch.softmax(_scores(q, k, causal), dim=-1)
+    out = torch.einsum("bkgqp,bkpd->bkgqd", w, v.float())
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scaled, masked f32 scores [B, KV, G, S, S] (masked to -1e30)."""
+    b, h, s, d = q.shape
     kv = k.shape[1]
-    g = h // kv
-    qg = q.reshape(b, kv, g, s, d).float()
-    scores = torch.einsum("bkgqd,bkpd->bkgqp", qg, k.float())
-    scores = scores / math.sqrt(d)
+    qg = q.reshape(b, kv, h // kv, s, d).float()
+    scores = torch.einsum("bkgqd,bkpd->bkgqp", qg, k.float()) / math.sqrt(d)
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~mask, -1e30)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqp,bkpd->bkgqd", w, v.float())
-    return out.reshape(b, h, s, d).to(q.dtype)
+    return scores
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True) -> torch.Tensor:
+    """Each query row's logsumexp of its scaled, masked scores, f32
+    [B, H, S], in the natural log domain (what the forward kernel writes
+    with ``return_lse``)."""
+    b, h, s, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal), dim=-1).reshape(b, h, s)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                      *, causal: bool = True) -> tuple:
+    """The gradient of ``attention_ref`` from its output ``o`` and row
+    logsumexp ``lse``, in f32, as the backward kernel computes it:
+    P = exp(scores - lse), dv = P^T dO and dk = dS^T q / sqrt(D) summed over
+    the G query heads of each KV head, dq = dS k / sqrt(D), with
+    dS = P (dO v^T - rowsum(dO o)).  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    shape = (b, kv, h // kv, s)
+    lse = lse.float().reshape(shape)[..., None]
+    p = torch.exp(_scores(q, k, causal) - lse)
+    do = dout.float().reshape(*shape, d)
+    qf, kf, vf = q.float().reshape(*shape, d), k.float(), v.float()
+    dv = torch.einsum("bkgqp,bkgqd->bkpd", p, do)
+    dp = torch.einsum("bkgqd,bkpd->bkgqp", do, vf)
+    delta = (do * o.float().reshape(*shape, d)).sum(dim=-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgqp,bkpd->bkgqd", ds, kf) / math.sqrt(d)
+    dk = torch.einsum("bkgqp,bkgqd->bkpd", ds, qf) / math.sqrt(d)
+    return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 #: keys per tile of the CUDA kernel's bf16 path

@@ -5,11 +5,12 @@ The reference computes every full-sequence attention with its chunked
 online-softmax jnp path, validated against the same oracle as its Pallas
 ``flash_attention`` kernel.  The port sends that case through the kernel's
 counterpart, ``repro_torch.kernels.flash_attention`` (the CUDA kernel on a
-CUDA tensor, its plain version on the CPU); decode (one query against the
-cache) stays plain torch, as the reference's naive path.
+CUDA tensor, its plain version on the CPU) through its autograd Function,
+so a training step's gradient runs the backward kernel; decode (one query
+against the cache) stays plain torch, as the reference's naive path.
 
 MLA, the int8 KV cache, the sequence-sharded cache and cross-attention are
-not ported yet (ROADMAP, queue 1 item 10) and raise ``NotImplementedError``.
+not ported yet (ROADMAP, queue 1 item 7) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from repro_torch.models.layers import (Dense, Norm, apply_rope, dense_apply,
                                        norm_apply)
 
 NEG_INF = -1e30
-_TODO = "not ported yet (ROADMAP, queue 1 item 10)"
+_TODO = "not ported yet (ROADMAP, queue 1 item 7)"
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -81,7 +82,8 @@ def _naive_attention(q, k, v, *, causal: bool, q_pos, kv_pos, kv_len=None):
 
 def _flash_attention(q, k, v, *, causal: bool):
     """The kernel over q [B,S,KV,G,D] and k, v [B,S,KV,D]: query head
-    ``kv*G + g`` reads KV head ``kv``, as the kernel's ``bh // G`` does."""
+    ``kv*G + g`` reads KV head ``kv``, as the kernel's ``bh // G`` does.
+    Differentiable: the gradients come back in these layouts."""
     B, S, KV, G, D = q.shape
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, S, D)
     out = flash_attention_op(qh, k.transpose(1, 2), v.transpose(1, 2),

@@ -24,7 +24,7 @@ def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP, queue 1 item "
-            f"10); the port has {KINDS}")
+            f"7); the port has {KINDS}")
 
 
 class Block(nn.Module):

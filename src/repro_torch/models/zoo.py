@@ -5,11 +5,14 @@ Counterpart of the reference's ``models/zoo.py``:
 
     model         = init_model(cfg, seed_or_generator, device=...)
     h             = forward(model, cfg, batch)          # final hidden states
+    loss, metrics = loss_fn(model, cfg, batch)          # train
     caches        = init_cache(cfg, batch, max_len, device=...)
     logits, cache = decode_step(model, cfg, batch, caches, cache_index=i)
 
 The reference scans stacked layer params; the port keeps one module per
-layer in an ``nn.ModuleList`` and loops over it.  The KV cache keeps the
+layer in an ``nn.ModuleList`` and loops over it, and where the reference
+wraps the scanned layer in ``jax.checkpoint`` (remat), the port runs each
+layer under ``torch.utils.checkpoint``.  The KV cache keeps the
 reference's stacked layout ({"layers": {"k", "v"}: [L, B, max_len, KV, D]})
 and each layer updates its slice in place.  Families other than dense
 (moe, ssm, hybrid, audio, vlm) are not ported yet and raise.
@@ -21,6 +24,7 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode.ops import resolve_device
@@ -35,7 +39,7 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.family != "dense" or cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP, "
-            f"queue 1 item 10); the port has the dense family")
+            f"queue 1 item 7); the port has the dense family")
     check_supported(cfg)
 
 
@@ -86,8 +90,17 @@ def _embed_inputs(params: Model, cfg: ArchConfig, batch: dict):
 
 
 def _run_layers(params: Model, cfg: ArchConfig, h, *, positions,
-                caches=None, cache_index=None, cache_len=None):
+                caches=None, cache_index=None, cache_len=None,
+                remat: bool = False):
+    """The layer stack.  With ``remat`` each layer runs under
+    ``checkpoint``: its activations are dropped after the forward and
+    recomputed in the backward, so the forward kernel of its attention
+    runs twice per training step."""
     for i, layer in enumerate(params.layers):
+        if remat:
+            h = checkpoint(_layer, layer, h, cfg, positions,
+                           use_reentrant=False)
+            continue
         cache = None
         if caches is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i]}
@@ -97,12 +110,74 @@ def _run_layers(params: Model, cfg: ArchConfig, h, *, positions,
     return h
 
 
-def forward(params: Model, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def _layer(layer, h, cfg: ArchConfig, positions):
+    return block_apply(layer, h, cfg, "dense", positions=positions)[0]
+
+
+def forward(params: Model, cfg: ArchConfig, batch: dict, *,
+            remat: bool = True) -> torch.Tensor:
     """Returns final hidden states [B, S, d] (final norm applied)."""
     h = _embed_inputs(params, cfg, batch)
     positions = torch.arange(h.shape[1], device=h.device)
-    h = _run_layers(params, cfg, h, positions=positions)
+    h = _run_layers(params, cfg, h, positions=positions, remat=remat)
     return norm_apply(cfg.norm, params.final_norm, h)
+
+
+# ==========================================================================
+# Loss (token-chunked cross-entropy; never materialises full [T, V] logits)
+# ==========================================================================
+#: per-chip logits budget of one chunk, in bytes (the reference's)
+LOGITS_BUDGET = 256e6
+
+
+def loss_chunks(batch: int, seq: int, vocab: int, chips: float = 1.0) -> int:
+    """The reference's chunk count: the f32 logits of the whole batch over
+    a 256e6-byte budget, rounded up to a power of two below S, then halved
+    until it divides S.  The port runs on one device (``chips`` 1)."""
+    logits_bytes = batch * seq * vocab * 4.0 / chips
+    want = max(1, int(-(-logits_bytes // LOGITS_BUDGET)))
+    n_chunk = 1
+    while n_chunk < want and n_chunk < seq:
+        n_chunk *= 2
+    while seq % n_chunk:
+        n_chunk //= 2
+    return n_chunk
+
+
+def _chunk_loss(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor,
+                compute_dtype) -> torch.Tensor:
+    logits = torch.matmul(hc.to(compute_dtype), w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, tc.long()[:, :, None], dim=-1)[..., 0]
+    return torch.sum(lse - gold)
+
+
+def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
+            remat: bool = True) -> tuple:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets"}:
+    [B, S] on the model's device) -> ``(loss, {"loss", "tokens"})``, 0-d
+    f32 tensors.  The vocab projection runs over sequence chunks
+    (:func:`loss_chunks`), each under ``checkpoint``, so the backward
+    holds one chunk's [B, S/n, V] f32 logits at a time; the reference
+    sums its chunks in a ``lax.scan``.  With tied embeddings the table
+    takes its gradient from both uses."""
+    h = forward(params, cfg, batch, remat=remat)
+    B, S, _ = h.shape
+    targets = batch["targets"]
+    cd = torch_dtype(cfg.compute_dtype)
+    w = (params.embed.table.T if cfg.tie_embeddings
+         else params.lm_head.w).to(cd)  # [d, vocab]
+    n_chunk = loss_chunks(B, S, cfg.vocab)
+    s_chunk = S // n_chunk
+    acc = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunk):
+        cut = slice(i * s_chunk, (i + 1) * s_chunk)
+        acc = acc + checkpoint(_chunk_loss, h[:, cut], targets[:, cut], w,
+                               cd, use_reentrant=False)
+    T = B * S
+    loss = acc / T
+    return loss, {"loss": loss,
+                  "tokens": torch.tensor(float(T), device=h.device)}
 
 
 def logits_fn(params: Model, cfg: ArchConfig,

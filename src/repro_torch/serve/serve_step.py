@@ -72,7 +72,7 @@ def greedy_generate(params, cfg: ArchConfig, prompt, *, max_new: int,
     steps.  Returns the new tokens [B, max_new] (int64) on the device."""
     if enc_out is not None:
         raise NotImplementedError("encoder-decoder serving is not ported "
-                                  "yet (ROADMAP, queue 1 item 10)")
+                                  "yet (ROADMAP, queue 1 item 7)")
     zoo.check_family(cfg)
     dev = check_device(params, device)
     prompt = _tokens(prompt, dev)

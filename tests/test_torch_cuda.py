@@ -33,8 +33,11 @@ from repro_torch.kernels import sad as sad_kernel
 from repro_torch.kernels.decode import (LAUNCHES, decode_fused_ref,
                                         decode_gop_blocks)
 from repro_torch.models import attention as attention_mod
-from repro_torch.models import init_model
+from repro_torch.models import init_model, loss_fn
 from repro_torch.serve import ContinuousBatcher, make_prefill_step
+from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                         init_opt_state)
+from repro_torch.train.train_step import make_train_step
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 1e-3, 1e-5
@@ -419,8 +422,8 @@ def test_flash_attention_writes_no_row_past_s(cuda, dtype, s):
                       device=cuda)
     lib = flash_kernel.LIBRARY.load()
     err = lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), fill.data_ptr(), b, h, kv,
-        s, d, flash_kernel.flash.DTYPES[dtype], 1, d ** -0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), fill.data_ptr(), None, b,
+        h, kv, s, d, flash_kernel.flash.DTYPES[dtype], 1, d ** -0.5,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -463,6 +466,201 @@ def test_flash_attention_rejects_bad_input(cuda):
         fa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     with pytest.raises(ValueError):  # one tensor on the CPU
         fa(q, k.cpu(), v)
+
+
+#: the backward kernel, fed the forward kernel's o and lse, against the
+#: plain gradient from the plain o and lse: each element over the largest
+#: |gradient| of its row (over D), that scale at least BWD_FLOOR of the
+#: largest |gradient| of the call (dq's causal row 0, and dq and dk at
+#: S = 1, are 0 up to rounding).  bf16 computes in f32 from the same bf16
+#: inputs and rounds each gradient once, as the plain version does, so two
+#: results differ by one bf16 ulp of the row's largest (2^-7) plus f32
+#: noise; f32 sums in another order (the smoke's backward phase prints
+#: its readings at the training shape).
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+BWD_FLOOR = 1e-2
+#: the row logsumexp against the plain one: about ten f32 ulps at the
+#: |lse| ~ 10 of these shapes
+LSE_ATOL = 1e-5
+
+
+def _bwd_case(cuda, seed, b, g, kv, s, d, dtype, causal):
+    q, k, v = _qkv(seed, b, g * kv, kv, s, d, dtype, cuda)
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.from_numpy(rng.standard_normal(tuple(q.shape),
+                                                dtype=np.float32))
+    return q, k, v, o, lse, dout.to(device=cuda, dtype=dtype)
+
+
+def _row_scaled_err(got, want, floor):
+    """The largest |got - want|, each element over its row's largest
+    |want| (over D), that scale taken at least ``floor``."""
+    w = want.float()
+    row = w.abs().amax(dim=-1, keepdim=True).clamp_min(floor)
+    return float(((got.float() - w).abs() / row).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("s", [1, 63, 64, 257, 1500, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_matches_plain_version(cuda, dtype, d, g, s,
+                                                   causal):
+    q, k, v, o, lse, dout = _bwd_case(cuda, s + d + g, 1, g, 2, s, d, dtype,
+                                      causal)
+    before = flash_kernel.BWD_LAUNCHES.count
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, dout, lse,
+                                           causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.BWD_LAUNCHES.count == before + 1
+    want = flash_kernel.attention_bwd_ref(
+        q, k, v, flash_kernel.attention_ref(q, k, v, causal=causal), dout,
+        flash_kernel.attention_lse_ref(q, k, causal=causal), causal=causal)
+    floor = BWD_FLOOR * max(float(w.float().abs().max()) for w in want)
+    for name, a, w, x in zip("qkv", got, want, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape, name
+        err = _row_scaled_err(a, w, floor)
+        assert err <= BWD_TOL[dtype], (
+            f"d{name}: {err} of its row's largest > {BWD_TOL[dtype]}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [1, 63, 257, 1500, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_lse_matches_plain_version(cuda, dtype, s, causal):
+    # the f32 kernel sums in natural-log space; the bf16 one in log2 space
+    # over 64-key tiles (32 of them at S = 2048, a ragged last one at
+    # 1500) and converts, both from f32 scores of the same inputs
+    q, k, v = _qkv(s, 2, 6, 2, s, 64, dtype, cuda)
+    _, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+    want = flash_kernel.attention_lse_ref(q, k, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 6, s)
+    torch.testing.assert_close(lse, want, atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [17, 512])
+def test_flash_attention_output_same_bits_with_lse(cuda, dtype, s):
+    q, k, v = _qkv(s, 2, 9, 3, s, 64, dtype, cuda)
+    for causal in (True, False):
+        plain = flash_kernel.flash_attention(q, k, v, causal=causal)
+        with_lse, _ = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                                   return_lse=True)
+        assert torch.equal(plain, with_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bwd_same_bits_twice(cuda, dtype):
+    q, k, v, o, lse, dout = _bwd_case(cuda, 5, 2, 3, 3, 300, 64, dtype,
+                                      True)
+    first = flash_kernel.flash_attention_bwd(q, k, v, o, dout, lse)
+    second = flash_kernel.flash_attention_bwd(q, k, v, o, dout, lse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_fn_gradients_through_the_kernels(cuda):
+    # autograd through FlashAttentionFn on the card: one forward with lse
+    # and one backward launch, gradients equal to the plain backward's
+    q, k, v = (x.requires_grad_() for x in
+               _qkv(3, 2, 9, 3, 130, 64, torch.float32, cuda))
+    f0, b0 = flash_kernel.LAUNCHES.count, flash_kernel.BWD_LAUNCHES.count
+    out = flash_kernel.flash_attention_op(q, k, v, causal=True)
+    dout = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count - f0 == 1
+    assert flash_kernel.BWD_LAUNCHES.count - b0 == 1
+    lse = flash_kernel.attention_lse_ref(q.detach(), k.detach())
+    want = flash_kernel.attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                          out.detach(), dout, lse)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+def _loss_and_grads(model, cfg, batch):
+    params = dict(model.named_parameters())
+    model.requires_grad_(True)
+    try:
+        loss, _ = loss_fn(model, cfg, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    finally:
+        model.requires_grad_(False)
+    return loss.detach(), dict(zip(params, grads))
+
+
+def test_f32_train_step_on_the_card_equals_the_cpu(cuda):
+    """One f32 step at 2 layers, full width, B=2, S=256 from the same
+    weights: the loss within rtol 1e-5, every gradient within 1e-4 of its
+    leaf's largest (cuBLAS and the kernels sum in other orders), and the
+    params after the AdamW update from the same gradients within 1e-6 of
+    their leaf's largest.  Parity of the params end to end is not held:
+    Adam's first step divides g by |g|, so a near-zero gradient's sign
+    moves a weight by 2 lr."""
+    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    cpu = init_model(cfg, 0, device="cpu")
+    card = init_model(cfg, 0, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 257)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    f0, b0 = flash_kernel.LAUNCHES.count, flash_kernel.BWD_LAUNCHES.count
+    loss_d, g_d = _loss_and_grads(card, cfg,
+                                  {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    # remat: each layer's forward runs twice, its backward once
+    assert flash_kernel.LAUNCHES.count - f0 == 4
+    assert flash_kernel.BWD_LAUNCHES.count - b0 == 2
+    loss_h, g_h = _loss_and_grads(cpu, cfg, batch)
+    np.testing.assert_allclose(float(loss_d), float(loss_h), rtol=1e-5)
+    for name, gh in g_h.items():
+        torch.testing.assert_close(g_d[name].cpu(), gh, rtol=0,
+                                   atol=1e-4 * float(gh.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+    p_d, p_h = dict(card.named_parameters()), dict(cpu.named_parameters())
+    opt_cfg = AdamWConfig(lr=1e-3)
+    adamw_update(g_d, init_opt_state(p_d), p_d, opt_cfg)
+    adamw_update({n: g.cpu() for n, g in g_d.items()}, init_opt_state(p_h),
+                 p_h, opt_cfg)
+    for name, ph in p_h.items():
+        torch.testing.assert_close(p_d[name].cpu(), ph, rtol=0,
+                                   atol=1e-6 * float(ph.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_bf16_train_steps_on_the_card(cuda):
+    # bf16 params with an f32 master, through both kernels: finite losses,
+    # one backward launch per layer and step, the model updated in place
+    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=3,
+                              param_dtype="bfloat16")
+    model = init_model(cfg, 0, device=cuda)
+    opt = init_opt_state(dict(model.named_parameters()))
+    assert "master" in opt
+    before = model.embed.table.detach().clone()
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1))
+    rng = np.random.default_rng(1)
+    b0 = flash_kernel.BWD_LAUNCHES.count
+    for _ in range(3):
+        toks = rng.integers(0, cfg.vocab, (2, 130), dtype=np.int32)
+        model, opt, m = step(model, opt, {"tokens": toks[:, :-1],
+                                          "targets": toks[:, 1:]})
+        assert np.isfinite(float(m["loss"]))
+    assert flash_kernel.BWD_LAUNCHES.count - b0 == 3 * cfg.n_layers
+    assert int(opt["step"]) == 3
+    assert not torch.equal(model.embed.table, before)
+    assert torch.equal(model.embed.table,
+                       opt["master"]["embed.table"].bfloat16())
 
 
 def _full_width_smollm(cuda, **kw):

@@ -7,7 +7,13 @@ to bf16 (round to nearest even in both packages) where the case asks, and
 handed to both.
 
 Tolerances are the reference's own (``tests/test_kernels.py``): 2e-5 in
-f32 and 2e-2 in bf16, where one output ulp near 1 is 7.8e-3."""
+f32 and 2e-2 in bf16, where one output ulp near 1 is 7.8e-3.
+
+The gradient (``FlashAttentionFn``, whose CPU backward is
+``attention_bwd_ref``) is held against ``jax.grad`` through the
+reference's chunked attention at rtol 1e-5 and atol 1e-6 x max|g|, and
+``attention_bwd_ref`` against torch's autograd of ``attention_ref``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,10 +23,15 @@ from repro.kernels.flash_attention.ops import (
     flash_attention_op as jax_flash_attention_op)
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_attention_ref
-from repro_torch.kernels.flash_attention import (LAUNCHES, attention_ref,
+from repro.models.attention import grouped_attention as jax_grouped
+from repro_torch.kernels.flash_attention import (LAUNCHES, FlashAttentionFn,
+                                                 attention_bwd_ref,
+                                                 attention_lse_ref,
+                                                 attention_ref,
                                                  flash_attention,
                                                  flash_attention_op)
 from repro_torch.kernels.flash_attention.ref import attention_bf16_mma_ref
+from repro_torch.models import attention
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -130,3 +141,74 @@ def test_bf16_kernel_rounding_within_tolerance(b, h, kv, s, d, causal):
     np.testing.assert_allclose(_np(got), _np(pallas), atol=tol)
     np.testing.assert_allclose(
         _np(got), _np(attention_ref(tq, tk, tv, causal=causal)), atol=tol)
+
+
+# ------------------------------------------------------- attention gradient
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv,g,d", [(2, 3, 16), (1, 4, 32), (3, 1, 64)])
+def test_attention_gradient_matches_jax_grad(causal, kv, g, d):
+    # the port's FlashAttentionFn (plain backward on the CPU) against
+    # jax.grad through the reference's chunked online-softmax attention
+    b, s = 2, 48
+    rng = np.random.default_rng(kv * 10 + g + d)
+    q = rng.standard_normal((b, s, kv, g, d), dtype=np.float32)
+    k = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    v = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    dout = rng.standard_normal((b, s, kv, g, d), dtype=np.float32)
+    pos = jnp.arange(s)
+
+    def f(q, k, v):
+        out = jax_grouped(q, k, v, causal=causal, q_pos=pos, kv_pos=pos,
+                          impl="chunked", q_chunk=16, kv_chunk=16)
+        return jnp.sum(out * dout)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tpos = torch.arange(s)
+    out = attention.grouped_attention(tq, tk, tv, causal=causal, q_pos=tpos,
+                                      kv_pos=tpos, impl="chunked")
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    for name, a, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max(),
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,kv,s,d", [(2, 6, 2, 37, 32), (1, 3, 3, 64, 16),
+                                        (2, 4, 1, 1, 64)])
+def test_attention_bwd_ref_matches_autograd(b, h, kv, s, d, causal, dtype):
+    rng = np.random.default_rng(s + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .to(dtype).requires_grad_()
+               for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+    dout = torch.from_numpy(rng.standard_normal((b, h, s, d),
+                                                dtype=np.float32)).to(dtype)
+    # autograd of the plain forward, in f32 from the same inputs
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    out = attention_ref(qf, kf, vf, causal=causal)
+    want = torch.autograd.grad(out, (qf, kf, vf), dout.float())
+    lse = attention_lse_ref(q.detach(), k.detach(), causal=causal)
+    o = attention_ref(q.detach(), k.detach(), v.detach(), causal=causal)
+    got = attention_bwd_ref(q.detach(), k.detach(), v.detach(), o, dout, lse,
+                            causal=causal)
+    # f32: the same function; bf16: o and the gradients rounded to bf16.
+    # Relative to the largest gradient of the three: at S = 1, dq and dk
+    # are 0 up to rounding
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    scale = max(float(w.abs().max()) for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w, rtol=0, atol=tol * scale)
+
+
+def test_flash_attention_fn_saves_only_with_grad():
+    q, k, v = (torch.randn(1, 2, 8, 16) for _ in range(3))
+    with torch.no_grad():
+        out = attention.flash_attention_op(q, k, v)
+    assert out.grad_fn is None
+    out = FlashAttentionFn.apply(q.requires_grad_(), k, v, True, False)
+    with pytest.raises(RuntimeError, match="save=False"):
+        out.sum().backward()

@@ -98,3 +98,49 @@ def test_store_without_device_uses_cuda_or_raises():
         VideoStore()
     with pytest.raises(RuntimeError, match="cuda"):
         VideoStore(decode=DecodeConfig(backend="numpy"))
+
+
+def test_cpu_training_loads_neither_jax_nor_reference(tmp_path):
+    # two train steps of a narrow smollm through the recoverable loop,
+    # with a checkpoint saved and restored, in a fresh process
+    code = textwrap.dedent(f"""
+        import dataclasses, sys
+        from repro_torch.configs.base import get_config
+        from repro_torch.models import init_model
+        from repro_torch.train.checkpoint import CheckpointManager
+        from repro_torch.train.data import synthetic_token_batches
+        from repro_torch.train.elastic import (LoopConfig,
+                                               recoverable_train_loop)
+        from repro_torch.train.optimizer import init_opt_state
+        from repro_torch.train.train_step import make_train_step
+        from repro_torch.utils import Timer, time_call
+        cfg = dataclasses.replace(
+            get_config("smollm-135m"), n_layers=2, d_model=64, n_heads=4,
+            n_kv_heads=2, head_dim=32, d_ff=128, vocab=256,
+            param_dtype="bfloat16")
+        model = init_model(cfg, 0, device="cpu")
+        opt = init_opt_state(dict(model.named_parameters()))
+        step = make_train_step(cfg)
+        ckpt = CheckpointManager({str(tmp_path)!r})
+        state, steps, restarts = recoverable_train_loop(
+            (model, opt), synthetic_token_batches(256, 2, 16),
+            lambda s, b: (lambda m, o, met: ((m, o), met))(*step(*s, b)),
+            ckpt=ckpt, cfg=LoopConfig(total_steps=2, checkpoint_every=1))
+        assert steps == 2 and restarts == 0
+        assert ckpt.restore(state)[1] == {{"step": 2}}
+        with Timer() as t:
+            time_call(lambda: model.embed.table.sum(), iters=1)
+        for m in ("repro_torch.train.train_step",
+                  "repro_torch.train.checkpoint", "repro_torch.utils.tree",
+                  "repro_torch.kernels.flash_attention.flash_attention_bwd"):
+            assert m in sys.modules, m
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not loaded, loaded
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
