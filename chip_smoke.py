@@ -119,9 +119,10 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    the device's busy share of their wall time;
 15. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
    dk, dv from the forward's o and row logsumexp) against its plain
-   version, relative to the largest |gradient| (1e-4 in f32, 8e-3 in
-   bf16), at the training shape (8, 9, 3, 2048, 64) bf16 causal and at
-   (2, 9, 3, 512, 64) f32, causal and not; times it, the plain version and
+   version, each element over its row's largest |gradient| (``BWD_TOL``:
+   2e-4 in f32, 1e-2 in bf16), at the training shape (8, 9, 3, 2048, 64)
+   bf16 causal and at (2, 9, 3, 512, 64) f32, causal and not (bf16 runs
+   on the tensor cores, f32 on the CUDA cores); times it, the plain version and
    the backward of ``scaled_dot_product_attention`` (``enable_gqa``; the
    library yardstick, which the port never calls) against the operation
    bound (five causal-halved S^2 D products over the card's peak for the
@@ -144,7 +145,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    restored from the step-2 checkpoint bit for bit (``restarts == 1``);
    (e) ``python -m repro_torch.launch.train --device cuda`` for 3 steps
    with ``--checkpoint-dir``, then ``--resume`` to 5;
-17. prints the times of the kernels redesigned for this card (all five:
+17. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
    one JSON line with the kernels' numbers, then as its last line
@@ -280,6 +281,7 @@ BEFORE_REDESIGN = {
     f"idct_dequant N={H * W // 64} inter": 0.025610,
     "sad_search N=32400 b=8 r=8": 0.223352,
     "sad_search N=3600 b=16 r=8": 0.092842,
+    f"flash_attention_bwd {BWD_MAIN} bf16 causal": 5.750445,
 }
 
 KERNELS = {
@@ -2404,7 +2406,9 @@ def main() -> int:
            f"dct_quant N={H * W // 64} inter": numbers["dct_quant"]["ms"],
            f"idct_dequant N={H * W // 64} inter":
            numbers["idct_dequant"]["ms"],
-           **numbers["sad_search"]["by_shape"]}
+           **numbers["sad_search"]["by_shape"],
+           f"flash_attention_bwd {BWD_MAIN} bf16 causal":
+           numbers["flash_attention_bwd"]["ms"]}
     print("redesigned kernels, this run against the time before the "
           "redesign (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W): " +
           "; ".join(f"{k}: {now[k]:.6f} ms, before {v:.6f} ms "

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Card probe of the port's redesigned kernels: ``flash_attention`` (bf16
-on tensor cores), ``decode_gop_blocks``, ``dct_quant`` and
-``idct_dequant`` (warp-level), and ``sad_search`` (a strip of candidates
-per thread).
+"""Card probe of the port's redesigned kernels: ``flash_attention`` and
+``flash_attention_bwd`` (bf16 on tensor cores), ``decode_gop_blocks``,
+``dct_quant`` and ``idct_dequant`` (warp-level), and ``sad_search`` (a
+strip of candidates per thread).
 
     python3 scripts/torch_kernel_probe.py [--baseline DIR] [--seeds 0 1 2 3]
-                                          [--sad-only]
+                                          [--sad-only | --bwd-only]
 
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
 1. prints the card's name and power limit, and what ``nvcc -Xptxas -v``
    says of every kernel of the six sources (registers, shared memory,
-   stack frame, spills);
+   stack frame, spills), each kernel by its demangled name and template
+   arguments (the backward's bf16 kernels at D = 32, 64, 128 among them);
 2. times a 1-element ``add_`` as the encode kernels are timed (what the
    warm and the L2-cold timing cost a kernel that does next to nothing);
    ``dct_quant`` and ``idct_dequant`` against a build of their sources with
@@ -36,12 +37,15 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    must take the ``lse`` pointer too) give bit-identical
    output at ragged and full shapes (the encode kernels for intra and
    inter at qp 4, 8 and 16; the search at both motion shapes, N in {1, 7,
-   33, 500, 32400}, on float and integer pixels), and times both versions
-   of each kernel at the main path's shapes
+   33, 500, 32400}, on float and integer pixels; ``flash_attention_bwd``'s
+   f32 path, whose kernels this version keeps, at the smoke's f32 shape
+   and ragged ones, D in {32, 64, 128}, causal and not), and times both
+   versions of each kernel at the main path's shapes
    in turns (baseline, current, current, baseline; the encode kernels warm
    and L2-cold at N=32,400 and 131,072), with SDPA beside the attention
    and the achieved GB/s beside the byte bound of the others (the search:
-   its share of the operation bound and its GB/s);
+   its share of the operation bound and its GB/s; the backward: bf16 at
+   the training shape and f32, each beside its operation bound);
 4. per seed, the bf16 prefill of full-width ``smollm-135m`` (B=8, S=512,
    random weights from the seed): the largest difference of the last
    position's logits from those of the plain-attention model, with the
@@ -49,6 +53,15 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    kernel's bf16 rounding (``attention_bf16_mma_ref``: P split into two
    bf16 parts, and P rounded to bf16 alone).  ``--seeds`` with no seed
    skips this part.
+
+5. the backward's bf16 rounding at (1, 9, 3, 2048, 64), causal and not:
+   the plain emulation of the kernel's rounding before the final one (P
+   and dS as hi + lo, and as bf16 alone) against the f32 plain gradient,
+   and the kernel against the emulation, over each row's largest.
+
+``--sad-only`` stops after the ptxas reports and ``sad_search``;
+``--bwd-only`` prints the two attention sources' ptxas reports and runs
+5 and the backward's part of 3 alone (about a minute).
 
 Imports neither JAX nor the reference package.  Exits non-zero without a
 CUDA device.
@@ -75,14 +88,15 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.decode import build as dbuild  # noqa: E402
 from repro_torch.kernels.decode import decode_gop_blocks  # noqa: E402
 from repro_torch.kernels.flash_attention import flash as fmod  # noqa: E402
-from repro_torch.kernels.flash_attention.flash_attention_bwd import \
-    SOURCE as BWD_SOURCE  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_bf16_mma_ref, attention_ref)
+    attention_bf16_mma_ref, attention_bwd_bf16_mma_ref, attention_bwd_ref,
+    attention_ref)
 from repro_torch.kernels.sad import sad as sad_mod  # noqa: E402
 
 dct_mod = importlib.import_module("repro_torch.kernels.dct.dct")
 idct_mod = importlib.import_module("repro_torch.kernels.idct.idct")
+bwd_mod = importlib.import_module(
+    "repro_torch.kernels.flash_attention.flash_attention_bwd")
 
 DECODE_SHAPES = [(1, 1), (2, 3), (17, 5), (16, 33), (3, 65), (16, 777),
                  (16, 32768)]
@@ -90,6 +104,10 @@ ENCODE_N = [1, 2, 3, 5, 31, 33, 4099, 32400, 131072]
 ENCODE_TIMED_N = [32400, 131072]
 SAD_N = [1, 7, 33, 500, 32400]
 SAD_STRIP = "constexpr int kStripFixed = 17;"
+#: the backward's f32 shapes held to the baseline's bits: the smoke's, and
+#: ragged S at each head dim
+BWD_F32_SHAPES = [cs.BWD_F32, (1, 4, 2, 257, 32), (1, 6, 2, 100, 128),
+                  (2, 3, 3, 1, 64), (1, 3, 1, 1500, 64)]
 
 
 def ptxas_report(source: pathlib.Path) -> None:
@@ -99,14 +117,22 @@ def ptxas_report(source: pathlib.Path) -> None:
                            "-v", "-o", str(out), str(source)],
                           capture_output=True, text=True, check=True)
     print(f"ptxas {source.name}:")
+    filt = pathlib.Path(kbuild.nvcc()).with_name("cu++filt")
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry function" in line:
-            print("  " + line.split("'")[1])
+            name = line.split("'")[1]
+            if filt.exists():  # "void (anonymous namespace)::f<(int)64>(..."
+                name = subprocess.run([str(filt), name], capture_output=True,
+                                      text=True).stdout.strip()
+                name = name.split("::", 1)[-1].replace("(int)", "")
+                name = name.split("(", 1)[0]
+            print("  " + name)
         elif "Used" in line or "spill" in line or "stack" in line:
             print("    " + line.split("ptxas info", 1)[-1].strip(" :"))
 
 
-def baseline_libraries(tree: pathlib.Path) -> dict:
+def baseline_libraries(tree: pathlib.Path, only=None) -> dict:
+    """The baseline's libraries (those named in ``only``, or all), built."""
     kernels = tree / "src" / "repro_torch" / "kernels"
     libs = {
         "decode": kbuild.CudaLibrary(
@@ -120,7 +146,11 @@ def baseline_libraries(tree: pathlib.Path) -> dict:
             kernels / "idct" / "csrc" / idct_mod.SOURCE.name,
             idct_mod._bind),
         "sad": kbuild.CudaLibrary(
-            kernels / "sad" / "csrc" / sad_mod.SOURCE.name, sad_mod._bind)}
+            kernels / "sad" / "csrc" / sad_mod.SOURCE.name, sad_mod._bind),
+        "bwd": kbuild.CudaLibrary(
+            kernels / "flash_attention" / "csrc" / bwd_mod.SOURCE.name,
+            bwd_mod._bind)}
+    libs = {k: lib for k, lib in libs.items() if only is None or k in only}
     for lib in libs.values():
         lib.build()
     return libs
@@ -487,6 +517,102 @@ def flash_versions(base) -> None:
         print(f"  sdpa: {l_ms:.6f} ms", flush=True)
 
 
+def bwd_versions(base) -> None:
+    """The backward's f32 path bit-identical to the baseline's, then both
+    versions in turns, bf16 at the training shape and f32."""
+    patched = library_patch(bwd_mod)
+    rng = np.random.default_rng(2)
+    n = 0
+    for shape in BWD_F32_SHAPES:
+        q, k, v = cs._qkv(rng, *shape, torch.float32)
+        dout = cs._qkv(rng, *shape, torch.float32)[0]
+        for causal in (True, False):
+            o, lse = fmod.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+            cur = bwd_mod.flash_attention_bwd(q, k, v, o, dout, lse,
+                                              causal=causal)
+            with patched(base):
+                old = bwd_mod.flash_attention_bwd(q, k, v, o, dout, lse,
+                                                  causal=causal)
+            cs.check(all(torch.equal(a, b) for a, b in zip(cur, old)),
+                     f"flash_attention_bwd {shape} f32 causal={causal}: "
+                     f"not the baseline's bits")
+            n += 1
+    print(f"flash_attention_bwd f32: {n} cases bit-identical to the "
+          f"baseline", flush=True)
+    for shape, dtype in ((cs.BWD_MAIN, torch.bfloat16),
+                         (cs.BWD_F32, torch.float32)):
+        q, k, v = cs._qkv(rng, *shape, dtype)
+        dout = cs._qkv(rng, *shape, dtype)[0]
+        o, lse = fmod.flash_attention(q, k, v, return_lse=True)
+        b_ms, b_by = cs.flash_bwd_bound_ms(shape, dtype, True)
+        in_turns(f"flash_attention_bwd {shape} {dtype} causal (bound "
+                 f"{b_ms:.6f} ms, {b_by})", patched, base,
+                 lambda: cs.cuda_ms(lambda: bwd_mod.flash_attention_bwd(
+                     q, k, v, o, dout, lse), iters=5))
+        bwd_kernel_split(f"flash_attention_bwd {shape} {dtype} causal",
+                         lambda: bwd_mod.flash_attention_bwd(
+                             q, k, v, o, dout, lse))
+
+
+def bwd_rounding(shape=(1, 9, 3, 2048, 64)) -> None:
+    """The backward's bf16 design in numbers: the plain emulation of its
+    rounding (``attention_bwd_bf16_mma_ref``) before the final rounding,
+    P and dS split into hi + lo and as bf16 alone, against the f32 plain
+    gradient, from f32 copies of bf16 inputs; then the kernel against the
+    emulation with the split.  Each as the smoke reads it: the largest
+    error over the row's largest |gradient|."""
+    rng = np.random.default_rng(4)
+    for causal in (True, False):
+        q, k, v = cs._qkv(rng, *shape, torch.bfloat16)
+        dout = cs._qkv(rng, *shape, torch.bfloat16)[0]
+        o, lse = fmod.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+        f32 = [x.float() for x in (q, k, v, o, dout)]
+        exact = attention_bwd_ref(*f32, lse, causal=causal)
+        floor = cs.BWD_FLOOR * max(float(w.abs().max()) for w in exact)
+        errs = {}
+        for name, split in (("hi + lo", True), ("bf16 alone", False)):
+            got = attention_bwd_bf16_mma_ref(*f32, lse, causal=causal,
+                                             split=split)
+            errs[name] = [cs.bwd_row_err(a, w, floor)
+                          for a, w in zip(got, exact)]
+        design = attention_bwd_bf16_mma_ref(q, k, v, o, dout, lse,
+                                            causal=causal)
+        kernel = bwd_mod.flash_attention_bwd(q, k, v, o, dout, lse,
+                                             causal=causal)
+        floor = cs.BWD_FLOOR * max(float(w.float().abs().max())
+                                   for w in design)
+        errs["kernel vs hi + lo, rounded"] = [
+            cs.bwd_row_err(a, w, floor) for a, w in zip(kernel, design)]
+        print(f"flash_attention_bwd rounding {shape} causal={causal}, "
+              f"dq / dk / dv over the row's largest: " + "; ".join(
+                  f"{n} " + " / ".join(f"{e:.3g}" for e in es)
+                  for n, es in errs.items()), flush=True)
+
+
+def bwd_kernel_split(what: str, fn, calls: int = 5) -> None:
+    """Device ms per call of each of the backward's three kernels, from the
+    profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {"delta": 0.0, "dkdv": 0.0, "dq": 0.0}
+    for evt in prof.key_averages():
+        name = evt.key
+        if evt.device_type == DeviceType.CUDA and "attention_bwd" in name:
+            part = next(p for p in split if f"bwd_{p}_" in name)
+            split[part] += evt.device_time_total / 1e3 / calls
+    print(f"{what}, device ms per call by kernel (torch.profiler): " +
+          " ".join(f"{k}={v:.6f}" for k, v in split.items()), flush=True)
+
+
 def logits_margins(seed: int, base) -> None:
     from repro_torch.models import attention, init_model
     from repro_torch.serve import make_prefill_step
@@ -530,8 +656,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=pathlib.Path)
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2, 3])
-    ap.add_argument("--sad-only", action="store_true",
-                    help="stop after the ptxas reports and sad_search")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--sad-only", action="store_true",
+                      help="stop after the ptxas reports and sad_search")
+    only.add_argument("--bwd-only", action="store_true",
+                      help="the attention sources' ptxas reports and the "
+                           "backward's versions alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device available",
@@ -543,8 +673,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    for source in (fmod.SOURCE, BWD_SOURCE, dbuild.SOURCE, dct_mod.SOURCE,
-                   idct_mod.SOURCE, sad_mod.SOURCE):
+    if args.bwd_only:
+        for source in (fmod.SOURCE, bwd_mod.SOURCE):
+            ptxas_report(source)
+        bwd_rounding()
+        if args.baseline:
+            bwd_versions(baseline_libraries(args.baseline, ("bwd",))["bwd"])
+        return 0
+    for source in (fmod.SOURCE, bwd_mod.SOURCE, dbuild.SOURCE,
+                   dct_mod.SOURCE, idct_mod.SOURCE, sad_mod.SOURCE):
         ptxas_report(source)
     cs.build_all()
     base = baseline_libraries(args.baseline) if args.baseline else None
@@ -564,8 +701,10 @@ def main() -> int:
         encode_times(base, "baseline")
         decode_versions(base["decode"])
         flash_versions(base["flash"])
+        bwd_versions(base["bwd"])
     for seed in args.seeds:
         logits_margins(seed, base["flash"] if base else None)
+    bwd_rounding()
     return 0
 
 

@@ -9,10 +9,15 @@ return_lse=True)`` writes it), it returns dq ``[B, H, S, D]`` and dk, dv
 head happens in the kernel, in f32.  The three kernels (delta, dk/dv, dq)
 take no atomics, so two calls give the same bits.  The bound is the five
 causal-halved ``S^2 D`` products over the tensor-core rate (see the
-source); this first version runs on the CUDA cores.
+source).  bf16 runs every product on the tensor cores (``mma.sync``
+m16n8k16 with f32 accumulators, tiles staged through a 2-stage
+``cp.async`` ring, P and dS split into two bf16 parts for the second
+products: ``ref.attention_bwd_bf16_mma_ref`` emulates that rounding); f32
+keeps the CUDA-core kernels, so it holds 2e-4 against the plain version.
 
-The wrapper checks what the kernel takes (as the forward's wrapper, and
-``lse`` f32 of ``[B, H, S]``), allocates the gradients and the f32 delta
+The wrapper checks what the kernel takes (as the forward's wrapper; o and
+dO of q's shape and dtype, contiguous and 16-byte aligned; ``lse`` f32 of
+``[B, H, S]``), allocates the gradients and the f32 delta
 scratch, launches on PyTorch's current stream without synchronising, and
 raises if a launch was refused.  ``LAUNCHES`` counts calls (one call
 launches the three kernels), so a run can show that its training steps
@@ -53,8 +58,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     for name, x in (("o", o), ("dout", dout)):
         if (x.shape != q.shape or x.dtype != q.dtype or x.device != q.device
-                or not x.is_contiguous()):
+                or not x.is_contiguous() or x.data_ptr() % 16):
             raise ValueError(f"flash_attention_bwd needs {name} contiguous, "
+                             f"16-byte aligned, "
                              f"of q's shape {tuple(q.shape)} and dtype "
                              f"{q.dtype} on {q.device}, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")

@@ -5,9 +5,10 @@ Same function as ``csrc/flash_attention.cu`` and as the reference's
 back to q's dtype.  ``attention_lse_ref`` is the row logsumexp the forward
 kernel writes for the backward, and ``attention_bwd_ref`` the gradient
 that ``csrc/flash_attention_bwd.cu`` computes from it.
-``attention_bf16_mma_ref`` emulates the rounding of
-the kernel's bf16 (tensor-core) path, so the CPU can hold its design to
-the tolerance; it is on no serving path.
+``attention_bf16_mma_ref`` and ``attention_bwd_bf16_mma_ref`` emulate the
+rounding of the two kernels' bf16 (tensor-core) paths, so the CPU can
+hold their designs to the tolerance; they are on no serving or training
+path.
 """
 from __future__ import annotations
 
@@ -55,6 +56,13 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the G query heads of each KV head, dq = dS k / sqrt(D), with
     dS = P (dO v^T - rowsum(dO o)).  Returns (dq, dk, dv) in the inputs'
     dtypes."""
+    return _attention_bwd(q, k, v, o, dout, lse, causal, lambda x: x)
+
+
+def _attention_bwd(q, k, v, o, dout, lse, causal: bool,
+                   operand) -> tuple:
+    """``attention_bwd_ref`` with P and dS passed through ``operand``
+    before the products that take them (dv, dk, dq)."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     shape = (b, kv, h // kv, s)
@@ -62,10 +70,10 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(_scores(q, k, causal) - lse)
     do = dout.float().reshape(*shape, d)
     qf, kf, vf = q.float().reshape(*shape, d), k.float(), v.float()
-    dv = torch.einsum("bkgqp,bkgqd->bkpd", p, do)
+    dv = torch.einsum("bkgqp,bkgqd->bkpd", operand(p), do)
     dp = torch.einsum("bkgqd,bkpd->bkgqp", do, vf)
     delta = (do * o.float().reshape(*shape, d)).sum(dim=-1)
-    ds = p * (dp - delta[..., None])
+    ds = operand(p * (dp - delta[..., None]))
     dq = torch.einsum("bkgqp,bkpd->bkgqd", ds, kf) / math.sqrt(d)
     dk = torch.einsum("bkgqp,bkgqd->bkpd", ds, qf) / math.sqrt(d)
     return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
@@ -116,3 +124,27 @@ def attention_bf16_mma_ref(q: torch.Tensor, k: torch.Tensor,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def _bf16_parts(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """``x`` as the tensor cores take it: rounded to bf16 (``hi``), plus
+    the remainder rounded to bf16 (``lo``) when ``split``; in f32."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float() if split else hi
+
+
+def attention_bwd_bf16_mma_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               dout: torch.Tensor, lse: torch.Tensor, *,
+                               causal: bool = True,
+                               split: bool = True) -> tuple:
+    """The numerics of the backward kernel's bf16 path, in plain PyTorch:
+    S, dP and delta in f32 from the inputs, P = exp(scores - lse) and
+    dS = P (dP - delta) in f32, then P and dS rounded to bf16 parts
+    (``hi + lo`` with ``split``, ``hi`` alone without) before the f32
+    products dv = P^T dO, dk = dS^T q / sqrt(D) (summed over the G query
+    heads) and dq = dS k / sqrt(D), each gradient rounded once to the
+    inputs' dtypes.  Given f32 copies of bf16 inputs, it returns the f32
+    gradients before that last rounding."""
+    return _attention_bwd(q, k, v, o, dout, lse, causal,
+                          lambda x: _bf16_parts(x, split))

@@ -29,6 +29,8 @@ from repro_torch.kernels import dct as dct_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import idct as idct_kernel
 from repro_torch.kernels.dct.dct import tables as dct_tables
+from repro_torch.kernels.flash_attention.ref import \
+    attention_bwd_bf16_mma_ref
 from repro_torch.kernels import sad as sad_kernel
 from repro_torch.kernels.decode import (LAUNCHES, decode_fused_ref,
                                         decode_gop_blocks)
@@ -510,7 +512,18 @@ def _row_scaled_err(got, want, floor):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bwd_matches_plain_version(cuda, dtype, d, g, s,
                                                    causal):
-    q, k, v, o, lse, dout = _bwd_case(cuda, s + d + g, 1, g, 2, s, d, dtype,
+    _check_bwd_against_plain(cuda, s + d + g, 1, g, 2, s, d, dtype, causal)
+
+
+def test_flash_attention_bwd_at_the_training_layout(cuda):
+    # the main path's GQA layout: smollm-135m's 9 query heads on 3 KV
+    # heads, head dim 64, S = 2048, bf16, causal (B cut to 2)
+    _check_bwd_against_plain(cuda, 21, 2, 3, 3, 2048, 64, torch.bfloat16,
+                             True)
+
+
+def _check_bwd_against_plain(cuda, seed, b, g, kv, s, d, dtype, causal):
+    q, k, v, o, lse, dout = _bwd_case(cuda, seed, b, g, kv, s, d, dtype,
                                       causal)
     before = flash_kernel.BWD_LAUNCHES.count
     got = flash_kernel.flash_attention_bwd(q, k, v, o, dout, lse,
@@ -526,6 +539,43 @@ def test_flash_attention_bwd_matches_plain_version(cuda, dtype, d, g, s,
         err = _row_scaled_err(a, w, floor)
         assert err <= BWD_TOL[dtype], (
             f"d{name}: {err} of its row's largest > {BWD_TOL[dtype]}")
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g,s", [(1, 1), (3, 63), (3, 257), (1, 1500)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_bf16_matches_its_design(cuda, d, g, s, causal):
+    """The bf16 kernel against the plain emulation of its own rounding (P
+    and dS split into bf16 hi + lo before f32 second products, from the
+    kernel's o and lse): both round each gradient once from nearly the same
+    f32 value, so they are closer than the limit against the fully plain
+    chain."""
+    q, k, v, o, lse, dout = _bwd_case(cuda, s + d + 7 * g, 2, g, 2, s, d,
+                                      torch.bfloat16, causal)
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, dout, lse,
+                                           causal=causal)
+    want = attention_bwd_bf16_mma_ref(q, k, v, o, dout, lse, causal=causal,
+                                      split=True)
+    torch.cuda.synchronize()
+    floor = BWD_FLOOR * max(float(w.float().abs().max()) for w in want)
+    for name, a, w in zip("qkv", got, want):
+        err = _row_scaled_err(a, w, floor)
+        assert err <= BWD_TOL[torch.bfloat16], (
+            f"d{name}: {err} of its row's largest > "
+            f"{BWD_TOL[torch.bfloat16]}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bwd_rejects_misaligned_dout(cuda, dtype):
+    q, k, v, o, lse, dout = _bwd_case(cuda, 3, 1, 3, 1, 40, 64, dtype, True)
+    flat = torch.empty(dout.numel() + 1, dtype=dtype, device=cuda)
+    shifted = flat[1:].view_as(dout)  # contiguous, 2 or 4 bytes off
+    shifted.copy_(dout)
+    before = flash_kernel.BWD_LAUNCHES.count
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_kernel.flash_attention_bwd(q, k, v, o, shifted, lse)
+    assert flash_kernel.BWD_LAUNCHES.count == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -12,7 +12,10 @@ f32 and 2e-2 in bf16, where one output ulp near 1 is 7.8e-3.
 The gradient (``FlashAttentionFn``, whose CPU backward is
 ``attention_bwd_ref``) is held against ``jax.grad`` through the
 reference's chunked attention at rtol 1e-5 and atol 1e-6 x max|g|, and
-``attention_bwd_ref`` against torch's autograd of ``attention_ref``."""
+``attention_bwd_ref`` against torch's autograd of ``attention_ref``.  The
+backward kernel's bf16 design (``attention_bwd_bf16_mma_ref``: P and dS
+as two bf16 parts before the second products) is held against
+``attention_bwd_ref`` with the card's per-row rule."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +33,8 @@ from repro_torch.kernels.flash_attention import (LAUNCHES, FlashAttentionFn,
                                                  attention_ref,
                                                  flash_attention,
                                                  flash_attention_op)
-from repro_torch.kernels.flash_attention.ref import attention_bf16_mma_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bf16_mma_ref, attention_bwd_bf16_mma_ref)
 from repro_torch.models import attention
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -212,3 +216,69 @@ def test_flash_attention_fn_saves_only_with_grad():
     out = FlashAttentionFn.apply(q.requires_grad_(), k, v, True, False)
     with pytest.raises(RuntimeError, match="save=False"):
         out.sum().backward()
+
+
+# ------------------------------------------ the backward kernel's bf16 design
+#: the card's rule (tests/test_torch_cuda.py, chip_smoke.py): each element
+#: over its row's largest |gradient| (over D), that scale at least
+#: BWD_FLOOR of the call's largest; bf16 one ulp of the row's largest
+#: (2^-7) and some f32 noise
+BWD_TOL_BF16 = 1e-2
+BWD_FLOOR = 1e-2
+#: the split's error before the final rounding, of the row's largest:
+#: P and dS keep about 16 bits (a bf16 ulp of the remainder, ~2^-17 of
+#: each value), summed over the keys or rows of a product
+SPLIT_TOL = 1e-4
+
+
+def _row_scaled_errs(got, want):
+    floor = BWD_FLOOR * max(float(w.float().abs().max()) for w in want)
+    errs = []
+    for a, w in zip(got, want):
+        w = w.float()
+        row = w.abs().amax(dim=-1, keepdim=True).clamp_min(floor)
+        errs.append(float(((a.float() - w).abs() / row).max()))
+    return errs
+
+
+def _bwd_inputs(seed, b, h, kv, s, d, causal):
+    """bf16 q, k, v, dO from a seed (standard normal, as the card's tests
+    make them), and the plain o and lse."""
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).bfloat16() for shape in (
+        (b, h, s, d), (b, kv, s, d), (b, kv, s, d), (b, h, s, d)))
+    o = attention_ref(q, k, v, causal=causal)
+    lse = attention_lse_ref(q, k, causal=causal)
+    return q, k, v, o, dout, lse
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal", [
+    (*shape, causal) for shape in (
+        (2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
+        (3, 9, 3, 1, 64), (3, 9, 3, 7, 64), (3, 9, 3, 100, 64))
+    for causal in (True, False)] + [(1, 9, 3, 2048, 64, True)])
+def test_bf16_bwd_rounding_within_tolerance(b, h, kv, s, d, causal):
+    """What the CPU can say of the backward kernel's bf16 design: P and dS
+    split into bf16 hi + lo parts before the second products stays inside
+    the card's per-row bf16 limit of the plain gradient, and before the
+    final rounding within SPLIT_TOL of it; P and dS rounded to bf16 alone
+    (the rejected design) lose at least ten times as much.  The kernel
+    itself is held on the card (``tests/test_torch_cuda.py``)."""
+    q, k, v, o, dout, lse = _bwd_inputs(s + d + h, b, h, kv, s, d, causal)
+    want = attention_bwd_ref(q, k, v, o, dout, lse, causal=causal)
+    got = attention_bwd_bf16_mma_ref(q, k, v, o, dout, lse, causal=causal)
+    for a, x in zip(got, (q, k, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == x.shape
+    for name, err in zip(("dq", "dk", "dv"), _row_scaled_errs(got, want)):
+        assert err <= BWD_TOL_BF16, f"{name}: {err} > {BWD_TOL_BF16}"
+    # before the final rounding: f32 copies of the bf16 inputs
+    f32 = [x.float() for x in (q, k, v, o, dout)]
+    exact = attention_bwd_ref(*f32, lse, causal=causal)
+    split = _row_scaled_errs(
+        attention_bwd_bf16_mma_ref(*f32, lse, causal=causal), exact)
+    hi = _row_scaled_errs(attention_bwd_bf16_mma_ref(
+        *f32, lse, causal=causal, split=False), exact)
+    assert max(split) <= SPLIT_TOL, split
+    if s > 1:  # at S = 1, P = 1 and dS = 0 are exact in bf16
+        assert max(hi) >= 10 * max(split), (hi, split)
