@@ -24,11 +24,13 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 5. attention kernel phase: holds ``flash_attention`` against its plain
    version (atol 2e-5 in f32, 2e-2 in bf16) for (B, H, KV, S, D) in
    {(2,4,4,128,32), (2,4,2,256,64), (2,8,1,256,32), (8,9,3,512,64),
-   (1,9,3,4096,64), (3,9,3,100,64), (1,9,3,1,64)}, causal and not, bf16
-   and f32, on ``randn`` inputs from the seed; times it, the plain version
-   and ``scaled_dot_product_attention`` (the library yardstick, which the
-   port never calls) in bf16 at the prefill shape (8,9,3,512,64) and at
-   (1,9,3,4096,64), with the byte and operation bounds, and the wrapper's
+   (1,9,3,4096,64), (3,9,3,100,64), (1,9,3,1,64), (8,32,4,512,128)},
+   causal and not, bf16 and f32, on ``randn`` inputs from the seed; times
+   it, the plain version and ``scaled_dot_product_attention`` (the
+   library yardstick, which the port never calls) in bf16 at the
+   smollm-135m prefill shape (8,9,3,512,64), at (1,9,3,4096,64) and at
+   the qwen3-moe-30b-a3b prefill shape (8,32,4,512,128), which the JSON
+   line reports, with the byte and operation bounds, and the wrapper's
    host cost per call;
 6. sad kernel phase: holds ``sad_search`` against its plain version for
    (b, r) in {(8, 4), (16, 8), (8, 8), (4, 0), (8, 1), (8, 5), (16, 3),
@@ -117,7 +119,35 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
    the device's busy share of their wall time;
-15. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
+15. MoE serve phase, ``qwen3-moe-30b-a3b`` at its published width and
+   depth (48 layers, d_model 2048, 32/4 heads of 128, 128 experts top 8,
+   capacity factor 1.25, vocab 151,936; ``make_serve_config(cfg, 1)``;
+   30,532,122,624 parameters, equal to ``analytic_param_count``, 61 GB
+   of bf16 weights drawn on the card from a CUDA generator seeded with
+   the seed), with no earlier model resident (free card memory printed
+   before the init, the init time after it): (a) ``greedy_generate`` of
+   8 prompts of 512 tokens, 64 new; the prefill launches
+   ``flash_attention`` 48 times; TTFT and decode tokens/s; (b) the same
+   weights with the plain prefill attention: the last-position logits'
+   largest gap and the greedy agreement; per layer, the share of the
+   prefill's (token, slot) expert assignments whose expert the plain
+   attention also picks for that token when both run that layer from the
+   same input (teacher-forced: a test-only patch runs each layer twice),
+   at least 0.99 in every layer, every logit finite; the same share over
+   two free-running prefills, printed beside that of
+   ``scaled_dot_product_attention`` against the plain version (a control:
+   any two correct bf16 attentions part the routes of later layers,
+   since a rounding difference that crosses a token's 8th/9th gate gap
+   sends it to another expert and the difference grows from there); (d)
+   ``ContinuousBatcher(slots=8, max_len=640)`` over 16 requests drawn as
+   the serve phase draws them: every request finishes, 48 launches per
+   wave; (e) one prefill's and one decode step's device time split by
+   ``torch.profiler`` into ``flash_attention``, the expert GEMMs, the
+   other matmuls, the dispatch and the rest, and the busy share of each;
+   (c) once the bf16 model is freed, f32 at 4 layers, full width
+   otherwise: logits within 1e-3 of the plain attention's, greedy
+   agreement >= 0.99; the peak memory;
+16. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
    dk, dv from the forward's o and row logsumexp) against its plain
    version, each element over its row's largest |gradient| (``BWD_TOL``:
    2e-4 in f32, 1e-2 in bf16), at the training shape (8, 9, 3, 2048, 64)
@@ -127,7 +157,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    library yardstick, which the port never calls) against the operation
    bound (five causal-halved S^2 D products over the card's peak for the
    type);
-16. train phase, ``smollm-135m`` at its published width (30 layers,
+17. train phase, ``smollm-135m`` at its published width (30 layers,
    d_model 576, vocab 49,152), bf16 params with an f32 master copy, remat
    on: (a) ``TRAIN_STEPS`` steps of ``make_train_step`` at B=8, S=2048 on
    the structured synthetic stream, with the counts set to 0 just before
@@ -145,11 +175,13 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    restored from the step-2 checkpoint bit for bit (``restarts == 1``);
    (e) ``python -m repro_torch.launch.train --device cuda`` for 3 steps
    with ``--checkpoint-dir``, then ``--resume`` to 5;
-17. prints the times of the kernels redesigned for this card (all six:
+18. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
-   one JSON line with the kernels' numbers, then as its last line
-   ``{"ok": true, "device": {...}}``.
+   one JSON line with the kernels' numbers (each kernel's launches on its
+   latest path: ``flash_attention`` on the MoE serve path's
+   ``greedy_generate``, timed at its prefill shape), then as its last
+   line ``{"ok": true, "device": {...}}``.
 
 f32 products on the card stay f32 (``allow_tf32`` is set False for
 matmuls and cuDNN) in every comparison.
@@ -245,11 +277,19 @@ SERVE_B, SERVE_S, SERVE_NEW = 8, 512, 64
 F32_LAYERS = 4
 FLASH_SHAPES = [(2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
                 (8, 9, 3, 512, 64), (1, 9, 3, 4096, 64), (3, 9, 3, 100, 64),
-                (1, 9, 3, 1, 64)]
+                (1, 9, 3, 1, 64), (8, 32, 4, 512, 128)]
 BATCH_SLOTS, BATCH_MAX_LEN, BATCH_REQUESTS = 8, 640, 16
 BATCH_PROMPT, BATCH_NEW = (64, 512), (16, 64)
 FLASH_MAIN = (8, 9, 3, 512, 64)
 FLASH_LONG = (1, 9, 3, 4096, 64)
+#: the MoE serve path: qwen3-moe-30b-a3b at its published width and depth
+#: (48 layers, d_model 2048, 32/4 heads of 128, 128 experts, top 8), its
+#: prefill's attention shape, and the share of (token, slot) expert
+#: assignments of each layer that must agree between the kernel's and
+#: the plain attention's prefill in bf16
+MOE_ARCH = "qwen3-moe-30b-a3b"
+FLASH_MOE = (SERVE_B, 32, 4, SERVE_S, 128)
+AGREE_ROUTING = 0.99
 #: the motion search: the sweep of the sad kernel phase, and the two frame
 #: pairs of the motion path, (height, width, b, r); the first is the main
 #: path's shape (1080 is not a multiple of 16, so it takes b=8)
@@ -1582,7 +1622,7 @@ def flash_kernel_phase(seed: int) -> dict:
                       f"flash_attention vs plain {shape} {dtype} causal="
                       f"{causal}: max |diff| {err} > {FLASH_TOL[dtype]}")
                 worst = max(worst, err)
-            if shape not in (FLASH_MAIN, FLASH_LONG) \
+            if shape not in (FLASH_MAIN, FLASH_LONG, FLASH_MOE) \
                     or dtype != torch.bfloat16:
                 continue
             k_ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
@@ -1600,8 +1640,10 @@ def flash_kernel_phase(seed: int) -> dict:
             timed[shape] = dict(ms=k_ms, plain_ms=r_ms, library_ms=l_ms,
                                 bound_ms=b_ms, bound_by=b_by)
     q, k, v = _qkv(rng, 1, 9, 3, 16, 64, torch.bfloat16)
-    at_main = dict(timed[FLASH_MAIN], max_abs_err=worst,
+    # the JSON line reports the MoE prefill's shape, this slice's main path
+    at_main = dict(timed[FLASH_MOE], max_abs_err=worst,
                    host_us=host_us(lambda: flash_attention(q, k, v)),
+                   smollm_ms=timed[FLASH_MAIN]["ms"],
                    long_ms=timed[FLASH_LONG]["ms"])
     print(f"flash_attention max_abs_err={worst:.3g} wrapper host cost: "
           f"{at_main['host_us']:.3f} us/call", flush=True)
@@ -1897,12 +1939,46 @@ def _generate(model, cfg, prompts) -> tuple:
     return logits, out, ttft, tok_s, wall, read_counts()
 
 
+def _batcher_run(what: str, cfg, model, rng) -> dict:
+    """``ContinuousBatcher(slots=8, max_len=640)`` over 16 requests of
+    64-512 prompt tokens and 16-64 new tokens drawn from ``rng``: every
+    request finishes with its tokens, one ``flash_attention`` launch per
+    layer and wave (counts set to 0 just before the run, read just
+    after); returns the stats."""
+    from repro_torch.serve import ContinuousBatcher
+
+    batcher = ContinuousBatcher(cfg, model, slots=BATCH_SLOTS,
+                                max_len=BATCH_MAX_LEN, device=DEVICE)
+    want = []
+    for _ in range(BATCH_REQUESTS):
+        n = int(rng.integers(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1))
+        new = int(rng.integers(BATCH_NEW[0], BATCH_NEW[1] + 1))
+        batcher.submit(rng.integers(0, cfg.vocab, n), max_new=new)
+        want.append(new)
+    waves = -(-BATCH_REQUESTS // BATCH_SLOTS)
+    reset_counts()
+    stats = batcher.run_until_drained()
+    torch.cuda.synchronize()
+    b_launches = read_counts()["flash_attention"]
+    check(stats["requests"] == BATCH_REQUESTS
+          and sorted(len(r.out_tokens) for r in batcher.finished)
+          == sorted(want),
+          f"batcher finished {stats['requests']} requests")
+    check(b_launches == waves * cfg.n_layers,
+          f"batcher launched flash_attention {b_launches} times for "
+          f"{waves} waves, want {waves * cfg.n_layers}")
+    print(f"{what} ContinuousBatcher(slots={BATCH_SLOTS}, max_len="
+          f"{BATCH_MAX_LEN}), {BATCH_REQUESTS} requests: {json.dumps(stats)} "
+          f"launches={b_launches}", flush=True)
+    return stats
+
+
 def serve_phase(seed: int) -> dict:
     """The LM serving slice at full width; returns the launches of the
     main path's prefill."""
     from repro_torch.models import init_model
-    from repro_torch.serve import (ContinuousBatcher, greedy_generate,
-                                   make_decode_step, make_prefill_step)
+    from repro_torch.serve import (greedy_generate, make_decode_step,
+                                   make_prefill_step)
 
     rng = np.random.default_rng(seed + 3)
     cfg = _serve_config()
@@ -1966,29 +2042,7 @@ def serve_phase(seed: int) -> dict:
     del m32
 
     # (d) the continuous batcher
-    batcher = ContinuousBatcher(cfg, model, slots=BATCH_SLOTS,
-                                max_len=BATCH_MAX_LEN, device=DEVICE)
-    want = []
-    for _ in range(BATCH_REQUESTS):
-        n = int(rng.integers(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1))
-        new = int(rng.integers(BATCH_NEW[0], BATCH_NEW[1] + 1))
-        batcher.submit(rng.integers(0, cfg.vocab, n), max_new=new)
-        want.append(new)
-    waves = -(-BATCH_REQUESTS // BATCH_SLOTS)
-    reset_counts()
-    stats = batcher.run_until_drained()
-    torch.cuda.synchronize()
-    b_launches = read_counts()["flash_attention"]
-    check(stats["requests"] == BATCH_REQUESTS
-          and sorted(len(r.out_tokens) for r in batcher.finished)
-          == sorted(want),
-          f"batcher finished {stats['requests']} requests")
-    check(b_launches == waves * cfg.n_layers,
-          f"batcher launched flash_attention {b_launches} times for "
-          f"{waves} waves, want {waves * cfg.n_layers}")
-    print(f"serve (d) ContinuousBatcher(slots={BATCH_SLOTS}, max_len="
-          f"{BATCH_MAX_LEN}), {BATCH_REQUESTS} requests: {json.dumps(stats)} "
-          f"launches={b_launches}", flush=True)
+    _batcher_run("serve (d)", cfg, model, rng)
 
     # (e) where a prefill's and a decode step's device time goes
     prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
@@ -2017,6 +2071,348 @@ def serve_phase(seed: int) -> dict:
               f"{'not measured' if busy is None else f'{busy:.4f}'}",
               flush=True)
     return launches
+
+
+# ------------------------------------------------------------- MoE serving
+def _moe_config(**kw):
+    from repro_torch.configs.base import get_config, make_serve_config
+
+    cfg = make_serve_config(get_config(MOE_ARCH), model_axis=1)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _init_on_card(cfg, seed: int):
+    """The model's random weights drawn on the card from a CUDA generator
+    seeded with ``seed`` (a host draw of 30.5 G parameters takes minutes)."""
+    from repro_torch.models import init_model
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return init_model(cfg, gen, device=DEVICE)
+
+
+class _Routing:
+    """A test-only patch: records the expert choice ``idx`` [T, k] of each
+    routing the MoE layers make, in call order (one per layer of a
+    prefill)."""
+
+    def __enter__(self):
+        from unittest import mock
+
+        from repro_torch.models import moe
+
+        self.idx, real = [], moe.route
+
+        def route(logits, cfg, **kw):
+            plan = real(logits, cfg, **kw)
+            self.idx.append(plan["idx"].clone())
+            return plan
+
+        self._patch = mock.patch.object(moe, "route", route)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _sdpa_prefill_attention():
+    """A test-only patch, as ``_plain_prefill_attention``: the attention
+    module's kernel entry replaced by ``scaled_dot_product_attention``
+    (the library's, which the port never calls), for a control."""
+    from unittest import mock
+
+    from repro_torch.models import attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return mock.patch.object(
+        attention, "flash_attention_op",
+        lambda q, k, v, causal=True: sdpa(q, k, v, is_causal=causal,
+                                          enable_gqa=True))
+
+
+class _TeacherForced:
+    """A test-only patch of ``zoo.block_apply``: each layer of a prefill
+    runs first with the plain attention, then as it is, both from the same
+    input ``h``; the layer's routings under either attention and the
+    largest difference of its two outputs are kept, and the second output
+    goes on.  (Both runs write the same k and v into the cache: they come
+    from the same ``h``.)"""
+
+    def __enter__(self):
+        from unittest import mock
+
+        from repro_torch.models import zoo
+
+        self.kernel, self.plain, self.out_err = [], [], []
+        real = zoo.block_apply
+
+        def block_apply(p, h, cfg, kind, **kw):
+            with _plain_prefill_attention(), _Routing() as plain:
+                h_plain, _ = real(p, h, cfg, kind, **kw)
+            with _Routing() as kernel:
+                h_out, cache = real(p, h, cfg, kind, **kw)
+            self.plain += plain.idx
+            self.kernel += kernel.idx
+            self.out_err.append(float((h_out.float() - h_plain.float())
+                                      .abs().max()))
+            return h_out, cache
+
+        self._patch = mock.patch.object(zoo, "block_apply", block_apply)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _routing_agreement(first: list, second: list) -> list:
+    """Per layer, the share of ``first``'s (token, slot) assignments whose
+    expert is among ``second``'s top k for that token."""
+    shares = []
+    for a, b in zip(first, second):
+        hit = (a[:, :, None] == b[:, None, :]).any(-1)
+        shares.append(float(hit.float().mean()))
+    return shares
+
+
+def _moe_device_split(what: str, fn) -> dict:
+    """Device time of ``fn()`` by kind: ``flash_attention``, the expert
+    GEMMs (matmul kernels under ``moe.experts_apply``), the dispatch
+    (``moe.route``, ``dispatch`` and ``combine``: softmax, the sort, the
+    one-hot cumsum, the scatter and gather, the weighted sum), the other
+    matmuls, and the rest; None where the profiler recorded no device
+    time.  The MoE functions are wrapped in ``record_function`` ranges
+    (a test-only patch) and each kernel is charged to the range of the
+    operator that launched it."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe
+
+    def ranged(name, f):
+        def call(*args, **kw):
+            with record_function(name):
+                return f(*args, **kw)
+        return call
+
+    dispatch, experts = "moe.dispatch", "moe.experts"
+    wrapped = {n: ranged(dispatch, getattr(moe, n))
+               for n in ("route", "dispatch", "combine")}
+    wrapped["experts_apply"] = ranged(experts, moe.experts_apply)
+    with mock.patch.multiple(moe, **wrapped):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+
+    def is_matmul(name: str) -> bool:
+        name = name.lower()
+        return any(t in name for t in ("nvjet", "gemm", "gemv", "matmul",
+                                       "xmma", "cutlass", "cublas"))
+
+    total = flash = matmul = 0.0
+    others, in_dispatch = {}, {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
+            continue
+        ms = evt.device_time_total / 1e3
+        total += ms
+        if "flash_attention" in evt.name.lower():
+            flash += ms
+        elif is_matmul(evt.name):
+            matmul += ms
+        else:
+            others[evt.name[:60]] = others.get(evt.name[:60], 0.0) + ms
+    charged = {dispatch: 0.0, experts: 0.0}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        up = evt
+        while up is not None and up.name not in charged:
+            up = up.cpu_parent
+        if up is None:
+            continue
+        for kern in evt.kernels:
+            if up.name == dispatch or is_matmul(kern.name):
+                charged[up.name] += kern.duration / 1e3
+            if up.name == dispatch:
+                key = f"{evt.name} {kern.name[:40]}"
+                in_dispatch[key] = (in_dispatch.get(key, 0.0)
+                                    + kern.duration / 1e3)
+    for label, times in (("dispatch", in_dispatch),
+                         ("non-matmul", others)):
+        top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+        print(f"{what}, largest {label} kernels: " +
+              "; ".join(f"{k} {v:.6f} ms" for k, v in top), flush=True)
+    if total == 0.0:
+        return dict.fromkeys(("flash_attention_ms", "expert_bmm_ms",
+                              "other_matmul_ms", "dispatch_ms", "rest_ms"))
+    split = {"flash_attention_ms": flash,
+             "expert_bmm_ms": charged[experts],
+             "other_matmul_ms": matmul - charged[experts],
+             "dispatch_ms": charged[dispatch]}
+    split["rest_ms"] = total - sum(split.values())
+    return split
+
+
+def moe_serve_phase(seed: int) -> int:
+    """The MoE family served at full width; returns the launches of the
+    main path's ``greedy_generate``."""
+    import gc
+
+    from repro_torch.models import zoo
+    from repro_torch.serve import (greedy_generate, make_decode_step,
+                                   make_prefill_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"moe serve: card memory before the init (torch.cuda.mem_get_info)"
+          f": free_bytes={free} total_bytes={total}; allocated_bytes="
+          f"{torch.cuda.memory_allocated()}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 3)
+    cfg = _moe_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _init_on_card(cfg, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    want_params = zoo.analytic_param_count(cfg)
+    moe0 = model.layers[0].moe
+    check(cfg.n_layers == 48 and cfg.d_model == 2048 and len(model.layers)
+          == 48 and moe0.w_gate.shape[0] == cfg.moe.n_routed == 128
+          and n_params == want_params
+          and moe0.w_down.dtype == torch.bfloat16
+          and moe0.w_down.device.type == "cuda",
+          f"serving {cfg.name}: {len(model.layers)} layers, {n_params} "
+          f"parameters (analytic {want_params})")
+    print(f"moe serve {cfg.name}: {n_params} parameters (analytic_param_count"
+          f" {want_params}, active {zoo.analytic_param_count(cfg, True)}), "
+          f"{cfg.n_layers} layers, {cfg.moe.n_routed} experts top "
+          f"{cfg.moe.top_k}, {cfg.param_dtype} weights drawn on the card in "
+          f"init_s={init_s:.3f}; allocated_bytes="
+          f"{torch.cuda.memory_allocated()}", flush=True)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SERVE_B, SERVE_S))).to(DEVICE)
+    greedy_generate(model, cfg, prompts[:, :64], max_new=2, device=DEVICE)
+
+    # (a) the main path through the kernel
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"moe greedy_generate launched flash_attention "
+          f"{launches['flash_attention']} times, want {cfg.n_layers} (one "
+          f"prefill)")
+    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+          and bool(torch.isfinite(logits).all()),
+          f"moe greedy_generate gave {tuple(out.shape)}")
+    print(f"moe serve (a) B={SERVE_B} S={SERVE_S} new={SERVE_NEW}: "
+          f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
+          f"greedy_generate_wall_s={wall:.6f} launches={launches}",
+          flush=True)
+
+    # (b) the same weights with the plain prefill attention
+    with _plain_prefill_attention():
+        p_logits, p_out, p_ttft, _, _, p_launches = _generate(model, cfg,
+                                                              prompts)
+    check(p_launches["flash_attention"] == 0,
+          "the plain prefill launched the kernel")
+    prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
+    with torch.no_grad():
+        with _Routing() as kernel_routes:
+            prefill(model, {"tokens": prompts})
+        with _plain_prefill_attention(), _Routing() as plain_routes:
+            prefill(model, {"tokens": prompts})
+        with _sdpa_prefill_attention(), _Routing() as sdpa_routes:
+            prefill(model, {"tokens": prompts})
+        with _TeacherForced() as forced:
+            prefill(model, {"tokens": prompts})
+    free_run = _routing_agreement(kernel_routes.idx, plain_routes.idx)
+    control = _routing_agreement(sdpa_routes.idx, plain_routes.idx)
+    shares = _routing_agreement(forced.kernel, forced.plain)
+    err = float((logits - p_logits).abs().max())
+    agree = float((out == p_out).float().mean())
+
+    def layers(x):
+        return (f"min={min(x):.6f} mean={float(np.mean(x)):.6f} "
+                f"{[round(v, 6) for v in x]}")
+
+    print(f"moe serve (b) bf16 kernel vs plain prefill attention, same "
+          f"weights: last-position logits max_abs_err={err:.6g} "
+          f"greedy_agreement={agree:.6f} plain ttft_s={p_ttft:.6f}; routing "
+          f"agreement per layer, each layer from the same input "
+          f"(teacher-forced): {layers(shares)}; that layer's output "
+          f"max_abs_diff={max(forced.out_err):.6g}", flush=True)
+    print(f"moe serve (b) free-running routing agreement per layer, kernel "
+          f"vs plain: {layers(free_run)}; SDPA (enable_gqa) vs plain, the "
+          f"same measure for another correct bf16 attention: "
+          f"{layers(control)}", flush=True)
+    check(len(shares) == cfg.n_layers and min(shares) >= AGREE_ROUTING,
+          f"moe prefill routing agreement {min(shares)} < {AGREE_ROUTING}")
+    check(bool(torch.isfinite(p_logits).all()), "plain logits not finite")
+
+    # (d) the continuous batcher
+    _batcher_run("moe serve (d)", cfg, model, rng)
+
+    # (e) where a prefill's and a decode step's device time goes
+    decode = make_decode_step(cfg, device=DEVICE)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(model,
+                                                   {"tokens": prompts})
+
+    def run_decode():
+        tok = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        decode(model, state["caches"], {"tokens": tok}, SERVE_S)
+
+    with torch.no_grad():
+        for what, fn, wall_s in (("prefill", run_prefill, ttft),
+                                 ("decode step", run_decode,
+                                  SERVE_B / tok_s)):
+            split = _moe_device_split(f"moe serve (e) {what}", fn)
+            measured = split["rest_ms"] is not None
+            busy = sum(split.values()) / 1e3 / wall_s if measured else None
+            print(f"moe serve (e) one B={SERVE_B} S={SERVE_S} {what}, "
+                  f"device time (torch.profiler): " +
+                  " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
+                           for k, v in split.items()) +
+                  f"; device busy share of its wall time ({wall_s:.6f} s, "
+                  f"unprofiled): "
+                  f"{'not measured' if busy is None else f'{busy:.4f}'}",
+                  flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, prefill, decode, moe0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) f32 at 4 layers, full width otherwise
+    cfg32 = _moe_config(param_dtype="float32", compute_dtype="float32",
+                        n_layers=F32_LAYERS)
+    m32 = _init_on_card(cfg32, seed)
+    l32, o32, _, _, _, k32 = _generate(m32, cfg32, prompts)
+    check(k32["flash_attention"] == F32_LAYERS,
+          f"f32 moe greedy_generate launched {k32}")
+    with _plain_prefill_attention():
+        pl32, po32, _, _, _, _ = _generate(m32, cfg32, prompts)
+    err32 = float((l32 - pl32).abs().max())
+    agree32 = float((o32 == po32).float().mean())
+    print(f"moe serve (c) f32, {F32_LAYERS} layers, kernel vs plain: logits "
+          f"max_abs_err={err32:.6g} greedy_agreement={agree32:.6f}",
+          flush=True)
+    check(err32 <= LOGITS_ATOL[torch.float32] and agree32 >= AGREE_F32,
+          f"f32 moe serving: logits differ by {err32}, agreement {agree32}")
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe serve: peak_memory_bytes (max_memory_allocated, bf16 model "
+          f"through (e))={peak}; after (c): "
+          f"{torch.cuda.max_memory_allocated()}", flush=True)
+    return launches["flash_attention"]
 
 
 # ---------------------------------------------------------------- training
@@ -2393,14 +2789,15 @@ def main() -> int:
         retile_phase(frames, dets, mode)
     del frames
     calibration_phase()
-    serve = serve_phase(args.seed)
+    serve_phase(args.seed)
+    moe = moe_serve_phase(args.seed)
     numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
     train = train_phase(args.seed)
 
     now = {"decode_gop_blocks F=16 M=32768":
            numbers["decode_gop_blocks"]["ms"],
            f"flash_attention {FLASH_MAIN} bf16 causal":
-           numbers["flash_attention"]["ms"],
+           numbers["flash_attention"]["smollm_ms"],
            f"flash_attention {FLASH_LONG} bf16 causal":
            numbers["flash_attention"]["long_ms"],
            f"dct_quant N={H * W // 64} inter": numbers["dct_quant"]["ms"],
@@ -2418,7 +2815,7 @@ def main() -> int:
     launches = {"decode_gop_blocks": scan["decode_gop_blocks"],
                 "dct_quant": ingest["dct_quant"],
                 "idct_dequant": ingest["idct_dequant"],
-                "flash_attention": serve["flash_attention"],
+                "flash_attention": moe,
                 "sad_search": motion, "flash_attention_bwd": train}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", **KERNELS[name],

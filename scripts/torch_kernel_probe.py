@@ -5,7 +5,8 @@
 strip of candidates per thread).
 
     python3 scripts/torch_kernel_probe.py [--baseline DIR] [--seeds 0 1 2 3]
-                                          [--sad-only | --bwd-only]
+                                          [--ptxas-only | --sad-only |
+                                           --bwd-only]
 
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
@@ -59,6 +60,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    and dS as hi + lo, and as bf16 alone) against the f32 plain gradient,
    and the kernel against the emulation, over each row's largest.
 
+``--ptxas-only`` stops after the ptxas reports (about 40 s);
 ``--sad-only`` stops after the ptxas reports and ``sad_search``;
 ``--bwd-only`` prints the two attention sources' ptxas reports and runs
 5 and the backward's part of 3 alone (about a minute).
@@ -505,7 +507,7 @@ def flash_versions(base) -> None:
                 n += 1
     print(f"flash_attention: {n} cases bit-identical to the baseline, with "
           f"and without lse", flush=True)
-    for shape in (cs.FLASH_MAIN, cs.FLASH_LONG):
+    for shape in (cs.FLASH_MAIN, cs.FLASH_LONG, cs.FLASH_MOE):
         q, k, v = cs._qkv(rng, *shape, torch.bfloat16)
         b_ms, b_by = cs.flash_bound_ms(shape, torch.bfloat16, True)
         in_turns(f"flash_attention {shape} bf16 causal (bound {b_ms:.6f} ms, "
@@ -657,6 +659,8 @@ def main() -> int:
     ap.add_argument("--baseline", type=pathlib.Path)
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2, 3])
     only = ap.add_mutually_exclusive_group()
+    only.add_argument("--ptxas-only", action="store_true",
+                      help="stop after the ptxas reports")
     only.add_argument("--sad-only", action="store_true",
                       help="stop after the ptxas reports and sad_search")
     only.add_argument("--bwd-only", action="store_true",
@@ -683,6 +687,8 @@ def main() -> int:
     for source in (fmod.SOURCE, bwd_mod.SOURCE, dbuild.SOURCE,
                    dct_mod.SOURCE, idct_mod.SOURCE, sad_mod.SOURCE):
         ptxas_report(source)
+    if args.ptxas_only:
+        return 0
     cs.build_all()
     base = baseline_libraries(args.baseline) if args.baseline else None
     if base is not None:

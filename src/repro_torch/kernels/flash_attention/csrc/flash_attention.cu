@@ -56,6 +56,10 @@
 // its partial dot product and the row's threads sum it with xor shuffles;
 // then one max, one rescale of (l, acc) and the probabilities times V.
 // Arithmetic is f32 throughout, with expf (not __expf) and an IEEE divide.
+// A block owns 64 query rows, or 32 at D=128: 64 rows of 8 threads would
+// be 512 threads, whose 128-register cap spilled the 64 scores a thread
+// holds; a row's arithmetic does not depend on how many rows share its
+// block (a wholly masked key tile leaves (m, l, acc) exactly as they are).
 //
 // The build uses no --use_fast_math.
 #include <cuda_bf16.h>
@@ -72,7 +76,8 @@ constexpr float kNegInf = -1e30f;
 template <int D>
 struct Shape {
   static constexpr int kTPR = D / kDimsPerThread;  // threads per query row
-  static constexpr int kThreads = kBQ * kTPR;
+  static constexpr int kRows = D == 128 ? kBQ / 2 : kBQ;  // rows per block
+  static constexpr int kThreads = kRows * kTPR;
   static constexpr size_t kSmem = 2 * kBKV * D * sizeof(float);
 };
 
@@ -103,6 +108,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float* __restrict__ lse, int h, int kvh, int s,
                        float scale, int causal) {
   constexpr int kTPR = Shape<D>::kTPR;
+  constexpr int kRows = Shape<D>::kRows;
   constexpr int kThreads = Shape<D>::kThreads;
   constexpr int kPer16 = Elem<T>::kPer16;
   extern __shared__ __align__(16) float smem[];
@@ -119,7 +125,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid / kTPR;  // query row within the tile
   const int t = tid % kTPR;  // this thread's share of the row
-  const int qpos = qt * kBQ + r;
+  const int qpos = qt * kRows + r;
   const bool row_ok = qpos < s;
 
   float qr[kDimsPerThread];
@@ -139,7 +145,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = kNegInf;
   float l = 0.f;
 
-  const int q_last = min(qt * kBQ + kBQ, s) - 1;
+  const int q_last = min(qt * kRows + kRows, s) - 1;
   const int n_kt = causal ? q_last / kBKV + 1 : (s + kBKV - 1) / kBKV;
   constexpr int kVecs = kBKV * D / kPer16;  // 16-byte loads per full tile
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -242,7 +248,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((unsigned int)(b * h), (unsigned int)((s + kBQ - 1) / kBQ));
+  constexpr int rows = Shape<D>::kRows;
+  const dim3 grid((unsigned int)(b * h), (unsigned int)((s + rows - 1) / rows));
   kernel<<<grid, Shape<D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, h, kvh, s, scale,
@@ -615,8 +622,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* lse, int b, int h, int kvh,
                                int s, int d, int dtype, int causal,
                                float scale, void* stream) {
+  const int rows = dtype == 0 && d == 128 ? kBQ / 2 : kBQ;  // per block
   if (b < 1 || h < 1 || kvh < 1 || s < 1 || h % kvh != 0 ||
-      (long long)b * h > 0x7fffffffLL || (s + kBQ - 1) / kBQ > 65535)
+      (long long)b * h > 0x7fffffffLL || (s + rows - 1) / rows > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);

@@ -6,6 +6,9 @@
 Counterpart of the reference's ``launch/serve.py``, on one device: the
 prefill and decode steps of ``repro_torch/serve/serve_step.py`` on
 ``--device`` (``cuda`` by default; without a CUDA device it exits 1).
+The dense and MoE families serve (``--arch qwen3-moe-30b-a3b`` at full
+width takes 61 GB of bf16 weights on one 80 GB card).  On a CUDA device
+the random weights are drawn there, from a CUDA generator seeded with 0.
 Refused, because the port has no counterpart yet: ``--mesh`` (sharding,
 ROADMAP queue 1 item 9), ``--kv-quant`` and ``--kv-shard seq`` (the int8
 and the sequence-sharded KV caches, ROADMAP queue 1 item 7).
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import (get_config, make_serve_config,
                                       reduce_config)
+from repro_torch.kernels.decode.ops import resolve_device
 from repro_torch.models import init_model
 from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
@@ -64,11 +68,18 @@ def main(argv=None) -> int:
           f"quant={cfg.kv_cache_quant} shard={cfg.kv_cache_shard}",
           flush=True)
     try:
-        model = init_model(cfg, 0, device=args.device)
+        dev = resolve_device(args.device)
     except RuntimeError as e:  # no CUDA device for --device cuda
         print(f"launch.serve: {e}", file=sys.stderr, flush=True)
         return 1
+    gen = (torch.Generator(device=dev).manual_seed(0) if dev.type == "cuda"
+           else 0)
+    t0 = time.time()
+    model = init_model(cfg, gen, device=dev)
     dev = model.device
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"init {n_params} parameters on {dev} in {time.time() - t0:.2f}s",
+          flush=True)
     max_len = args.prompt_len + args.max_new + 8
     prefill = make_prefill_step(cfg, max_len, device=dev)
     decode = make_decode_step(cfg, device=dev)

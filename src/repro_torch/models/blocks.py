@@ -1,10 +1,11 @@
 """Per-layer transformer blocks (``init_block`` / ``block_apply``).
 
-Counterpart of the reference's ``models/blocks.py`` for kind ``"dense"``:
-pre-norm attention, then the pre-norm SwiGLU MLP, each added to the
+Counterpart of the reference's ``models/blocks.py`` for kinds ``"dense"``
+and ``"moe"``: pre-norm attention, then the pre-norm SwiGLU MLP (dense)
+or the routed-expert FFN (moe, ``models/moe.py``), each added to the
 residual stream in the compute dtype.  The reference's sharding
 constraints are no-ops on one device and are dropped.  The other kinds
-(moe, ssm1, ssm2, enc, dec) are not ported yet and raise.
+(ssm1, ssm2, enc, dec) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import Attention, attention_apply
 from repro_torch.models.layers import MLP, Norm, mlp_apply, norm_apply
+from repro_torch.models.moe import MoE, moe_apply
 
-KINDS = ("dense",)
+KINDS = ("dense", "moe")
 
 
 def _check_kind(kind: str) -> None:
@@ -28,21 +30,26 @@ def _check_kind(kind: str) -> None:
 
 
 class Block(nn.Module):
+    """``ln1``, ``attn``, ``ln2`` and ``mlp`` (dense) or ``moe`` (moe)."""
+
     def __init__(self, cfg: ArchConfig, kind: str = "dense", *,
                  device="cpu", generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_kind(kind)
         dt = cfg.param_dtype
+        kw = dict(device=device, generator=generator)
         self.ln1 = Norm(cfg.norm, cfg.d_model, dtype=dt, device=device)
-        self.attn = Attention(cfg, device=device, generator=generator)
+        self.attn = Attention(cfg, **kw)
         self.ln2 = Norm(cfg.norm, cfg.d_model, dtype=dt, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
-                       generator=generator)
+        if kind == "moe":
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype=dt, **kw)
 
 
 def init_block(cfg: ArchConfig, kind: str = "dense", *, device="cpu",
                generator: Optional[torch.Generator] = None) -> Block:
-    """One layer's parameters (``kind`` must be ``"dense"``)."""
+    """One layer's parameters (``kind`` is ``"dense"`` or ``"moe"``)."""
     return Block(cfg, kind, device=device, generator=generator)
 
 
@@ -57,5 +64,8 @@ def block_apply(p: Block, h: torch.Tensor, cfg: ArchConfig, kind: str, *,
                                cache_index=cache_index, cache_len=cache_len)
     h = h + a
     hn = norm_apply(cfg.norm, p.ln2, h)
-    h = h + mlp_apply(p.mlp, hn, cfg.compute_dtype)
-    return h, cache
+    if kind == "moe":
+        f = moe_apply(p.moe, hn, cfg)
+    else:
+        f = mlp_apply(p.mlp, hn, cfg.compute_dtype)
+    return h + f, cache

@@ -2,10 +2,13 @@
 
 The reference's parameter tree, as numpy arrays
 (``jax.tree.map(np.asarray, zoo.init_model(cfg, key))``), keeps the layers
-stacked: ``layers/attn/wq/w`` is ``[L, d, H*hd]``.  The port's module
-attributes carry the tree's keys, so ``layers/<rest>`` of layer ``i`` is
-the state-dict entry ``layers.<i>.<rest>`` and every other leaf ``a/b`` is
-``a.b``.  Values are copied exactly (bf16 passes through f32 losslessly).
+stacked: ``layers/attn/wq/w`` is ``[L, d, H*hd]`` and a MoE layer's
+``layers/moe/w_gate`` is ``[L, E, d, ff]``.  The port's module attributes
+carry the tree's keys, so ``layers/<rest>`` of layer ``i`` is the
+state-dict entry ``layers.<i>.<rest>`` (and DeepSeek's
+``dense_layers/<rest>`` is ``dense_layers.<i>.<rest>``), and every other
+leaf ``a/b`` is ``a.b``.  Values are copied exactly (bf16 passes through
+f32 losslessly).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode.ops import resolve_device
 from repro_torch.models.layers import torch_dtype
-from repro_torch.models.zoo import Model
+from repro_torch.models.zoo import Model, _n_dense_layers
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict:
@@ -36,16 +39,19 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, *, device) -> Model:
     dev = resolve_device(device)
     model = Model(cfg, device="meta")
     want = {name: tuple(t.shape) for name, t in model.state_dict().items()}
+    n_dense = _n_dense_layers(cfg)
+    stacked = {"layers": cfg.n_layers - n_dense, "dense_layers": n_dense}
     got = {}
     for name, leaf in _flatten(tree).items():
         arr = np.asarray(leaf)
-        if name.startswith("layers/"):
-            rest = name[len("layers/"):].replace("/", ".")
-            if arr.ndim < 1 or arr.shape[0] != cfg.n_layers:
+        stack, _, rest = name.partition("/")
+        if stack in stacked and rest:
+            n = stacked[stack]
+            if arr.ndim < 1 or arr.shape[0] != n:
                 raise ValueError(f"{name}: {arr.shape} is not stacked over "
-                                 f"{cfg.n_layers} layers")
-            for i in range(cfg.n_layers):
-                got[f"layers.{i}.{rest}"] = arr[i]
+                                 f"{n} layers")
+            for i in range(n):
+                got[f"{stack}.{i}.{rest.replace('/', '.')}"] = arr[i]
         else:
             got[name.replace("/", ".")] = arr
     missing = sorted(set(want) - set(got))

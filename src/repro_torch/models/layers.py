@@ -26,12 +26,20 @@ def torch_dtype(name) -> torch.dtype:
 
 def _normal(shape, *, scale: float, dtype, device,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``normal(shape) * scale`` in ``dtype`` on ``device``, drawn on the
-    CPU from ``generator`` (nothing is drawn on the ``meta`` device)."""
+    """``normal(shape) * scale`` in ``dtype`` on ``device``, drawn in f32
+    from ``generator`` on the generator's device (the CPU unless a CUDA
+    generator is given, which must be on ``device``); nothing is drawn on
+    the ``meta`` device."""
     dev = torch.device(device)
     if dev.type == "meta":
         return torch.empty(shape, dtype=torch_dtype(dtype), device=dev)
-    x = torch.randn(shape, generator=generator, dtype=torch.float32)
+    at = generator.device if generator is not None else torch.device("cpu")
+    if at.type != "cpu" and (at.type != dev.type or dev.index not in
+                             (None, at.index)):
+        raise ValueError(f"a generator on {at} draws on that device, not "
+                         f"on {dev}")
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=at)
     return (x.to(torch_dtype(dtype)) * scale).to(dev)
 
 

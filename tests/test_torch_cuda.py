@@ -36,6 +36,7 @@ from repro_torch.kernels.decode import (LAUNCHES, decode_fused_ref,
                                         decode_gop_blocks)
 from repro_torch.models import attention as attention_mod
 from repro_torch.models import init_model, loss_fn
+from repro_torch.models import moe as moe_mod
 from repro_torch.serve import ContinuousBatcher, make_prefill_step
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
@@ -751,6 +752,97 @@ def test_batcher_on_cuda_prefills_through_the_kernel(cuda):
     assert stats["requests"] == 3
     assert flash_kernel.LAUNCHES.count - before == 2 * 2  # 2 waves x layers
     assert all(len(r.out_tokens) == 4 for r in batcher.finished)
+
+
+# ---------------------------------------------------------------- MoE family
+def test_flash_attention_at_the_moe_prefill_shape(cuda):
+    # qwen3-moe-30b-a3b's prefill: B=8, 32 query heads on 4 KV heads
+    # (G = 8), S=512, head_dim 128
+    q, k, v = _qkv(128, 8, 32, 4, 512, 128, torch.bfloat16, cuda)
+    got = flash_kernel.flash_attention(q, k, v, causal=True)
+    want = flash_kernel.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[torch.bfloat16], rtol=0)
+
+
+def _moe_cfg(**kw):
+    """qwen3-moe-30b-a3b's routing (128 experts, top 8, capacity 1.25) at
+    a narrow width, f32."""
+    cfg = get_config("qwen3-moe-30b-a3b")
+    return dataclasses.replace(cfg, d_model=256, n_layers=2, vocab=512,
+                               moe=dataclasses.replace(cfg.moe,
+                                                       d_expert_ff=64),
+                               param_dtype="float32",
+                               compute_dtype="float32", **kw)
+
+
+def test_moe_block_on_the_card_matches_the_cpu(cuda):
+    """An f32 MoE block: the same routing (top-k, positions, keep) on the
+    card as on the CPU, and the output within 1e-5."""
+    cfg = _moe_cfg()
+    block = moe_mod.MoE(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 128, cfg.d_model), dtype=np.float32))
+    xt = x.reshape(-1, cfg.d_model)
+    logits = moe_mod.dense_apply(block.router, xt, torch.float32)
+    gates = torch.sort(torch.softmax(logits, -1), -1, descending=True).values
+    gap = float((gates[:, 7] - gates[:, 8]).min())
+    want = moe_mod.moe_apply(block, x, cfg)
+    plan = moe_mod.route(logits, cfg)
+    block = block.to(cuda)  # in place: the CPU results are taken
+    got = moe_mod.moe_apply(block, x.to(cuda), cfg)
+    plan_c = moe_mod.route(moe_mod.dense_apply(block.router, xt.to(cuda),
+                                               torch.float32), cfg)
+    for key in ("idx", "pos", "keep", "slot"):
+        assert torch.equal(plan_c[key].cpu(), plan[key]), (
+            f"{key} differs; the smallest 8th-9th gate gap is {gap}")
+    assert plan_c["cap"] == plan["cap"] == 40
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+def test_moe_prefill_on_the_card_launches_flash_attention(cuda):
+    cfg = make_serve_config(_moe_cfg(head_dim=64, n_heads=8, n_kv_heads=2),
+                            1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = init_model(cfg, gen, device=cuda)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, (2, 70))
+    prefill = make_prefill_step(cfg, 80, device=str(cuda))
+    before = flash_kernel.LAUNCHES.count
+    logits, caches = prefill(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count - before == cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+    assert caches["layers"]["k"].device.type == "cuda"
+
+
+def test_init_model_draws_on_the_card_with_a_cuda_generator(cuda):
+    """A CUDA generator draws every weight on the card, the same weights
+    for the same seed, at the reference's scales (each drawn leaf's std
+    within 2 % of its scale)."""
+    cfg = make_serve_config(dataclasses.replace(
+        get_config("qwen3-moe-30b-a3b"), n_layers=1), 1)
+    a = init_model(cfg, torch.Generator(device=cuda).manual_seed(3),
+                   device=cuda)
+    b = init_model(cfg, torch.Generator(device=cuda).manual_seed(3),
+                   device=cuda)
+    d, ff = cfg.d_model, cfg.moe.d_expert_ff
+    scales = {"embed.table": 0.02, "lm_head.w": d ** -0.5,
+              "layers.0.attn.wq.w": d ** -0.5,
+              "layers.0.attn.wo.w": (cfg.n_heads * cfg.head_dim) ** -0.5,
+              "layers.0.moe.router.w": d ** -0.5,
+              "layers.0.moe.w_gate": d ** -0.5,
+              "layers.0.moe.w_up": d ** -0.5,
+              "layers.0.moe.w_down": ff ** -0.5}
+    named = dict(a.named_parameters())
+    for name, p in named.items():
+        assert p.device.type == "cuda" and p.dtype == torch.bfloat16, name
+        assert torch.equal(p, dict(b.named_parameters())[name]), name
+    for name, scale in scales.items():
+        std = float(named[name].float().std())
+        assert abs(std - scale) <= 0.02 * scale, (name, std, scale)
+    with pytest.raises(ValueError, match="draws on that device"):
+        init_model(cfg, torch.Generator(device=cuda), device="cpu")
 
 
 # ----------------------------------------------------------------- sad_search

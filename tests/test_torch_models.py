@@ -76,12 +76,21 @@ def test_param_count_of_smollm_135m():
     assert cfg.active_param_count() == 134_515_008
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen3-moe-30b-a3b",
-                                  "falcon-mamba-7b", "zamba2-1.2b",
-                                  "seamless-m4t-medium", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "falcon-mamba-7b",
+                                  "zamba2-1.2b", "seamless-m4t-medium",
+                                  "internvl2-26b"])
 def test_unported_families_raise(arch):
+    # deepseek-v2-lite-16b is MoE, which the port has, but needs MLA
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zoo.init_model(port_get_config(arch), 0, device="cpu")
+
+
+def test_moe_family_builds_on_meta():
+    cfg = port_get_config("qwen3-moe-30b-a3b")
+    model = zoo.Model(cfg, device="meta")
+    assert len(model.layers) == 48 and model.dense_layers is None
+    assert tuple(model.layers[0].moe.w_gate.shape) == (128, 2048, 768)
+    assert cfg.param_count() == get_config("qwen3-moe-30b-a3b").param_count()
 
 
 @pytest.mark.parametrize("kw", [dict(kv_cache_quant=True),
