@@ -24,14 +24,15 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 5. attention kernel phase: holds ``flash_attention`` against its plain
    version (atol 2e-5 in f32, 2e-2 in bf16) for (B, H, KV, S, D) in
    {(2,4,4,128,32), (2,4,2,256,64), (2,8,1,256,32), (8,9,3,512,64),
-   (1,9,3,4096,64), (3,9,3,100,64), (1,9,3,1,64), (8,32,4,512,128)},
-   causal and not, bf16 and f32, on ``randn`` inputs from the seed; times
-   it, the plain version and ``scaled_dot_product_attention`` (the
-   library yardstick, which the port never calls) in bf16 at the
-   smollm-135m prefill shape (8,9,3,512,64), at (1,9,3,4096,64) and at
-   the qwen3-moe-30b-a3b prefill shape (8,32,4,512,128), which the JSON
-   line reports, with the byte and operation bounds, and the wrapper's
-   host cost per call;
+   (1,9,3,4096,64), (3,9,3,100,64), (1,9,3,1,64), (8,32,4,512,128),
+   (2,8,8,256,128), (8,32,32,512,128)}, causal and not, bf16 and f32, on
+   ``randn`` inputs from the seed; times it, the plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, which the
+   port never calls) in bf16 at the smollm-135m prefill shape
+   (8,9,3,512,64), at (1,9,3,4096,64), at the qwen3-moe-30b-a3b prefill
+   shape (8,32,4,512,128) and at the zamba2-1.2b prefill shape
+   (8,32,32,512,128: MHA at D=128), which the JSON line reports, with the
+   byte and operation bounds, and the wrapper's host cost per call;
 6. sad kernel phase: holds ``sad_search`` against its plain version for
    (b, r) in {(8, 4), (16, 8), (8, 8), (4, 0), (8, 1), (8, 5), (16, 3),
    (5, 2)} (the motion shapes (8, 8) and (16, 8) take the kernel's
@@ -147,7 +148,39 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (c) once the bf16 model is freed, f32 at 4 layers, full width
    otherwise: logits within 1e-3 of the plain attention's, greedy
    agreement >= 0.99; the peak memory;
-16. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
+16. SSM and hybrid serve phase, once the MoE weights are freed:
+   ``zamba2-1.2b`` (38 Mamba-2 layers, d_model 2048, a shared attention
+   block after every 6th layer at twice d_model, 32 heads of 128 on 32
+   KV heads; 1,279,529,856 parameters) and then ``falcon-mamba-7b`` (64
+   Mamba-1 layers, d_model 4096, attention-free; 7,272,665,088), each at
+   its published width and depth with ``make_serve_config(cfg, 1)`` and
+   bf16 weights drawn on the card from a CUDA generator seeded with the
+   seed, the card's free memory printed before each init: (a)
+   ``greedy_generate`` of 8 prompts of 512 tokens, 64 new: TTFT, decode
+   tokens/s, init time, peak memory; zamba2's prefill launches
+   ``flash_attention`` 6 times, falcon's 0; (b) zamba2 only: the same
+   weights with the plain prefill attention and with SDPA (a control):
+   the last-position logits' gap and the greedy agreement printed; since
+   SDPA's gap from the plain model passes 5e-2 (0.069), the kernel's gap
+   is held to at most ``SDPA_FACTOR`` times SDPA's, and each site's
+   attention output to within 2e-2 of the plain version on the same q,
+   k, v (a test-only patch runs both at every site); (d)
+   ``ContinuousBatcher(slots=8, max_len=640)`` over 16 requests drawn
+   as the serve phase draws them, request 0 at 512 prompt
+   tokens and repeated as the first request of the second wave: every
+   request finishes, 6 (zamba2) or 0 launches per wave, the repeat gets
+   its first-wave tokens (the batcher zeroes the SSM state at
+   admission); (e) one prefill's and one decode step's device time split
+   by ``torch.profiler`` into ``flash_attention``, the scan (the chunk
+   loops of ``ssm._mamba1_scan`` / ``ssm._ssd_chunked``), the other
+   matmuls and the rest, with the busy share; (c) f32 at 7 (zamba2: one
+   shared-block site and a trailing layer) or 4 layers, full width
+   otherwise, card against CPU on the same weights (B=2): prefill logits
+   within 1e-3, greedy agreement >= 0.99 over 32 tokens, and a prefill of
+   512 tokens (two 256-token chunks) and one decode step within 1e-3 of a
+   prefill of 513 (one chunk); (f) ``python -m repro_torch.launch.serve
+   --arch zamba2-1.2b --device cuda`` exits 0;
+17. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
    dk, dv from the forward's o and row logsumexp) against its plain
    version, each element over its row's largest |gradient| (``BWD_TOL``:
    2e-4 in f32, 1e-2 in bf16), at the training shape (8, 9, 3, 2048, 64)
@@ -157,7 +190,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    library yardstick, which the port never calls) against the operation
    bound (five causal-halved S^2 D products over the card's peak for the
    type);
-17. train phase, ``smollm-135m`` at its published width (30 layers,
+18. train phase, ``smollm-135m`` at its published width (30 layers,
    d_model 576, vocab 49,152), bf16 params with an f32 master copy, remat
    on: (a) ``TRAIN_STEPS`` steps of ``make_train_step`` at B=8, S=2048 on
    the structured synthetic stream, with the counts set to 0 just before
@@ -175,12 +208,13 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    restored from the step-2 checkpoint bit for bit (``restarts == 1``);
    (e) ``python -m repro_torch.launch.train --device cuda`` for 3 steps
    with ``--checkpoint-dir``, then ``--resume`` to 5;
-18. prints the times of the kernels redesigned for this card (all six:
+19. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
    one JSON line with the kernels' numbers (each kernel's launches on its
-   latest path: ``flash_attention`` on the MoE serve path's
-   ``greedy_generate``, timed at its prefill shape), then as its last
+   latest path: ``flash_attention`` on zamba2's ``greedy_generate``,
+   timed at its prefill shape, with the MoE prefill's launches beside
+   it), then as its last
    line ``{"ok": true, "device": {...}}``.
 
 f32 products on the card stay f32 (``allow_tf32`` is set False for
@@ -277,7 +311,8 @@ SERVE_B, SERVE_S, SERVE_NEW = 8, 512, 64
 F32_LAYERS = 4
 FLASH_SHAPES = [(2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
                 (8, 9, 3, 512, 64), (1, 9, 3, 4096, 64), (3, 9, 3, 100, 64),
-                (1, 9, 3, 1, 64), (8, 32, 4, 512, 128)]
+                (1, 9, 3, 1, 64), (8, 32, 4, 512, 128), (2, 8, 8, 256, 128),
+                (8, 32, 32, 512, 128)]
 BATCH_SLOTS, BATCH_MAX_LEN, BATCH_REQUESTS = 8, 640, 16
 BATCH_PROMPT, BATCH_NEW = (64, 512), (16, 64)
 FLASH_MAIN = (8, 9, 3, 512, 64)
@@ -290,6 +325,26 @@ FLASH_LONG = (1, 9, 3, 4096, 64)
 MOE_ARCH = "qwen3-moe-30b-a3b"
 FLASH_MOE = (SERVE_B, 32, 4, SERVE_S, 128)
 AGREE_ROUTING = 0.99
+#: the SSM and hybrid serve paths at their published width and depth:
+#: zamba2-1.2b (38 Mamba-2 layers, and a shared attention block after
+#: every 6th at twice d_model, 32 heads of 128 on 32 KV heads) and
+#: falcon-mamba-7b (64 Mamba-1 layers, no attention), with their
+#: parameter counts and depths; zamba2's prefill attention shape; the f32
+#: card-against-CPU check's depths (zamba2's 7 layers hold one
+#: shared-block site and a trailing layer, where 4 would hold no site),
+#: batch and new tokens (the CPU side's time)
+SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
+SSM_PUBLISHED = {"zamba2-1.2b": (1_279_529_856, 38),
+                 "falcon-mamba-7b": (7_272_665_088, 64)}
+FLASH_HYBRID = (SERVE_B, 32, 32, SERVE_S, 128)
+SSM_F32_LAYERS = {"zamba2-1.2b": 7, "falcon-mamba-7b": 4}
+SSM_F32_B, SSM_F32_NEW = 2, 32
+#: zamba2's bf16 prefill logits: the plain attention's model and SDPA's
+#: are 0.069 apart at the last position (PERF.md section 6), past
+#: the dense model's 5e-2, so the kernel's gap is held to at most this
+#: many times SDPA's (or 5e-2), beside each site's attention output
+#: against the plain version on the same q, k, v within FLASH_TOL
+SDPA_FACTOR = 2.0
 #: the motion search: the sweep of the sad kernel phase, and the two frame
 #: pairs of the motion path, (height, width, b, r); the first is the main
 #: path's shape (1080 is not a multiple of 16, so it takes b=8)
@@ -1622,8 +1677,8 @@ def flash_kernel_phase(seed: int) -> dict:
                       f"flash_attention vs plain {shape} {dtype} causal="
                       f"{causal}: max |diff| {err} > {FLASH_TOL[dtype]}")
                 worst = max(worst, err)
-            if shape not in (FLASH_MAIN, FLASH_LONG, FLASH_MOE) \
-                    or dtype != torch.bfloat16:
+            if shape not in (FLASH_MAIN, FLASH_LONG, FLASH_MOE,
+                             FLASH_HYBRID) or dtype != torch.bfloat16:
                 continue
             k_ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
             r_ms = cuda_ms(lambda: attention_ref(q, k, v), iters=3,
@@ -1640,8 +1695,8 @@ def flash_kernel_phase(seed: int) -> dict:
             timed[shape] = dict(ms=k_ms, plain_ms=r_ms, library_ms=l_ms,
                                 bound_ms=b_ms, bound_by=b_by)
     q, k, v = _qkv(rng, 1, 9, 3, 16, 64, torch.bfloat16)
-    # the JSON line reports the MoE prefill's shape, this slice's main path
-    at_main = dict(timed[FLASH_MOE], max_abs_err=worst,
+    # the JSON line reports zamba2's prefill shape, the latest main path
+    at_main = dict(timed[FLASH_HYBRID], max_abs_err=worst,
                    host_us=host_us(lambda: flash_attention(q, k, v)),
                    smollm_ms=timed[FLASH_MAIN]["ms"],
                    long_ms=timed[FLASH_LONG]["ms"])
@@ -1847,11 +1902,17 @@ def motion_path_phase(seed: int, frames) -> int:
     return launches["sad_search"]
 
 
-def _serve_config(**kw):
+def _arch_config(arch: str, **kw):
+    """``arch``'s serving config (``make_serve_config(cfg, 1)``: bf16
+    weights) with ``kw`` replaced."""
     from repro_torch.configs.base import get_config, make_serve_config
 
-    cfg = make_serve_config(get_config(ARCH), model_axis=1)
+    cfg = make_serve_config(get_config(arch), model_axis=1)
     return dataclasses.replace(cfg, **kw)
+
+
+def _serve_config(**kw):
+    return _arch_config(ARCH, **kw)
 
 
 def _plain_prefill_attention():
@@ -1865,6 +1926,20 @@ def _plain_prefill_attention():
     return mock.patch.object(
         attention, "flash_attention_op",
         lambda q, k, v, causal=True: attention_ref(q, k, v, causal=causal))
+
+
+def _is_matmul(name: str) -> bool:
+    """A matmul kernel: cuBLAS's Hopper kernels are named nvjet_*, older
+    ones *gemm*."""
+    name = name.lower()
+    return any(t in name for t in ("nvjet", "gemm", "gemv", "matmul",
+                                   "xmma", "cutlass", "cublas"))
+
+
+def _print_top(what: str, label: str, times: dict) -> None:
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{what}, largest {label} kernels: " +
+          "; ".join(f"{k} {v:.6f} ms" for k, v in top), flush=True)
 
 
 def _device_split(what: str, fn, *, bwd: bool = False) -> dict:
@@ -1891,18 +1966,14 @@ def _device_split(what: str, fn, *, bwd: bool = False) -> dict:
             split["flash_attention_bwd_ms"] += ms
         elif "flash_attention" in name:
             split["flash_attention_ms"] += ms
-        # cuBLAS's Hopper kernels are named nvjet_*, older ones *gemm*
-        elif any(t in name for t in ("nvjet", "gemm", "gemv", "matmul",
-                                     "xmma", "cutlass", "cublas")):
+        elif _is_matmul(name):
             split["matmul_ms"] += ms
         else:
             split["other_ms"] += ms
             others[evt.key[:60]] = others.get(evt.key[:60], 0.0) + ms
     if sum(split.values()) == 0.0:
         return {k: None for k in split}
-    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
-    print(f"{what}, largest other kernels: " +
-          "; ".join(f"{k} {v:.6f} ms" for k, v in top), flush=True)
+    _print_top(what, "other", others)
     return split
 
 
@@ -1939,22 +2010,31 @@ def _generate(model, cfg, prompts) -> tuple:
     return logits, out, ttft, tok_s, wall, read_counts()
 
 
-def _batcher_run(what: str, cfg, model, rng) -> dict:
+def _batcher_run(what: str, cfg, model, rng, *, per_wave=None,
+                 repeat: bool = False) -> dict:
     """``ContinuousBatcher(slots=8, max_len=640)`` over 16 requests of
     64-512 prompt tokens and 16-64 new tokens drawn from ``rng``: every
-    request finishes with its tokens, one ``flash_attention`` launch per
-    layer and wave (counts set to 0 just before the run, read just
-    after); returns the stats."""
+    request finishes with its tokens, ``per_wave`` ``flash_attention``
+    launches per wave (one per layer unless given; counts set to 0 just
+    before the run, read just after); returns the stats.  With
+    ``repeat`` request 0 gets a prompt of 512 tokens and the first
+    request of the second wave repeats it (neither is padded, each is its
+    wave's longest), and must get the same tokens."""
     from repro_torch.serve import ContinuousBatcher
 
+    per_wave = cfg.n_layers if per_wave is None else per_wave
     batcher = ContinuousBatcher(cfg, model, slots=BATCH_SLOTS,
                                 max_len=BATCH_MAX_LEN, device=DEVICE)
-    want = []
+    reqs = []
     for _ in range(BATCH_REQUESTS):
         n = int(rng.integers(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1))
         new = int(rng.integers(BATCH_NEW[0], BATCH_NEW[1] + 1))
-        batcher.submit(rng.integers(0, cfg.vocab, n), max_new=new)
-        want.append(new)
+        reqs.append((rng.integers(0, cfg.vocab, n), new))
+    if repeat:
+        reqs[0] = (rng.integers(0, cfg.vocab, BATCH_PROMPT[1]), reqs[0][1])
+        reqs[BATCH_SLOTS] = reqs[0]
+    for prompt, new in reqs:
+        batcher.submit(prompt, max_new=new)
     waves = -(-BATCH_REQUESTS // BATCH_SLOTS)
     reset_counts()
     stats = batcher.run_until_drained()
@@ -1962,14 +2042,22 @@ def _batcher_run(what: str, cfg, model, rng) -> dict:
     b_launches = read_counts()["flash_attention"]
     check(stats["requests"] == BATCH_REQUESTS
           and sorted(len(r.out_tokens) for r in batcher.finished)
-          == sorted(want),
+          == sorted(new for _, new in reqs),
           f"batcher finished {stats['requests']} requests")
-    check(b_launches == waves * cfg.n_layers,
+    check(b_launches == waves * per_wave,
           f"batcher launched flash_attention {b_launches} times for "
-          f"{waves} waves, want {waves * cfg.n_layers}")
+          f"{waves} waves, want {waves * per_wave}")
+    line = ""
+    if repeat:
+        tokens = {r.rid: r.out_tokens for r in batcher.finished}
+        same = tokens[BATCH_SLOTS] == tokens[0]
+        line = (f"; request {BATCH_SLOTS} (wave 2) repeats request 0 (wave "
+                f"1): same tokens {same}")
+        check(same, f"{what}: the repeated request got other tokens in "
+                    f"the second wave")
     print(f"{what} ContinuousBatcher(slots={BATCH_SLOTS}, max_len="
           f"{BATCH_MAX_LEN}), {BATCH_REQUESTS} requests: {json.dumps(stats)} "
-          f"launches={b_launches}", flush=True)
+          f"launches={b_launches}{line}", flush=True)
     return stats
 
 
@@ -2075,10 +2163,20 @@ def serve_phase(seed: int) -> dict:
 
 # ------------------------------------------------------------- MoE serving
 def _moe_config(**kw):
-    from repro_torch.configs.base import get_config, make_serve_config
+    return _arch_config(MOE_ARCH, **kw)
 
-    cfg = make_serve_config(get_config(MOE_ARCH), model_axis=1)
-    return dataclasses.replace(cfg, **kw)
+
+def _free_card(what: str) -> None:
+    """Drop what the last phase left on the card, and print the card's
+    free memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"{what}: card memory before the init (torch.cuda.mem_get_info)"
+          f": free_bytes={free} total_bytes={total}; allocated_bytes="
+          f"{torch.cuda.memory_allocated()}", flush=True)
 
 
 def _init_on_card(cfg, seed: int):
@@ -2175,86 +2273,106 @@ def _routing_agreement(first: list, second: list) -> list:
     return shares
 
 
+def _ranged_split(fn, ranges: dict) -> dict:
+    """Device time of ``fn()`` from the profiler, with the kernels that
+    each named range of ``ranges`` ({name: [(module, function name),
+    ...]}) launched charged to it: each function is wrapped in a
+    ``record_function`` range of that name (a test-only patch) and each
+    kernel is charged to the range of the operator that launched it.  The
+    wrapper synchronises after each call, so the launch queue never
+    fills: a launch that waits on a full queue shows as a "Command Buffer
+    Full" event, and in a falcon-mamba-7b prefill the ranges were then
+    charged more than the whole device time.
+    Returns the total, ``flash_attention`` and matmul ms, per range the ms
+    of all its kernels (``all_in``) and of its matmul kernels
+    (``matmul_in``), and by name the kernels neither attention nor matmul
+    (``others``) and those of each range (``inside``)."""
+    import contextlib
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, f):
+        def call(*args, **kw):
+            with record_function(name):
+                out = f(*args, **kw)
+            torch.cuda.synchronize()
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name, targets in ranges.items():
+            for module, attr in targets:
+                stack.enter_context(mock.patch.object(
+                    module, attr, ranged(name, getattr(module, attr))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+
+    out = {"total": 0.0, "flash": 0.0, "matmul": 0.0, "others": {},
+           "all_in": dict.fromkeys(ranges, 0.0),
+           "matmul_in": dict.fromkeys(ranges, 0.0),
+           "inside": {name: {} for name in ranges}}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
+            continue
+        ms = evt.device_time_total / 1e3
+        out["total"] += ms
+        if "flash_attention" in evt.name.lower():
+            out["flash"] += ms
+        elif _is_matmul(evt.name):
+            out["matmul"] += ms
+        else:
+            key = evt.name[:60]
+            out["others"][key] = out["others"].get(key, 0.0) + ms
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        up = evt
+        while up is not None and up.name not in ranges:
+            up = up.cpu_parent
+        if up is None:
+            continue
+        for kern in evt.kernels:
+            ms = kern.duration / 1e3
+            out["all_in"][up.name] += ms
+            if _is_matmul(kern.name):
+                out["matmul_in"][up.name] += ms
+            inside = out["inside"][up.name]
+            key = f"{evt.name} {kern.name[:40]}"
+            inside[key] = inside.get(key, 0.0) + ms
+    charged = sum(out["all_in"].values())
+    check(charged <= out["total"] * 1.001,
+          f"profiler ranges charged {charged} ms of {out['total']} ms")
+    return out
+
+
 def _moe_device_split(what: str, fn) -> dict:
     """Device time of ``fn()`` by kind: ``flash_attention``, the expert
     GEMMs (matmul kernels under ``moe.experts_apply``), the dispatch
     (``moe.route``, ``dispatch`` and ``combine``: softmax, the sort, the
     one-hot cumsum, the scatter and gather, the weighted sum), the other
     matmuls, and the rest; None where the profiler recorded no device
-    time.  The MoE functions are wrapped in ``record_function`` ranges
-    (a test-only patch) and each kernel is charged to the range of the
-    operator that launched it."""
-    from unittest import mock
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
+    time (:func:`_ranged_split`)."""
     from repro_torch.models import moe
 
-    def ranged(name, f):
-        def call(*args, **kw):
-            with record_function(name):
-                return f(*args, **kw)
-        return call
-
     dispatch, experts = "moe.dispatch", "moe.experts"
-    wrapped = {n: ranged(dispatch, getattr(moe, n))
-               for n in ("route", "dispatch", "combine")}
-    wrapped["experts_apply"] = ranged(experts, moe.experts_apply)
-    with mock.patch.multiple(moe, **wrapped):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-
-    def is_matmul(name: str) -> bool:
-        name = name.lower()
-        return any(t in name for t in ("nvjet", "gemm", "gemv", "matmul",
-                                       "xmma", "cutlass", "cublas"))
-
-    total = flash = matmul = 0.0
-    others, in_dispatch = {}, {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA \
-                or getattr(evt, "is_user_annotation", False):
-            continue
-        ms = evt.device_time_total / 1e3
-        total += ms
-        if "flash_attention" in evt.name.lower():
-            flash += ms
-        elif is_matmul(evt.name):
-            matmul += ms
-        else:
-            others[evt.name[:60]] = others.get(evt.name[:60], 0.0) + ms
-    charged = {dispatch: 0.0, experts: 0.0}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CPU or not evt.kernels:
-            continue
-        up = evt
-        while up is not None and up.name not in charged:
-            up = up.cpu_parent
-        if up is None:
-            continue
-        for kern in evt.kernels:
-            if up.name == dispatch or is_matmul(kern.name):
-                charged[up.name] += kern.duration / 1e3
-            if up.name == dispatch:
-                key = f"{evt.name} {kern.name[:40]}"
-                in_dispatch[key] = (in_dispatch.get(key, 0.0)
-                                    + kern.duration / 1e3)
-    for label, times in (("dispatch", in_dispatch),
-                         ("non-matmul", others)):
-        top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
-        print(f"{what}, largest {label} kernels: " +
-              "; ".join(f"{k} {v:.6f} ms" for k, v in top), flush=True)
-    if total == 0.0:
+    r = _ranged_split(fn, {
+        dispatch: [(moe, n) for n in ("route", "dispatch", "combine")],
+        experts: [(moe, "experts_apply")]})
+    _print_top(what, "dispatch", r["inside"][dispatch])
+    _print_top(what, "non-matmul", r["others"])
+    if r["total"] == 0.0:
         return dict.fromkeys(("flash_attention_ms", "expert_bmm_ms",
                               "other_matmul_ms", "dispatch_ms", "rest_ms"))
-    split = {"flash_attention_ms": flash,
-             "expert_bmm_ms": charged[experts],
-             "other_matmul_ms": matmul - charged[experts],
-             "dispatch_ms": charged[dispatch]}
-    split["rest_ms"] = total - sum(split.values())
+    split = {"flash_attention_ms": r["flash"],
+             "expert_bmm_ms": r["matmul_in"][experts],
+             "other_matmul_ms": r["matmul"] - r["matmul_in"][experts],
+             "dispatch_ms": r["all_in"][dispatch]}
+    split["rest_ms"] = r["total"] - sum(split.values())
     return split
 
 
@@ -2267,12 +2385,7 @@ def moe_serve_phase(seed: int) -> int:
     from repro_torch.serve import (greedy_generate, make_decode_step,
                                    make_prefill_step)
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    print(f"moe serve: card memory before the init (torch.cuda.mem_get_info)"
-          f": free_bytes={free} total_bytes={total}; allocated_bytes="
-          f"{torch.cuda.memory_allocated()}", flush=True)
+    _free_card("moe serve")
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(seed + 3)
     cfg = _moe_config()
@@ -2413,6 +2526,255 @@ def moe_serve_phase(seed: int) -> int:
           f"through (e))={peak}; after (c): "
           f"{torch.cuda.max_memory_allocated()}", flush=True)
     return launches["flash_attention"]
+
+
+# ------------------------------------------------ SSM and hybrid serving
+class _AttentionBesidePlain:
+    """A test-only patch: every full-sequence attention of the model runs
+    the kernel and, on the same q, k and v, the plain version; the
+    largest |difference| of each call is kept, and the kernel's output
+    goes on."""
+
+    def __enter__(self):
+        from unittest import mock
+
+        from repro_torch.kernels.flash_attention import attention_ref
+        from repro_torch.models import attention
+
+        self.errs, real = [], attention.flash_attention_op
+
+        def op(q, k, v, causal=True):
+            got = real(q, k, v, causal=causal)
+            want = attention_ref(q, k, v, causal=causal)
+            self.errs.append(float((got.float() - want.float())
+                                   .abs().max()))
+            return got
+
+        self._patch = mock.patch.object(attention, "flash_attention_op", op)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _ssm_device_split(what: str, fn) -> dict:
+    """Device time of ``fn()`` by kind: ``flash_attention``, the scan (every
+    kernel under ``ssm._mamba1_scan`` or ``ssm._ssd_chunked``: the chunk
+    loops, their einsums included), the other matmuls and the rest (the
+    discretisation ``exp(dt A)`` and ``dt B x``, the convs, norms, gates,
+    casts); None where the profiler recorded no device time."""
+    from repro_torch.models import ssm
+
+    scan = "ssm.scan"
+    r = _ranged_split(fn, {scan: [(ssm, "_mamba1_scan"),
+                                  (ssm, "_ssd_chunked")]})
+    _print_top(what, "scan", r["inside"][scan])
+    _print_top(what, "non-matmul", r["others"])
+    if r["total"] == 0.0:
+        return dict.fromkeys(("flash_attention_ms", "scan_ms",
+                              "other_matmul_ms", "rest_ms"))
+    split = {"flash_attention_ms": r["flash"], "scan_ms": r["all_in"][scan],
+             "other_matmul_ms": r["matmul"] - r["matmul_in"][scan]}
+    split["rest_ms"] = r["total"] - sum(split.values())
+    return split
+
+
+def _ssm_f32_card_vs_cpu(arch: str, seed: int, rng) -> None:
+    """(c): f32 at ``SSM_F32_LAYERS`` layers, full width otherwise, the
+    same weights on the card and on the CPU: a prefill of SSM_F32_B x 512
+    tokens' logits within 1e-3, greedy agreement over SSM_F32_NEW tokens
+    at least 0.99; and on the card a prefill of 512 tokens (two chunks of
+    256) and one decode step against a prefill of 513 (one chunk)."""
+    from repro_torch.models import Model, decode_step, init_cache
+    from repro_torch.serve import greedy_generate, make_prefill_step
+
+    cfg = _arch_config(arch, param_dtype="float32", compute_dtype="float32",
+                      n_layers=SSM_F32_LAYERS[arch])
+    model = _init_on_card(cfg, seed)
+    cpu = Model(cfg, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SSM_F32_B, SERVE_S + 1)))
+    head = prompts[:, :SERVE_S]
+    max_len = SERVE_S + SSM_F32_NEW
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        card, _ = make_prefill_step(cfg, max_len, device=DEVICE)(
+            model, {"tokens": head.to(DEVICE)})
+        want, _ = make_prefill_step(cfg, max_len, device="cpu")(
+            cpu, {"tokens": head})
+        card_out = greedy_generate(model, cfg, head.to(DEVICE),
+                                   max_new=SSM_F32_NEW, device=DEVICE)
+        cpu_out = greedy_generate(cpu, cfg, head, max_new=SSM_F32_NEW,
+                                  device="cpu")
+        caches = init_cache(cfg, SSM_F32_B, SERVE_S + 8, device=DEVICE)
+        p = prompts.to(DEVICE)
+        decode_step(model, cfg, {"tokens": p[:, :SERVE_S]}, caches,
+                    cache_index=0)
+        stepped, _ = decode_step(model, cfg, {"tokens": p[:, SERVE_S:]},
+                                 caches, cache_index=SERVE_S)
+        whole, _ = decode_step(model, cfg, {"tokens": p},
+                               init_cache(cfg, SSM_F32_B, SERVE_S + 8,
+                                          device=DEVICE), cache_index=0)
+    err = float((card.cpu() - want).abs().max())
+    agree = float((card_out.cpu() == cpu_out).float().mean())
+    chunk_err = float((stepped - whole).abs().max())
+    print(f"ssm serve {arch} (c) f32, {cfg.n_layers} layers, B="
+          f"{SSM_F32_B}: card vs CPU prefill logits max_abs_err={err:.6g}, "
+          f"greedy_agreement={agree:.6f} over {SSM_F32_NEW} tokens; on the "
+          f"card prefill({SERVE_S}) + one decode step vs prefill("
+          f"{SERVE_S + 1}) logits max_abs_err={chunk_err:.6g} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(err <= LOGITS_ATOL[torch.float32] and agree >= AGREE_F32,
+          f"f32 {arch} card vs CPU: logits differ by {err}, agreement "
+          f"{agree}")
+    check(chunk_err <= LOGITS_ATOL[torch.float32],
+          f"f32 {arch}: prefill + decode vs the longer prefill differ by "
+          f"{chunk_err}")
+
+
+def _ssm_serve_one(arch: str, seed: int) -> int:
+    """One SSM or hybrid model served at full width; returns the
+    ``flash_attention`` launches of its ``greedy_generate``."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import (greedy_generate, make_decode_step,
+                                   make_prefill_step)
+
+    label = f"ssm serve {arch}"
+    _free_card(label)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 3)
+    cfg = _arch_config(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _init_on_card(cfg, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    want_params, depth = SSM_PUBLISHED[arch]
+    sites = zoo._hybrid_sites(cfg)[0] if cfg.family == "hybrid" else 0
+    emb = model.embed.table
+    check(cfg.n_layers == len(model.layers) == depth
+          and n_params == zoo.analytic_param_count(cfg) == want_params
+          and emb.dtype == torch.bfloat16
+          and emb.device.type == torch.device(DEVICE).type,
+          f"serving {cfg.name}: {len(model.layers)} layers, {n_params} "
+          f"parameters")
+    print(f"{label}: {n_params} parameters (analytic_param_count), "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.ssm.kind}, "
+          f"{sites} shared-attention sites, {cfg.param_dtype} weights "
+          f"drawn on the card in init_s={init_s:.3f}; allocated_bytes="
+          f"{torch.cuda.memory_allocated()}", flush=True)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SERVE_B, SERVE_S))).to(DEVICE)
+    greedy_generate(model, cfg, prompts[:, :64], max_new=2, device=DEVICE)
+
+    # (a) the main path
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts)
+    check(launches["flash_attention"] == sites,
+          f"{arch} greedy_generate launched flash_attention "
+          f"{launches['flash_attention']} times, want {sites} (one prefill)")
+    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} greedy_generate gave {tuple(out.shape)}")
+    print(f"{label} (a) B={SERVE_B} S={SERVE_S} new={SERVE_NEW}: "
+          f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
+          f"greedy_generate_wall_s={wall:.6f} launches={launches}",
+          flush=True)
+
+    # (b) the same weights with the plain prefill attention; SDPA's
+    # prefill against the plain one as a control; each site's kernel
+    # output against the plain attention on the same q, k, v
+    prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
+    if sites:
+        with _plain_prefill_attention():
+            p_logits, p_out, p_ttft, _, _, p_launches = _generate(
+                model, cfg, prompts)
+        with torch.no_grad():
+            with _sdpa_prefill_attention():
+                s_logits, _ = prefill(model, {"tokens": prompts})
+            with _AttentionBesidePlain() as forced:
+                prefill(model, {"tokens": prompts})
+        check(p_launches["flash_attention"] == 0,
+              "the plain prefill launched the kernel")
+        err = float((logits - p_logits).abs().max())
+        agree = float((out == p_out).float().mean())
+        s_err = float((s_logits - p_logits).abs().max())
+        print(f"{label} (b) bf16 kernel vs plain prefill attention, same "
+              f"weights: last-position logits max_abs_err={err:.6g} "
+              f"greedy_agreement={agree:.6f} plain ttft_s={p_ttft:.6f}; "
+              f"SDPA vs plain (control): max_abs_err={s_err:.6g}; each "
+              f"site's attention output vs plain on the same q, k, v: "
+              f"{[round(e, 6) for e in forced.errs]}", flush=True)
+        check(len(forced.errs) == sites
+              and max(forced.errs) <= FLASH_TOL[torch.bfloat16],
+              f"{arch} prefill attention vs plain at the sites: "
+              f"{forced.errs}")
+        check(err <= max(LOGITS_ATOL[torch.bfloat16], SDPA_FACTOR * s_err),
+              f"{arch} bf16 prefill logits differ by {err} (SDPA: {s_err})")
+
+    # (d) the continuous batcher, a request repeated in the second wave
+    _batcher_run(f"{label} (d)", cfg, model, rng, per_wave=sites,
+                 repeat=True)
+
+    # (e) where a prefill's and a decode step's device time goes
+    decode = make_decode_step(cfg, device=DEVICE)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(model,
+                                                   {"tokens": prompts})
+
+    def run_decode():
+        tok = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        decode(model, state["caches"], {"tokens": tok}, SERVE_S)
+
+    with torch.no_grad():
+        for what, fn, wall_s in (("prefill", run_prefill, ttft),
+                                 ("decode step", run_decode,
+                                  SERVE_B / tok_s)):
+            split = _ssm_device_split(f"{label} (e) {what}", fn)
+            measured = split["rest_ms"] is not None
+            busy = sum(split.values()) / 1e3 / wall_s if measured else None
+            print(f"{label} (e) one B={SERVE_B} S={SERVE_S} {what}, device "
+                  f"time (torch.profiler): " +
+                  " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
+                           for k, v in split.items()) +
+                  f"; device busy share of its wall time ({wall_s:.6f} s, "
+                  f"unprofiled): "
+                  f"{'not measured' if busy is None else f'{busy:.4f}'}",
+                  flush=True)
+    print(f"{label}: peak_memory_bytes (max_memory_allocated, bf16 model "
+          f"through (e))={torch.cuda.max_memory_allocated()}", flush=True)
+    del model, state, prefill, decode, emb
+    _free_card(f"{label} (c)")
+    _ssm_f32_card_vs_cpu(arch, seed, rng)
+    return launches["flash_attention"]
+
+
+def _ssm_launcher() -> None:
+    """(f): ``python -m repro_torch.launch.serve --arch zamba2-1.2b
+    --device cuda`` exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         SSM_ARCHS[0], "--device", DEVICE], env=_port_env(),
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"launch.serve exited {proc.returncode}: {proc.stderr}")
+    print(f"ssm serve (f) launch.serve --arch {SSM_ARCHS[0]}: exit 0 in "
+          f"{time.perf_counter() - t0:.3f} s: " +
+          " | ".join(proc.stdout.strip().splitlines()), flush=True)
+
+
+def ssm_serve_phase(seed: int) -> int:
+    """The SSM and hybrid families served at full width and depth, after
+    the MoE weights are freed; returns zamba2's ``greedy_generate``
+    launches of ``flash_attention``."""
+    launches = {arch: _ssm_serve_one(arch, seed) for arch in SSM_ARCHS}
+    _ssm_launcher()
+    return launches[SSM_ARCHS[0]]
 
 
 # ---------------------------------------------------------------- training
@@ -2791,6 +3153,7 @@ def main() -> int:
     calibration_phase()
     serve_phase(args.seed)
     moe = moe_serve_phase(args.seed)
+    hybrid = ssm_serve_phase(args.seed)
     numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
     train = train_phase(args.seed)
 
@@ -2815,11 +3178,14 @@ def main() -> int:
     launches = {"decode_gop_blocks": scan["decode_gop_blocks"],
                 "dct_quant": ingest["dct_quant"],
                 "idct_dequant": ingest["idct_dequant"],
-                "flash_attention": moe,
+                "flash_attention": hybrid,
                 "sad_search": motion, "flash_attention_bwd": train}
+    by_path = {"flash_attention": {"zamba2_prefill": hybrid,
+                                   "moe_prefill": moe}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", **KERNELS[name],
         "launches": launches[name],
+        **({"launches_by_path": by_path[name]} if name in by_path else {}),
         "max_abs_err": numbers[name]["max_abs_err"],
         "ms": numbers[name]["ms"], "plain_ms": numbers[name]["plain_ms"],
         "bound_ms": numbers[name]["bound_ms"],

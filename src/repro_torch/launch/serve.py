@@ -6,8 +6,9 @@
 Counterpart of the reference's ``launch/serve.py``, on one device: the
 prefill and decode steps of ``repro_torch/serve/serve_step.py`` on
 ``--device`` (``cuda`` by default; without a CUDA device it exits 1).
-The dense and MoE families serve (``--arch qwen3-moe-30b-a3b`` at full
-width takes 61 GB of bf16 weights on one 80 GB card).  On a CUDA device
+The dense, MoE, SSM and hybrid families serve (``--arch
+qwen3-moe-30b-a3b`` at full width takes 61 GB of bf16 weights on one 80
+GB card, ``falcon-mamba-7b`` 14.5 GB, ``zamba2-1.2b`` 2.6 GB).  On a CUDA device
 the random weights are drawn there, from a CUDA generator seeded with 0.
 Refused, because the port has no counterpart yet: ``--mesh`` (sharding,
 ROADMAP queue 1 item 9), ``--kv-quant`` and ``--kv-shard seq`` (the int8

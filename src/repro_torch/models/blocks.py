@@ -1,11 +1,13 @@
-"""Per-layer transformer blocks (``init_block`` / ``block_apply``).
+"""Per-layer blocks (``init_block`` / ``block_apply``).
 
-Counterpart of the reference's ``models/blocks.py`` for kinds ``"dense"``
-and ``"moe"``: pre-norm attention, then the pre-norm SwiGLU MLP (dense)
-or the routed-expert FFN (moe, ``models/moe.py``), each added to the
-residual stream in the compute dtype.  The reference's sharding
-constraints are no-ops on one device and are dropped.  The other kinds
-(ssm1, ssm2, enc, dec) are not ported yet and raise.
+Counterpart of the reference's ``models/blocks.py`` for kinds ``"dense"``,
+``"moe"``, ``"ssm1"`` and ``"ssm2"``.  A dense or moe block is pre-norm
+attention, then the pre-norm SwiGLU MLP (dense) or the routed-expert FFN
+(moe, ``models/moe.py``); an SSM block is the pre-norm Mamba-1 (ssm1) or
+Mamba-2 (ssm2) mixer of ``models/ssm.py``.  Each adds to the residual
+stream in the compute dtype.  The reference's sharding constraints are
+no-ops on one device and are dropped.  The encoder-decoder kinds (enc,
+dec) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import Attention, attention_apply
 from repro_torch.models.layers import MLP, Norm, mlp_apply, norm_apply
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.ssm import Mamba1, Mamba2, mamba1_apply, mamba2_apply
 
-KINDS = ("dense", "moe")
+SSM_KINDS = ("ssm1", "ssm2")
+KINDS = ("dense", "moe") + SSM_KINDS
 
 
 def _check_kind(kind: str) -> None:
@@ -30,7 +34,8 @@ def _check_kind(kind: str) -> None:
 
 
 class Block(nn.Module):
-    """``ln1``, ``attn``, ``ln2`` and ``mlp`` (dense) or ``moe`` (moe)."""
+    """``ln1`` and ``mamba`` (ssm1, ssm2), or ``ln1``, ``attn``, ``ln2``
+    and ``mlp`` (dense) or ``moe`` (moe)."""
 
     def __init__(self, cfg: ArchConfig, kind: str = "dense", *,
                  device="cpu", generator: Optional[torch.Generator] = None):
@@ -39,6 +44,9 @@ class Block(nn.Module):
         dt = cfg.param_dtype
         kw = dict(device=device, generator=generator)
         self.ln1 = Norm(cfg.norm, cfg.d_model, dtype=dt, device=device)
+        if kind in SSM_KINDS:
+            self.mamba = (Mamba1 if kind == "ssm1" else Mamba2)(cfg, **kw)
+            return
         self.attn = Attention(cfg, **kw)
         self.ln2 = Norm(cfg.norm, cfg.d_model, dtype=dt, device=device)
         if kind == "moe":
@@ -49,16 +57,22 @@ class Block(nn.Module):
 
 def init_block(cfg: ArchConfig, kind: str = "dense", *, device="cpu",
                generator: Optional[torch.Generator] = None) -> Block:
-    """One layer's parameters (``kind`` is ``"dense"`` or ``"moe"``)."""
+    """One layer's parameters (``kind`` is one of :data:`KINDS`)."""
     return Block(cfg, kind, device=device, generator=generator)
 
 
 def block_apply(p: Block, h: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 positions=None, cache: Optional[dict] = None,
                 cache_index=None, cache_len=None, causal: bool = True):
-    """Returns (h, cache_or_None); a cache is updated in place."""
+    """Returns (h, cache_or_None).  An attention block updates its KV
+    cache in place and returns it; an SSM block reads its state from
+    ``cache`` and returns the new state, which the caller writes back."""
     _check_kind(kind)
     hn = norm_apply(cfg.norm, p.ln1, h)
+    if kind in SSM_KINDS:
+        fn = mamba1_apply if kind == "ssm1" else mamba2_apply
+        y, state = fn(p.mamba, hn, cfg, state=cache)
+        return h + y, state
     a, cache = attention_apply(p.attn, hn, cfg, causal=causal,
                                positions=positions, kv_cache=cache,
                                cache_index=cache_index, cache_len=cache_len)

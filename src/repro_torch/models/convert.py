@@ -6,8 +6,10 @@ stacked: ``layers/attn/wq/w`` is ``[L, d, H*hd]`` and a MoE layer's
 ``layers/moe/w_gate`` is ``[L, E, d, ff]``.  The port's module attributes
 carry the tree's keys, so ``layers/<rest>`` of layer ``i`` is the
 state-dict entry ``layers.<i>.<rest>`` (and DeepSeek's
-``dense_layers/<rest>`` is ``dense_layers.<i>.<rest>``), and every other
-leaf ``a/b`` is ``a.b``.  Values are copied exactly (bf16 passes through
+``dense_layers/<rest>`` is ``dense_layers.<i>.<rest>``; an SSM layer's
+``layers/mamba/A_log`` is ``[L, d_inner, N]``), and every other leaf
+``a/b`` is ``a.b`` (Zamba2's unstacked ``shared_attn/attn/wq/w`` is
+``shared_attn.attn.wq.w``).  Values are copied exactly (bf16 passes through
 f32 losslessly).
 """
 from __future__ import annotations

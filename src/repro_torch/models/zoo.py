@@ -1,5 +1,5 @@
-"""Model assembly: init, forward, logits, KV caches and the decode step,
-for the dense and MoE families.
+"""Model assembly: init, forward, logits, decode caches and the decode
+step, for the dense, MoE, SSM (Mamba-1) and hybrid (Zamba2) families.
 
 Counterpart of the reference's ``models/zoo.py``:
 
@@ -15,10 +15,18 @@ wraps the scanned layer in ``jax.checkpoint`` (remat), the port runs each
 layer under ``torch.utils.checkpoint``.  A MoE config with
 ``moe.first_dense_layers`` (DeepSeek) has those leading dense layers in
 ``dense_layers`` (``d_ff = d_first_dense_ff``), run before ``layers``.
-The KV cache keeps the reference's stacked layout ({"layers": {"k", "v"}:
-[L, B, max_len, KV, D]}, and "dense_layers" likewise) and each layer
-updates its slice in place.  The other families (ssm, hybrid, audio,
-vlm) and MLA are not ported yet and raise.
+The hybrid (Zamba2) stack runs its Mamba-2 layers in order and, after
+every ``shared_attn_every``-th, the one ``shared_attn`` block on
+``concat(h, emb0)`` at twice the width, as the reference's
+[every-layer scan -> shared attn] x n_sites + trailing layers; under
+remat only the Mamba layers are checkpointed, as in the reference.
+The decode cache keeps the reference's stacked layout: {"layers": {"k",
+"v"}: [L, B, max_len, KV, D]} (and "dense_layers" likewise) for
+attention, {"layers": {"conv", "ssm"}} (Mamba-1) or {"layers":
+{"conv_x", "conv_B", "conv_C", "ssm"}} (Mamba-2) stacked over L, and for
+the hybrid also {"shared": {"k", "v"}} stacked over its call sites.
+Each layer writes its slice in place.  The other families (audio, vlm)
+and MLA are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -32,24 +40,45 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode.ops import resolve_device
-from repro_torch.models.attention import check_supported
-from repro_torch.models.blocks import block_apply, init_block
-from repro_torch.models.layers import (Dense, Embedding, Norm, embedding_apply,
-                                       norm_apply, torch_dtype)
+from repro_torch.models.attention import (Attention, attention_apply,
+                                          check_supported)
+from repro_torch.models.blocks import SSM_KINDS, block_apply, init_block
+from repro_torch.models.layers import (MLP, Dense, Embedding, Norm,
+                                       dense_apply, embedding_apply,
+                                       mlp_apply, norm_apply, torch_dtype)
+from repro_torch.models.ssm import mamba1_state_specs, mamba2_state_specs
+
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise for the configurations the port cannot build yet."""
-    if cfg.family not in ("dense", "moe") or cfg.is_encdec \
+    if cfg.family not in FAMILIES or cfg.is_encdec \
             or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP, "
-            f"queue 1 item 7); the port has the dense and moe families")
+            f"queue 1 item 7); the port has the families {FAMILIES}")
     check_supported(cfg)
 
 
 def _family_block_kind(cfg: ArchConfig) -> str:
+    if cfg.family in ("ssm", "hybrid"):
+        return "ssm1" if cfg.ssm.kind == "mamba1" else "ssm2"
     return "moe" if cfg.family == "moe" else "dense"
+
+
+def _wide_cfg(cfg: ArchConfig) -> ArchConfig:
+    """Zamba2's shared block runs at 2 * d_model."""
+    d2 = 2 * cfg.d_model
+    return dataclasses.replace(cfg, d_model=d2, head_dim=d2 // cfg.n_heads)
+
+
+def _hybrid_sites(cfg: ArchConfig) -> tuple[int, int]:
+    """(call sites of the shared block, trailing Mamba layers)."""
+    every = cfg.hybrid.shared_attn_every
+    n_sites = cfg.n_layers // every
+    return n_sites, cfg.n_layers - n_sites * every
 
 
 def _n_dense_layers(cfg: ArchConfig) -> int:
@@ -74,10 +103,47 @@ def _stacks(params: "Model", cfg: ArchConfig) -> list:
 # ==========================================================================
 # init
 # ==========================================================================
+class SharedAttn(nn.Module):
+    """Zamba2's shared attention block at 2 * d_model: ``ln1``, ``attn``,
+    ``ln2``, ``mlp`` and ``out_proj`` back to d_model
+    (``_init_shared_attn``)."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cpu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        wide = _wide_cfg(cfg)
+        d2, dt = wide.d_model, cfg.param_dtype
+        kw = dict(device=device, generator=generator)
+        self.ln1 = Norm(cfg.norm, d2, dtype=dt, device=device)
+        self.attn = Attention(wide, **kw)
+        self.ln2 = Norm(cfg.norm, d2, dtype=dt, device=device)
+        self.mlp = MLP(d2, cfg.d_ff, dtype=dt, **kw)
+        self.out_proj = Dense(d2, cfg.d_model, dtype=dt, **kw)
+
+
+def _shared_attn_apply(p: SharedAttn, h, emb0, cfg: ArchConfig, *,
+                       positions=None, cache=None, cache_index=None,
+                       cache_len=None):
+    """``h + out_proj(block(concat(h, emb0)))``: a causal prefill's
+    attention runs through the ``flash_attention`` kernel at the wide
+    config (G = 1); the KV cache is written in place."""
+    wide = _wide_cfg(cfg)
+    cd = cfg.compute_dtype
+    x = torch.cat([h, emb0], dim=-1)
+    xn = norm_apply(cfg.norm, p.ln1, x)
+    a, cache = attention_apply(p.attn, xn, wide, causal=True,
+                               positions=positions, kv_cache=cache,
+                               cache_index=cache_index, cache_len=cache_len)
+    x = x + a
+    xn = norm_apply(cfg.norm, p.ln2, x)
+    x = x + mlp_apply(p.mlp, xn, cd)
+    return h + dense_apply(p.out_proj, x, cd), cache
+
+
 class Model(nn.Module):
-    """Parameters of a dense or MoE decoder; attribute names are the
-    reference's tree keys (``embed``, ``final_norm``, ``lm_head``,
-    ``dense_layers``, ``layers``)."""
+    """Parameters of a decoder; attribute names are the reference's tree
+    keys (``embed``, ``final_norm``, ``lm_head``, ``dense_layers``,
+    ``layers``, ``shared_attn``)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cpu",
                  generator: Optional[torch.Generator] = None):
@@ -96,6 +162,8 @@ class Model(nn.Module):
         kind = _family_block_kind(cfg)
         self.layers = nn.ModuleList(init_block(cfg, kind, **kw)
                                     for _ in range(cfg.n_layers - n_dense))
+        self.shared_attn = (SharedAttn(cfg, **kw) if cfg.family == "hybrid"
+                            else None)
 
     @property
     def device(self) -> torch.device:
@@ -106,9 +174,10 @@ def init_model(cfg: ArchConfig,
                generator: Union[int, torch.Generator, None] = 0, *,
                device="cuda") -> Model:
     """Random weights with the reference's shapes and scales (normal
-    embeddings x 0.02, normal / sqrt(d_in) projections and experts, unit
-    norms), drawn from ``generator``: a seed (a CPU generator seeded with
-    it) or a ``torch.Generator``.  A CPU generator draws on the host and
+    embeddings x 0.02, normal / sqrt(d_in) projections and experts,
+    normal x 0.1 SSM convs, unit norms; the SSM's set leaves equal the
+    reference's), drawn from ``generator``: a seed (a CPU generator
+    seeded with it) or a ``torch.Generator``.  A CPU generator draws on the host and
     copies; a CUDA generator draws on its card (``device`` must name that
     card), which a full-width MoE model needs to be built in seconds.
     The draws differ from ``jax.random``'s, and the CPU's from the
@@ -130,23 +199,43 @@ def _embed_inputs(params: Model, cfg: ArchConfig, batch: dict):
 def _run_layers(params: Model, cfg: ArchConfig, h, *, positions,
                 caches=None, cache_index=None, cache_len=None,
                 remat: bool = False):
-    """The layer stacks (``dense_layers``, then ``layers``).  With
-    ``remat`` each layer runs under ``checkpoint``: its activations are
-    dropped after the forward and recomputed in the backward, so the
-    forward kernel of its attention runs twice per training step."""
+    """The layer stacks (``dense_layers``, then ``layers``, with the
+    hybrid's shared block after every ``shared_attn_every``-th layer).
+    With ``remat`` each layer of the stacks runs under ``checkpoint``: its
+    activations are dropped after the forward and recomputed in the
+    backward, so the forward kernel of its attention runs twice per
+    training step; the shared block is not checkpointed."""
+    emb0 = h
+    every = cfg.hybrid.shared_attn_every if cfg.family == "hybrid" else 0
     for key, stack, scfg, kind in _stacks(params, cfg):
         for i, layer in enumerate(stack):
             if remat:
                 h = checkpoint(_layer, layer, h, scfg, kind, positions,
                                use_reentrant=False)
-                continue
-            cache = None
-            if caches is not None:
-                cache = {n: c[i] for n, c in caches[key].items()}
-            h, _ = block_apply(layer, h, scfg, kind, positions=positions,
-                               cache=cache, cache_index=cache_index,
-                               cache_len=cache_len)
+            else:
+                cache = _cache_slice(caches, key, i)
+                h, new = block_apply(layer, h, scfg, kind,
+                                     positions=positions, cache=cache,
+                                     cache_index=cache_index,
+                                     cache_len=cache_len)
+                if cache is not None and kind in SSM_KINDS:
+                    for n, t in new.items():  # the new state, in place
+                        cache[n].copy_(t)
+            if every and (i + 1) % every == 0:
+                site = (i + 1) // every - 1
+                h, _ = _shared_attn_apply(
+                    params.shared_attn, h, emb0, cfg, positions=positions,
+                    cache=_cache_slice(caches, "shared", site),
+                    cache_index=cache_index, cache_len=cache_len)
     return h
+
+
+def _cache_slice(caches, key: str, i: int):
+    """Entry ``i`` of each stacked tensor of ``caches[key]`` (views), or
+    None without caches."""
+    if caches is None:
+        return None
+    return {n: c[i] for n, c in caches[key].items()}
 
 
 def _layer(layer, h, cfg: ArchConfig, kind: str, positions):
@@ -233,19 +322,32 @@ def logits_fn(params: Model, cfg: ArchConfig,
 def init_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """The decode cache's shapes and dtypes as ``meta`` tensors, stacked
     over the layers of each stack (the reference returns
-    ShapeDtypeStructs): {"dense_layers" (if any), "layers"}: {"k", "v"}."""
+    ShapeDtypeStructs): {"dense_layers" (if any), "layers"}: {"k", "v"}
+    for attention layers or the SSM state (conv states in the compute
+    dtype, the SSM state in f32), and for the hybrid "shared": {"k",
+    "v"} at the wide config, stacked over the call sites."""
     check_family(cfg)
-    kv_eff = cfg.n_kv_heads * cfg.kv_repeat
     cd = torch_dtype(cfg.compute_dtype)
     n_dense = _n_dense_layers(cfg)
 
-    def stack(n):
-        shape = (n, batch, max_len, kv_eff, cfg.head_dim)
+    def kv(c: ArchConfig, n: int) -> dict:
+        shape = (n, batch, max_len, c.n_kv_heads * c.kv_repeat, c.head_dim)
         return {"k": torch.empty(shape, dtype=cd, device="meta"),
                 "v": torch.empty(shape, dtype=cd, device="meta")}
 
-    specs = {"dense_layers": stack(n_dense)} if n_dense else {}
-    specs["layers"] = stack(cfg.n_layers - n_dense)
+    specs = {"dense_layers": kv(cfg, n_dense)} if n_dense else {}
+    n = cfg.n_layers - n_dense
+    kind = _family_block_kind(cfg)
+    if kind in SSM_KINDS:
+        one = (mamba1_state_specs if kind == "ssm1"
+               else mamba2_state_specs)(cfg, batch)
+        specs["layers"] = {
+            name: torch.empty((n,) + t.shape, dtype=t.dtype, device="meta")
+            for name, t in one.items()}
+    else:
+        specs["layers"] = kv(cfg, n)
+    if cfg.family == "hybrid":
+        specs["shared"] = kv(_wide_cfg(cfg), _hybrid_sites(cfg)[0])
     return specs
 
 
@@ -257,12 +359,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
             for key, stack in init_cache_specs(cfg, batch, max_len).items()}
 
 
+def zero_ssm_state(cfg: ArchConfig, caches: dict) -> None:
+    """Zero the SSM and conv state of ``caches`` in place (nothing for an
+    attention-only model).  A prefill starts from the state it is given,
+    so a cache that served an earlier prompt must be zeroed before the
+    next; a KV cache needs no zeroing, since a prefill overwrites the
+    positions it reads."""
+    if _family_block_kind(cfg) in SSM_KINDS:
+        for t in caches["layers"].values():
+            t.zero_()
+
+
 def decode_step(params: Model, cfg: ArchConfig, batch: dict, caches: dict,
                 *, cache_index) -> tuple:
     """batch['tokens']: [B, S_in] on the model's device.  S_in == 1 is one
     decode step; S_in > 1 at ``cache_index`` 0 is a prefill, which returns
-    only the last position's logits.  Returns (logits [B, 1, V] f32,
-    caches), the caches updated in place."""
+    only the last position's logits.  An SSM layer starts from the state
+    in ``caches``, as in the reference (zeros from :func:`init_cache`).
+    Returns (logits [B, 1, V] f32, caches), the caches updated in
+    place."""
     idx = int(cache_index)
     h = _embed_inputs(params, cfg, batch)
     S_in = h.shape[1]

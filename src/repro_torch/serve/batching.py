@@ -12,6 +12,13 @@ admission (all slots must drain before the next wave — zoo.decode_step
 shares one cache index across rows; prompts are left-padded with token 0
 to the wave's length, and the padding is attended like any token), greedy
 sampling, no prefix sharing.
+
+One deliberate divergence: at each admission the port zeroes the SSM and
+conv state of its caches (``zoo.zero_ssm_state``).  The reference
+prefills a new wave into the caches of the last, so its SSM layers start
+from the last wave's final state; a KV cache needs no reset, since a
+prefill overwrites what it reads.  The port's first wave is the
+reference's; each later wave gives what fresh caches would.
 """
 from __future__ import annotations
 
@@ -93,6 +100,7 @@ class ContinuousBatcher:
             slot.pos = pad_to
             row = self.slots.index(slot)
             toks[row, -len(req.prompt):] = req.prompt
+        zoo.zero_ssm_state(self.cfg, self.caches)
         logits, self.caches = zoo.decode_step(
             self.params, self.cfg,
             {"tokens": torch.from_numpy(toks).to(self.device)},

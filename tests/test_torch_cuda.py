@@ -845,6 +845,121 @@ def test_init_model_draws_on_the_card_with_a_cuda_generator(cuda):
         init_model(cfg, torch.Generator(device=cuda), device="cpu")
 
 
+# ------------------------------------------------- SSM and hybrid families
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 256, 128),
+                                   (8, 32, 32, 512, 128)])
+def test_flash_attention_at_the_hybrid_shapes(cuda, shape, dtype):
+    """MHA (G = 1) at D = 128: zamba2-1.2b's shared block runs at twice
+    d_model, 32 heads of 128 on 32 KV heads; (8, 32, 32, 512, 128) is its
+    B=8, S=512 prefill."""
+    q, k, v = _qkv(sum(shape), *shape, dtype, cuda)
+    before = flash_kernel.LAUNCHES.count
+    got = flash_kernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count == before + 1
+    want = flash_kernel.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+
+
+def _ssm_cfg(arch, **kw):
+    """The reduced config of ``arch`` in f32 (zamba2: 5 layers, two
+    shared-block sites and a trailing layer)."""
+    from repro_torch.configs.base import reduce_config
+
+    cfg = reduce_config(get_config(arch))
+    if cfg.family == "hybrid":
+        kw = {"n_layers": 5, **kw}
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32", **kw)
+
+
+def _on_cpu(model, cfg):
+    from repro_torch.models import Model
+
+    cpu = Model(cfg, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_ssm_model_on_the_card_matches_the_cpu(cuda, arch):
+    """An f32 SSM or hybrid model at a narrow width: the prefill logits,
+    every cache entry after it and three decode steps on the card within
+    1e-4 of the CPU's on the same weights; the hybrid's prefill launches
+    the kernel once per shared-block site."""
+    from repro_torch.models import decode_step, init_cache
+
+    cfg = _ssm_cfg(arch, d_model=256)
+    model = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                       device=cuda)
+    cpu = _on_cpu(model, cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 70)))
+    caches = {d: init_cache(cfg, 2, 80, device=d) for d in ("cpu", cuda)}
+    before = flash_kernel.LAUNCHES.count
+    for step in range(4):
+        idx = 0 if step == 0 else 63 + step
+        t = tokens[:, :64] if step == 0 else tokens[:, idx:idx + 1]
+        want, _ = decode_step(cpu, cfg, {"tokens": t}, caches["cpu"],
+                              cache_index=idx)
+        got, _ = decode_step(model, cfg, {"tokens": t.to(cuda)},
+                             caches[cuda], cache_index=idx)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+        for key, stack in caches["cpu"].items():
+            for n, c in stack.items():
+                torch.testing.assert_close(caches[cuda][key][n].cpu(), c,
+                                           atol=1e-4, rtol=0)
+    sites = cfg.n_layers // cfg.hybrid.shared_attn_every if cfg.hybrid \
+        else 0
+    assert flash_kernel.LAUNCHES.count - before == sites
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_ssm_prefill_then_decode_equals_the_longer_prefill_on_the_card(
+        cuda, arch):
+    """The carried state on the card: a prefill of 64 tokens (four chunks
+    of 16) and a decode step agree with a prefill of 65 (one chunk)."""
+    from repro_torch.models import decode_step, init_cache
+
+    cfg = _ssm_cfg(arch, d_model=256)
+    model = init_model(cfg, torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda)
+    t = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 65))).to(cuda)
+    caches = init_cache(cfg, 2, 72, device=cuda)
+    decode_step(model, cfg, {"tokens": t[:, :64]}, caches, cache_index=0)
+    got, _ = decode_step(model, cfg, {"tokens": t[:, 64:]}, caches,
+                         cache_index=64)
+    want, _ = decode_step(model, cfg, {"tokens": t},
+                          init_cache(cfg, 2, 72, device=cuda), cache_index=0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_ssm_batcher_on_the_card_resets_the_state(cuda):
+    """bf16 zamba2 at a narrow width: a request repeated in the second
+    wave gets its first-wave tokens; each wave launches the kernel once
+    per site."""
+    cfg = make_serve_config(_ssm_cfg("zamba2-1.2b", d_model=256), 1)
+    model = init_model(cfg, torch.Generator(device=cuda).manual_seed(2),
+                       device=cuda)
+    batcher = ContinuousBatcher(cfg, model, slots=2, max_len=64,
+                                device=str(cuda))
+    rng = np.random.default_rng(2)
+    first = rng.integers(0, cfg.vocab, 20)
+    for prompt in (first, rng.integers(0, cfg.vocab, 9), first,
+                   rng.integers(0, cfg.vocab, 13)):
+        batcher.submit(prompt, max_new=6)
+    before = flash_kernel.LAUNCHES.count
+    stats = batcher.run_until_drained()
+    assert stats["requests"] == 4
+    assert flash_kernel.LAUNCHES.count - before == 2 * 2  # waves x sites
+    tokens = {r.rid: r.out_tokens for r in batcher.finished}
+    assert tokens[2] == tokens[0]
+
+
 # ----------------------------------------------------------------- sad_search
 SAD_RTOL = 1e-5
 

@@ -1,10 +1,10 @@
 """The port's LM launchers and training example as subprocesses on the CPU:
 ``python -m repro_torch.launch.train --device cpu --reduced`` for 3 steps,
 then ``--resume`` to 5 from its checkpoint; ``python -m
-repro_torch.launch.serve``; the flags the port refuses (``--mesh``,
-``--kv-quant``, ``--kv-shard seq``); ``--device cuda`` without a card
-(exit 1, "no CUDA device"); ``examples/train_video_lm_torch.py`` through
-its simulated fault."""
+repro_torch.launch.serve`` (smollm, and the SSM and hybrid families); the
+flags the port refuses (``--mesh``, ``--kv-quant``, ``--kv-shard seq``);
+``--device cuda`` without a card (exit 1, "no CUDA device");
+``examples/train_video_lm_torch.py`` through its simulated fault."""
 import json
 import os
 import pathlib
@@ -56,6 +56,16 @@ def test_serve_runs():
                "--max-new", "4")
     assert out.returncode == 0, out.stderr
     assert "serving smollm-135m-smoke" in out.stdout
+    assert "prefill 2x8 in" in out.stdout and "decode 4 steps" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "falcon-mamba-7b"])
+def test_serve_runs_the_ssm_families(arch):
+    out = _run("-m", "repro_torch.launch.serve", "--arch", arch, "--device",
+               "cpu", "--reduced", "--batch", "2", "--prompt-len", "8",
+               "--max-new", "4")
+    assert out.returncode == 0, out.stderr
+    assert f"serving {arch}-smoke" in out.stdout
     assert "prefill 2x8 in" in out.stdout and "decode 4 steps" in out.stdout
 
 

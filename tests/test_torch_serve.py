@@ -1,7 +1,10 @@
 """The port's LM serving slice (``repro_torch.serve``) against the JAX
 reference's, as a whole: ``greedy_generate``, the prefill and decode steps
 and the ``ContinuousBatcher`` on the same weights (carried across by
-``params_from_numpy``) and the same prompts, made with numpy from a seed.
+``params_from_numpy``) and the same prompts, made with numpy from a seed;
+a narrow smollm, and reduced falcon-mamba-7b and zamba2-1.2b, whose
+batcher resets the SSM state at each wave where the reference carries it
+over.
 
 In f32 the two packages differ only in summation order, so greedy tokens
 must be equal and logits within 1e-4.  In bf16 (the serving dtype) logits
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from repro.configs.base import get_config, make_serve_config
+from repro.configs.base import reduce_config as jax_reduce_config
 from repro.models import zoo as jax_zoo
 from repro.serve.batching import ContinuousBatcher as JaxBatcher
 from repro.serve.serve_step import greedy_generate as jax_greedy_generate
@@ -23,6 +27,7 @@ from repro.serve.serve_step import make_prefill_step as jax_make_prefill_step
 from repro_torch.configs.base import get_config as port_get_config
 from repro_torch.configs.base import \
     make_serve_config as port_make_serve_config
+from repro_torch.configs.base import reduce_config as port_reduce_config
 from repro_torch.models import Model, init_model, params_from_numpy
 from repro_torch.serve import (ContinuousBatcher, greedy_generate,
                                make_decode_step, make_prefill_step)
@@ -167,3 +172,72 @@ def test_model_on_another_device_is_refused():
     with pytest.raises(ValueError, match="model is on meta"):
         greedy_generate(model, tcfg, np.zeros((1, 4), np.int64), max_new=2,
                         device="cpu")
+
+
+# ------------------------------------------------- SSM and hybrid families
+@pytest.fixture(scope="module", params=["falcon-mamba-7b", "zamba2-1.2b"])
+def ssm_pair(request):
+    """Reduced falcon-mamba-7b (Mamba-1) or zamba2-1.2b (Mamba-2 and the
+    shared attention block) as served, in f32, on the reference's
+    weights."""
+    jcfg = dataclasses.replace(make_serve_config(
+        jax_reduce_config(get_config(request.param)), 1), **F32)
+    tcfg = dataclasses.replace(port_make_serve_config(
+        port_reduce_config(port_get_config(request.param)), 1), **F32)
+    params = jax_zoo.init_model(jcfg, jax.random.key(5))
+    model = params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                              device="cpu")
+    return jcfg, tcfg, params, model
+
+
+def test_ssm_greedy_generate_matches_reference_in_f32(ssm_pair):
+    jcfg, tcfg, params, model = ssm_pair
+    prompt = np.random.default_rng(6).integers(0, jcfg.vocab, (3, 21))
+    want = jax_greedy_generate(params, jcfg, jnp.asarray(prompt, jnp.int32),
+                               max_new=12)
+    got = greedy_generate(model, tcfg, prompt, max_new=12, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _two_waves(batcher, vocab, only_second=False):
+    """Six requests for three slots, two waves; request 3 repeats request
+    0, and both are the longest prompt of their wave, so neither is
+    padded.  The prompts are short: a state carried into a prompt decays
+    with every token of it (by exp(dt A) per step, A <= -1)."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, vocab, n).astype(np.int32)
+               for n in (3, 2, 3, 0, 1, 2)]
+    prompts[3] = prompts[0]
+    news = (8, 6, 7, 8, 5, 6)
+    first = 3 if only_second else 0
+    for prompt, new in list(zip(prompts, news))[first:]:
+        batcher.submit(prompt, max_new=new)
+    return batcher
+
+
+def _tokens_by_rid(batcher) -> dict:
+    return {r.rid: r.out_tokens for r in batcher.finished}
+
+
+def test_ssm_batcher_resets_the_state_at_each_wave(ssm_pair):
+    """The first wave equals the reference's token for token.  The
+    reference's second wave starts from the first wave's final SSM state,
+    so its repeat of request 0 gets other tokens; the port zeroes the
+    state at admission, so its repeat equals request 0, and its second
+    wave equals the reference serving those requests on fresh caches."""
+    jcfg, tcfg, params, model = ssm_pair
+    jb = _two_waves(JaxBatcher(jcfg, params, slots=3, max_len=40),
+                    jcfg.vocab)
+    tb = _two_waves(ContinuousBatcher(tcfg, model, slots=3, max_len=40,
+                                      device="cpu"), tcfg.vocab)
+    js, ts = jb.run_until_drained(), tb.run_until_drained()
+    assert ts["requests"] == js["requests"] == 6
+    want, got = _tokens_by_rid(jb), _tokens_by_rid(tb)
+    assert [got[i] for i in range(3)] == [want[i] for i in range(3)]
+    assert got[3] == got[0]
+    assert want[3] != want[0]  # the reference carries the state over
+    fresh = _two_waves(JaxBatcher(jcfg, params, slots=3, max_len=40),
+                       jcfg.vocab, only_second=True)
+    fresh.run_until_drained()
+    assert [got[i] for i in range(3, 6)] == [
+        _tokens_by_rid(fresh)[i] for i in range(3)]
