@@ -25,14 +25,20 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    version (atol 2e-5 in f32, 2e-2 in bf16) for (B, H, KV, S, D) in
    {(2,4,4,128,32), (2,4,2,256,64), (2,8,1,256,32), (8,9,3,512,64),
    (1,9,3,4096,64), (3,9,3,100,64), (1,9,3,1,64), (8,32,4,512,128),
-   (2,8,8,256,128), (8,32,32,512,128)}, causal and not, bf16 and f32, on
-   ``randn`` inputs from the seed; times it, the plain version and
-   ``scaled_dot_product_attention`` (the library yardstick, which the
+   (2,8,8,256,128), (8,32,32,512,128)} and, at MLA's widths (q.k 192, v
+   128), (B, H, KV, S) in {(8,16,16,512), (2,4,2,256), (3,16,16,100),
+   (1,16,16,1)}, causal and not, bf16 and f32, on ``randn`` inputs from
+   the seed; the (D, D) pairs' outputs on inputs from DIGEST_SEED must
+   hash to the digests of the kernel before v's width became a parameter
+   (``FLASH_OLD_DIGESTS``: bit-identical); times it, the plain version
+   and ``scaled_dot_product_attention`` (the library yardstick, which the
    port never calls) in bf16 at the smollm-135m prefill shape
    (8,9,3,512,64), at (1,9,3,4096,64), at the qwen3-moe-30b-a3b prefill
-   shape (8,32,4,512,128) and at the zamba2-1.2b prefill shape
-   (8,32,32,512,128: MHA at D=128), which the JSON line reports, with the
-   byte and operation bounds, and the wrapper's host cost per call;
+   shape (8,32,4,512,128), at the zamba2-1.2b prefill shape
+   (8,32,32,512,128: MHA at D=128) and at the deepseek-v2-lite-16b
+   prefill shape (8,16,16,512, 192 / 128), which the JSON line reports,
+   with the byte and operation bounds, and the wrapper's host cost per
+   call;
 6. sad kernel phase: holds ``sad_search`` against its plain version for
    (b, r) in {(8, 4), (16, 8), (8, 8), (4, 0), (8, 1), (8, 5), (16, 3),
    (5, 2)} (the motion shapes (8, 8) and (16, 8) take the kernel's
@@ -119,7 +125,11 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    tokens: every request finishes, 30 launches per wave, stats printed;
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
-   the device's busy share of their wall time;
+   the device's busy share of their wall time; with (c), the f32 model on
+   the int8 KV cache on the card and on the CPU (B=2): the first layer's
+   codes equal but for at most ``INT8_FLIPS`` of them, one apart, a
+   decode step from the same codes within 1e-3, greedy agreement >= 0.99
+   over 32 tokens (``_int8_card_vs_cpu``);
 15. MoE serve phase, ``qwen3-moe-30b-a3b`` at its published width and
    depth (48 layers, d_model 2048, 32/4 heads of 128, 128 experts top 8,
    capacity factor 1.25, vocab 151,936; ``make_serve_config(cfg, 1)``;
@@ -180,7 +190,38 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    512 tokens (two 256-token chunks) and one decode step within 1e-3 of a
    prefill of 513 (one chunk); (f) ``python -m repro_torch.launch.serve
    --arch zamba2-1.2b --device cuda`` exits 0;
-17. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
+17. MLA serve phase, once the SSM weights are freed (free card memory
+   printed before the init): ``deepseek-v2-lite-16b`` at its published
+   width and depth (27 layers, the first dense at d_ff 10944, d_model
+   2048, 16 heads, MLA latent rank 512 with q.k 128 + 64 and v 128, 64
+   routed experts top 6 and 2 shared, vocab 102,400;
+   ``make_serve_config(cfg, 1)``; 15,706,484,224 parameters, equal to
+   ``analytic_param_count``, 31.4 GB of bf16 weights drawn on the card
+   from a CUDA generator seeded with the seed): (a) ``greedy_generate``
+   of 8 prompts of 512 tokens, 64 new; the prefill launches
+   ``flash_attention`` 27 times at (8,16,16,512, 192 / 128); TTFT, decode
+   tokens/s, init time; (b) the same weights with the plain prefill
+   attention and with SDPA (a control): the last-position logits' gaps
+   and the greedy agreement printed, each of the 27 sites' attention
+   output within 2e-2 of the plain version on the same q, k, v, the
+   teacher-forced share of each MoE layer's expert assignments at least
+   0.99, every logit finite; (d) the bf16 model on the int8 latent cache:
+   every logit finite, 27 launches, the agreement with the float cache
+   printed; (e) ``ContinuousBatcher(slots=8, max_len=640)`` over 16
+   requests drawn as the serve phase draws them: every request finishes,
+   27 launches per wave; (f) one prefill's and one decode step's device
+   time split by ``torch.profiler`` into ``flash_attention``, the expert
+   GEMMs, the other matmuls, the dispatch and the rest, with the busy
+   share, and the peak memory; (c) f32 at 4 layers (the dense layer and
+   3 MoE layers), full width otherwise, card against CPU on the same
+   weights (B=2): prefill logits within 1e-3, greedy agreement >= 0.99
+   over 32 tokens, and on each a prefill of 512 tokens and one absorbed
+   decode step within 1e-3 of a prefill of 513 (at a capacity factor
+   where no expert drops a token); the f32 model on the int8 cache, card
+   against CPU, as the serve phase holds it; (g) ``python -m
+   repro_torch.launch.serve --arch deepseek-v2-lite-16b --device cuda``
+   exits 0, with and without ``--kv-quant``;
+18. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
    dk, dv from the forward's o and row logsumexp) against its plain
    version, each element over its row's largest |gradient| (``BWD_TOL``:
    2e-4 in f32, 1e-2 in bf16), at the training shape (8, 9, 3, 2048, 64)
@@ -190,7 +231,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    library yardstick, which the port never calls) against the operation
    bound (five causal-halved S^2 D products over the card's peak for the
    type);
-18. train phase, ``smollm-135m`` at its published width (30 layers,
+19. train phase, ``smollm-135m`` at its published width (30 layers,
    d_model 576, vocab 49,152), bf16 params with an f32 master copy, remat
    on: (a) ``TRAIN_STEPS`` steps of ``make_train_step`` at B=8, S=2048 on
    the structured synthetic stream, with the counts set to 0 just before
@@ -208,13 +249,13 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    restored from the step-2 checkpoint bit for bit (``restarts == 1``);
    (e) ``python -m repro_torch.launch.train --device cuda`` for 3 steps
    with ``--checkpoint-dir``, then ``--resume`` to 5;
-19. prints the times of the kernels redesigned for this card (all six:
+20. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
    one JSON line with the kernels' numbers (each kernel's launches on its
-   latest path: ``flash_attention`` on zamba2's ``greedy_generate``,
-   timed at its prefill shape, with the MoE prefill's launches beside
-   it), then as its last
+   latest path: ``flash_attention`` on deepseek-v2-lite-16b's
+   ``greedy_generate``, timed at its prefill shape, with the zamba2 and
+   MoE prefills' launches beside it), then as its last
    line ``{"ok": true, "device": {...}}``.
 
 f32 products on the card stay f32 (``allow_tf32`` is set False for
@@ -229,6 +270,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import pathlib
 import os
@@ -317,6 +359,15 @@ BATCH_SLOTS, BATCH_MAX_LEN, BATCH_REQUESTS = 8, 640, 16
 BATCH_PROMPT, BATCH_NEW = (64, 512), (16, 64)
 FLASH_MAIN = (8, 9, 3, 512, 64)
 FLASH_LONG = (1, 9, 3, 4096, 64)
+#: the (D, D) pairs' outputs over FLASH_SHAPES, causal and not, from
+#: ``randn`` inputs of DIGEST_SEED (``flash_digests``): sha256 by dtype of
+#: the kernel before v's width became a parameter (its
+#: ``csrc/flash_attention.cu`` built beside the current one by
+#: ``scripts/torch_kernel_probe.py --flash-only --baseline`` on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W); the current kernel must give these bits
+DIGEST_SEED = 1234
+FLASH_OLD_DIGESTS = {"bfloat16": "35e53691261118712e828ecf4cdd1d04",
+                     "float32": "e840524597c7c53ba4ac1e369c4d91eb"}
 #: the MoE serve path: qwen3-moe-30b-a3b at its published width and depth
 #: (48 layers, d_model 2048, 32/4 heads of 128, 128 experts, top 8), its
 #: prefill's attention shape, and the share of (token, slot) expert
@@ -337,8 +388,23 @@ SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
 SSM_PUBLISHED = {"zamba2-1.2b": (1_279_529_856, 38),
                  "falcon-mamba-7b": (7_272_665_088, 64)}
 FLASH_HYBRID = (SERVE_B, 32, 32, SERVE_S, 128)
+#: the MLA serve path: deepseek-v2-lite-16b at its published width and
+#: depth (27 layers, the first dense at d_ff 10944, d_model 2048, 16
+#: heads; MLA latent rank 512, q.k 128 + 64, v 128, q_lora_rank 0; 64
+#: routed experts top 6 and 2 shared; vocab 102,400), its parameter count
+#: and depth; its prefill's attention shape (B, H, KV, S, Dqk, Dv) and the
+#: kernel phase's shapes at its widths
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_PUBLISHED = (15_706_484_224, 27)
+FLASH_MLA = (SERVE_B, 16, 16, SERVE_S, 192, 128)
+FLASH_MLA_SHAPES = [FLASH_MLA, (2, 4, 2, 256, 192, 128),
+                    (3, 16, 16, 100, 192, 128), (1, 16, 16, 1, 192, 128)]
 SSM_F32_LAYERS = {"zamba2-1.2b": 7, "falcon-mamba-7b": 4}
 SSM_F32_B, SSM_F32_NEW = 2, 32
+#: the share of the first layer's int8 KV-cache codes that may differ (by
+#: one) between the card and the CPU from the same input: where x / scale
+#: lies within their f32 error of .5 (about 1e-4 in code units)
+INT8_FLIPS = 1e-3
 #: zamba2's bf16 prefill logits: the plain attention's model and SDPA's
 #: are 0.069 apart at the last position (PERF.md section 6), past
 #: the dense model's 5e-2, so the kernel's gap is held to at most this
@@ -354,9 +420,12 @@ SAD_SWEEP_N = [1, 7, 64, 500, 32400]
 SAD_TOL = 1e-5
 MOTION_PAIRS = [(H, W, 8, 8), (720, 1280, 16, 8)]
 PLANT = (3, -2)
-#: the video server phase: client threads, requests per client, queries
+#: the video server phase: client threads, requests per client, queries;
+#: the extra JSON-codec pass (where msgpack is the default) sends each
+#: query once per client (its 1080p replies take about 4 s each)
 SERVER_CLIENTS, SERVER_REQUESTS = 4, 8
 SERVER_QUERIES = [("frame", (0, 16)), ("car", (0, 64)), ("car", (16, 48))]
+SERVER_REQUESTS_JSON = len(SERVER_QUERIES)
 CLI_SPEC = (192, 320, 32)
 #: the cluster phase: 1080p cameras of CLUSTER_FRAMES frames each (a
 #: 265 MB f32 ingest, just under the default 256 MiB frame cap, so nodes,
@@ -956,16 +1025,17 @@ def video_server_phase(store, oracle) -> None:
         _check_regions(res.regions, oracle, f"server reference {lbl}{fr}")
         want[(lbl, fr)] = res.regions
     default = wire.default_codec()
-    passes = [("socket", default)] + (
-        [("shm", default)] if shm_available() else []) + (
-        [("socket", "json")] if default != "json" else [])
+    passes = [("socket", default, SERVER_REQUESTS)] + (
+        [("shm", default, SERVER_REQUESTS)] if shm_available() else []) + (
+        [("socket", "json", SERVER_REQUESTS_JSON)]
+        if default != "json" else [])
     pool_bytes = _shm_pool_bytes() if shm_available() else 0
     print(f"server: default codec={default} msgpack="
           f"{wire._msgpack is not None} passes={passes} "
           f"shm_pool_bytes={pool_bytes}", flush=True)
     tmp = tempfile.mkdtemp(prefix="tasm")
     try:
-        for transport, codec in passes:
+        for transport, codec, n_req in passes:
             sock = os.path.join(tmp, f"{transport}_{codec}.sock")
             lat, seen, errors = [], [], []
             lock = threading.Lock()
@@ -974,7 +1044,7 @@ def video_server_phase(store, oracle) -> None:
                 try:
                     with RemoteVideoStore(sock, transport=transport,
                                           timeout=600) as cli:
-                        for i in range(SERVER_REQUESTS):
+                        for i in range(n_req):
                             q = SERVER_QUERIES[(k + i) % len(SERVER_QUERIES)]
                             t0 = time.perf_counter()
                             res = cli.scan("v").labels(q[0]) \
@@ -1007,7 +1077,7 @@ def video_server_phase(store, oracle) -> None:
                   f"{transport}: a client hung")
             if errors:
                 raise errors[0]
-            n = SERVER_CLIENTS * SERVER_REQUESTS
+            n = SERVER_CLIENTS * n_req
             check(len(lat) == n, f"{transport}: {len(lat)} of {n} replies")
             check(launches["decode_gop_blocks"] > 0,
                   f"{transport}: served scans never launched the decode "
@@ -1017,7 +1087,7 @@ def video_server_phase(store, oracle) -> None:
                 by[t] = by.get(t, 0) + 1
             p50, p95 = np.percentile(lat, [50, 95])
             print(f"server {transport}: {SERVER_CLIENTS} clients x "
-                  f"{SERVER_REQUESTS} requests, wall_s={wall:.6f} "
+                  f"{n_req} requests, wall_s={wall:.6f} "
                   f"requests_per_s={n / wall:.3f} latency_p50_s={p50:.6f} "
                   f"latency_p95_s={p95:.6f} latency_max_s={max(lat):.6f} "
                   f"reply_bytes={int(sum(b for _, b in seen))} "
@@ -1635,26 +1705,48 @@ def calibration_phase() -> None:
 
 
 # ------------------------------------------------------ attention and serving
-def _qkv(rng, b, h, kv, s, d, dtype):
+def _qkv(rng, b, h, kv, s, d, dtype, dv=None):
+    """q [b, h, s, d], k [b, kv, s, d] and v [b, kv, s, dv or d] from
+    ``rng`` on the card."""
     return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
             .to(DEVICE, dtype)
-            for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))]
+            for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv or d))]
 
 
 def flash_bound_ms(shape, dtype, causal: bool) -> tuple[float, str]:
     """Least time for one attention: q, k, v read and o written once over
-    the HBM rate, against the products these inputs need (QK^T and PV, 2
-    FLOPs per multiply-add, over the live (query, key) pairs) over the
-    card's peak for their type."""
-    b, h, kv, s, d = shape
+    the HBM rate, against the products these inputs need (QK^T over Dqk
+    and PV over Dv, 2 FLOPs per multiply-add, over the live (query, key)
+    pairs) over the card's peak for their type.  ``shape`` is (B, H, KV,
+    S, D) or (B, H, KV, S, Dqk, Dv)."""
+    b, h, kv, s, d = shape[:5]
+    dv = shape[5] if len(shape) > 5 else d
     elt = torch.finfo(dtype).bits // 8
-    n_bytes = b * s * d * (2 * h + 2 * kv) * elt
+    n_bytes = b * s * (h + kv) * (d + dv) * elt
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * d * pairs
+    flops = 2 * b * h * (d + dv) * pairs
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_digests(call) -> dict:
+    """{dtype name: sha256 of the outputs of ``call(q, k, v, causal)``
+    over FLASH_SHAPES (the (D, D) pairs), causal and not, on ``randn``
+    inputs from DIGEST_SEED}: the same bits give the same digests."""
+    rng = np.random.default_rng(DIGEST_SEED)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        digest = hashlib.sha256()
+        for shape in FLASH_SHAPES:
+            q, k, v = _qkv(rng, *shape, dtype)
+            for causal in (True, False):
+                o = call(q, k, v, causal=causal)
+                digest.update(o.contiguous().view(-1).view(torch.uint8)
+                              .cpu().numpy().tobytes())
+        out[str(dtype).split(".")[-1]] = digest.hexdigest()[:32]
+    return out
 
 
 def flash_kernel_phase(seed: int) -> dict:
@@ -1665,9 +1757,10 @@ def flash_kernel_phase(seed: int) -> dict:
     rng = np.random.default_rng(seed + 2)
     worst = 0.0
     timed = {}
-    for shape in FLASH_SHAPES:
+    for shape in FLASH_SHAPES + FLASH_MLA_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = _qkv(rng, *shape, dtype)
+            q, k, v = _qkv(rng, *shape[:5], dtype,
+                           dv=shape[5] if len(shape) > 5 else None)
             for causal in (True, False):
                 got = flash_attention(q, k, v, causal=causal)
                 want = attention_ref(q, k, v, causal=causal)
@@ -1678,7 +1771,8 @@ def flash_kernel_phase(seed: int) -> dict:
                       f"{causal}: max |diff| {err} > {FLASH_TOL[dtype]}")
                 worst = max(worst, err)
             if shape not in (FLASH_MAIN, FLASH_LONG, FLASH_MOE,
-                             FLASH_HYBRID) or dtype != torch.bfloat16:
+                             FLASH_HYBRID, FLASH_MLA) \
+                    or dtype != torch.bfloat16:
                 continue
             k_ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
             r_ms = cuda_ms(lambda: attention_ref(q, k, v), iters=3,
@@ -1694,14 +1788,23 @@ def flash_kernel_phase(seed: int) -> dict:
                   f"{t_bytes[0]:.6f} ms, {t_bytes[1]})", flush=True)
             timed[shape] = dict(ms=k_ms, plain_ms=r_ms, library_ms=l_ms,
                                 bound_ms=b_ms, bound_by=b_by)
+    digests = flash_digests(flash_attention)
+    print(f"flash_attention (D, D) pairs over {len(FLASH_SHAPES)} shapes, "
+          f"causal and not: sha256 {digests}, the kernel before v's width "
+          f"became a parameter {FLASH_OLD_DIGESTS}", flush=True)
+    check(digests == FLASH_OLD_DIGESTS,
+          "flash_attention's (D, D) pairs are not the earlier kernel's bits")
     q, k, v = _qkv(rng, 1, 9, 3, 16, 64, torch.bfloat16)
-    # the JSON line reports zamba2's prefill shape, the latest main path
-    at_main = dict(timed[FLASH_HYBRID], max_abs_err=worst,
-                   host_us=host_us(lambda: flash_attention(q, k, v)),
+    qm, km, vm = _qkv(rng, 1, 16, 16, 16, 192, torch.bfloat16, dv=128)
+    # the JSON line reports the MLA prefill shape, the latest main path
+    at_main = dict(timed[FLASH_MLA], max_abs_err=worst,
+                   host_us=host_us(lambda: flash_attention(qm, km, vm)),
                    smollm_ms=timed[FLASH_MAIN]["ms"],
                    long_ms=timed[FLASH_LONG]["ms"])
     print(f"flash_attention max_abs_err={worst:.3g} wrapper host cost: "
-          f"{at_main['host_us']:.3f} us/call", flush=True)
+          f"{host_us(lambda: flash_attention(q, k, v)):.3f} us/call at "
+          f"(1, 9, 3, 16, 64), {at_main['host_us']:.3f} us/call at (1, 16, "
+          f"16, 16, 192 / 128)", flush=True)
     return at_main
 
 
@@ -2127,6 +2230,7 @@ def serve_phase(seed: int) -> dict:
           flush=True)
     check(err32 <= LOGITS_ATOL[torch.float32] and agree32 >= AGREE_F32,
           f"f32 serving: logits differ by {err32}, agreement {agree32}")
+    _int8_card_vs_cpu("serve (c)", m32, cfg32, prompts[:SSM_F32_B])
     del m32
 
     # (d) the continuous batcher
@@ -2159,6 +2263,98 @@ def serve_phase(seed: int) -> dict:
               f"{'not measured' if busy is None else f'{busy:.4f}'}",
               flush=True)
     return launches
+
+
+def _on_cpu(model, cfg):
+    """A copy of ``model`` on the CPU (the same weights)."""
+    from repro_torch.models import Model
+
+    cpu = Model(cfg, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def _int8_flips(got: dict, want: dict, layer=None) -> tuple:
+    """(codes that differ, codes, largest difference) between two int8
+    caches' code tensors: every layer's, or ``layer`` of the first
+    stack."""
+    n_diff, n_codes, worst = 0, 0, 0
+    for key, stack in want.items():
+        for n, c in stack.items():
+            if c.dtype != torch.int8:
+                continue
+            g = got[key][n]
+            if layer is not None:
+                c, g = c[layer], g[layer]
+            d = (g.int() - c.int()).abs()
+            n_diff += int((d != 0).sum())
+            n_codes += d.numel()
+            worst = max(worst, int(d.max()))
+        if layer is not None:
+            break
+    return n_diff, n_codes, worst
+
+
+def _int8_card_vs_cpu(what: str, model, cfg, prompts) -> None:
+    """The f32 ``model`` on the int8 KV cache (``kv_cache_quant``), on the
+    card and on a CPU copy.  Quantising is discontinuous: a code flips by
+    one where x / scale lies within the devices' f32 error of .5, which
+    moves that cached value by a whole quantum (1/127 of its row's
+    largest), the next layers' inputs by about 1e-3 and so their codes
+    by one far more often (and a token that changes experts, by more).
+    So the write is held where both devices see the same input, the
+    first layer: its codes equal except at most INT8_FLIPS of them, each
+    one apart; the read is held on the same codes: one decode step from
+    the card's cache after a prefill of ``prompts``, and from a CPU copy
+    of it, logits within 1e-3; ``greedy_generate`` for SSM_F32_NEW tokens
+    agrees on at least 0.99; the free-running prefill logits and the
+    codes of the whole cache are printed."""
+    from repro_torch.models import decode_step
+    from repro_torch.serve import greedy_generate, make_prefill_step
+
+    cfg = dataclasses.replace(cfg, kv_cache_quant=True)
+    cpu = _on_cpu(model, cfg)
+    S = prompts.shape[1]
+    max_len = S + SSM_F32_NEW
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        card, caches = make_prefill_step(cfg, max_len, device=DEVICE)(
+            model, {"tokens": prompts.to(DEVICE)})
+        want, cpu_caches = make_prefill_step(cfg, max_len, device="cpu")(
+            cpu, {"tokens": prompts.cpu()})
+        same = {key: {n: c.cpu() for n, c in stack.items()}
+                for key, stack in caches.items()}
+        first, every = _int8_flips(same, cpu_caches, 0), \
+            _int8_flips(same, cpu_caches)
+        tok = torch.argmax(card[:, -1], dim=-1)[:, None]
+        step_card, _ = decode_step(model, cfg, {"tokens": tok}, caches,
+                                   cache_index=S)
+        step_cpu, _ = decode_step(cpu, cfg, {"tokens": tok.cpu()}, same,
+                                  cache_index=S)
+        card_out = greedy_generate(model, cfg, prompts.to(DEVICE),
+                                   max_new=SSM_F32_NEW, device=DEVICE)
+        cpu_out = greedy_generate(cpu, cfg, prompts.cpu(),
+                                  max_new=SSM_F32_NEW, device="cpu")
+    step_err = float((step_card.cpu() - step_cpu).abs().max())
+    free_err = float((card.cpu() - want).abs().max())
+    agree = float((card_out.cpu() == cpu_out).float().mean())
+    codes = {n: str(c.dtype).split(".")[-1]
+             for n, c in next(iter(caches.values())).items()}
+    print(f"{what} f32 on the int8 KV cache {codes}, B={prompts.shape[0]}: "
+          f"first layer's codes card vs CPU differing {first[0]} of "
+          f"{first[1]} (largest difference {first[2]}); one decode step "
+          f"from the same codes: logits max_abs_err={step_err:.6g}; "
+          f"greedy_agreement={agree:.6f} over {SSM_F32_NEW} tokens; "
+          f"free-running: prefill logits max_abs_err={free_err:.6g}, codes "
+          f"of every layer differing {every[0]} of {every[1]} (largest "
+          f"difference {every[2]}) ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(first[2] <= 1 and first[0] <= INT8_FLIPS * first[1],
+          f"{what} first layer's int8 codes card vs CPU: {first[0]} of "
+          f"{first[1]} differ, by up to {first[2]}")
+    check(step_err <= LOGITS_ATOL[torch.float32] and agree >= AGREE_F32,
+          f"{what} int8 cache card vs CPU: a decode step from the same "
+          f"codes differs by {step_err}, greedy agreement {agree}")
 
 
 # ------------------------------------------------------------- MoE serving
@@ -2586,14 +2782,13 @@ def _ssm_f32_card_vs_cpu(arch: str, seed: int, rng) -> None:
     tokens' logits within 1e-3, greedy agreement over SSM_F32_NEW tokens
     at least 0.99; and on the card a prefill of 512 tokens (two chunks of
     256) and one decode step against a prefill of 513 (one chunk)."""
-    from repro_torch.models import Model, decode_step, init_cache
+    from repro_torch.models import decode_step, init_cache
     from repro_torch.serve import greedy_generate, make_prefill_step
 
     cfg = _arch_config(arch, param_dtype="float32", compute_dtype="float32",
                       n_layers=SSM_F32_LAYERS[arch])
     model = _init_on_card(cfg, seed)
-    cpu = Model(cfg, device="meta").to_empty(device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = _on_cpu(model, cfg)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
                                             (SSM_F32_B, SERVE_S + 1)))
     head = prompts[:, :SERVE_S]
@@ -2775,6 +2970,254 @@ def ssm_serve_phase(seed: int) -> int:
     launches = {arch: _ssm_serve_one(arch, seed) for arch in SSM_ARCHS}
     _ssm_launcher()
     return launches[SSM_ARCHS[0]]
+
+
+# ---------------------------------------------------------------- MLA serving
+def _mla_f32_card_vs_cpu(seed: int, rng) -> None:
+    """(c) and the f32 half of (d): f32 at F32_LAYERS layers (the dense
+    layer and 3 MoE layers), full width otherwise, the same weights on
+    the card and on the CPU (B=SSM_F32_B): prefill logits within 1e-3,
+    greedy agreement over SSM_F32_NEW tokens at least 0.99; on each
+    device a prefill of 512 tokens and one absorbed decode step against
+    a prefill of 513 (K and V materialised from the latent); and on the
+    int8 cache, card against CPU.  The absorbed check runs the same
+    weights at a capacity factor of n_routed / top_k, where no expert
+    drops a token: at 1.25 a decode step's 2 tokens get a capacity of 1
+    per expert and a prefill's 1,026 get 121, so the two drop different
+    tokens and differ by more than any attention error (0.69 at a narrow
+    width on the CPU)."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.serve import greedy_generate, make_prefill_step
+
+    cfg = _arch_config(MLA_ARCH, param_dtype="float32",
+                       compute_dtype="float32", n_layers=F32_LAYERS)
+    model = _init_on_card(cfg, seed)
+    cpu = _on_cpu(model, cfg)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SSM_F32_B, SERVE_S + 1)))
+    head = prompts[:, :SERVE_S]
+    max_len = SERVE_S + SSM_F32_NEW
+    t0 = time.perf_counter()
+    absorbed = {}
+    with torch.no_grad():
+        reset_counts()
+        card, _ = make_prefill_step(cfg, max_len, device=DEVICE)(
+            model, {"tokens": head.to(DEVICE)})
+        torch.cuda.synchronize()
+        launches = read_counts()["flash_attention"]
+        want, _ = make_prefill_step(cfg, max_len, device="cpu")(
+            cpu, {"tokens": head})
+        card_out = greedy_generate(model, cfg, head.to(DEVICE),
+                                   max_new=SSM_F32_NEW, device=DEVICE)
+        cpu_out = greedy_generate(cpu, cfg, head, max_new=SSM_F32_NEW,
+                                  device="cpu")
+        moe = cfg.moe
+        ncfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            moe, capacity_factor=moe.n_routed / moe.top_k))
+        for dev, m in ((DEVICE, model), ("cpu", cpu)):
+            p = prompts.to(dev)
+            caches = init_cache(ncfg, SSM_F32_B, SERVE_S + 8, device=dev)
+            decode_step(m, ncfg, {"tokens": p[:, :SERVE_S]}, caches,
+                        cache_index=0)
+            stepped, _ = decode_step(m, ncfg, {"tokens": p[:, SERVE_S:]},
+                                     caches, cache_index=SERVE_S)
+            whole, _ = decode_step(m, ncfg, {"tokens": p},
+                                   init_cache(ncfg, SSM_F32_B, SERVE_S + 8,
+                                              device=dev), cache_index=0)
+            absorbed[str(dev)] = float((stepped - whole).abs().max())
+    err = float((card.cpu() - want).abs().max())
+    agree = float((card_out.cpu() == cpu_out).float().mean())
+    print(f"mla serve (c) f32, {cfg.n_layers} layers, B={SSM_F32_B}: card "
+          f"vs CPU prefill logits max_abs_err={err:.6g}, greedy_agreement="
+          f"{agree:.6f} over {SSM_F32_NEW} tokens, prefill launches="
+          f"{launches}; at capacity factor {ncfg.moe.capacity_factor:.4f}"
+          f" (no drops) prefill({SERVE_S}) + one absorbed decode step vs "
+          f"prefill({SERVE_S + 1}) logits max_abs_err: card "
+          f"{absorbed[str(DEVICE)]:.6g}, CPU {absorbed['cpu']:.6g} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(launches == cfg.n_layers,
+          f"f32 mla prefill launched flash_attention {launches} times")
+    check(err <= LOGITS_ATOL[torch.float32] and agree >= AGREE_F32,
+          f"f32 mla card vs CPU: logits differ by {err}, agreement {agree}")
+    check(max(absorbed.values()) <= LOGITS_ATOL[torch.float32],
+          f"f32 mla: prefill + absorbed decode vs the longer prefill differ "
+          f"by {absorbed}")
+    del cpu
+    _int8_card_vs_cpu("mla serve (d)", model, cfg, head)
+
+
+def _mla_launcher() -> None:
+    """(g): ``python -m repro_torch.launch.serve --arch
+    deepseek-v2-lite-16b --device cuda`` exits 0, with and without
+    ``--kv-quant``."""
+    for quant in ((), ("--kv-quant",)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             MLA_ARCH, "--device", DEVICE, *quant], env=_port_env(),
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"launch.serve {quant} exited {proc.returncode}: "
+              f"{proc.stderr}")
+        print(f"mla serve (g) launch.serve --arch {MLA_ARCH} "
+              f"{' '.join(quant)}: exit 0 in {time.perf_counter() - t0:.3f} "
+              f"s: " + " | ".join(proc.stdout.strip().splitlines()),
+              flush=True)
+
+
+def mla_serve_phase(seed: int) -> int:
+    """The MLA family served at full width and depth, after the SSM
+    weights are freed; returns the launches of the main path's
+    ``greedy_generate``."""
+    import gc
+
+    from repro_torch.models import zoo
+    from repro_torch.serve import (greedy_generate, make_decode_step,
+                                   make_prefill_step)
+
+    label = "mla serve"
+    _free_card(label)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 3)
+    cfg = _arch_config(MLA_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _init_on_card(cfg, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    want_params, depth = MLA_PUBLISHED
+    m = cfg.mla
+    attn = model.layers[0].attn
+    check(cfg.n_layers == depth and len(model.layers) + len(
+        model.dense_layers) == depth and cfg.d_model == 2048
+          and (m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim,
+               m.v_head_dim, m.q_lora_rank) == (512, 128, 64, 128, 0)
+          and n_params == zoo.analytic_param_count(cfg) == want_params
+          and attn.wkv_b.w.dtype == torch.bfloat16
+          and attn.wkv_b.w.device.type == torch.device(DEVICE).type,
+          f"serving {cfg.name}: {len(model.layers)} layers, {n_params} "
+          f"parameters")
+    print(f"{label} {cfg.name}: {n_params} parameters (analytic_param_count"
+          f" {want_params}, active {zoo.analytic_param_count(cfg, True)}), "
+          f"{cfg.n_layers} layers ({len(model.dense_layers)} dense), MLA "
+          f"rank {m.kv_lora_rank} q.k {m.qk_nope_head_dim}+"
+          f"{m.qk_rope_head_dim} v {m.v_head_dim}, {cfg.moe.n_routed} "
+          f"experts top {cfg.moe.top_k} + {cfg.moe.n_shared} shared, "
+          f"{cfg.param_dtype} weights drawn on the card in init_s="
+          f"{init_s:.3f}; allocated_bytes={torch.cuda.memory_allocated()}",
+          flush=True)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SERVE_B, SERVE_S))).to(DEVICE)
+    greedy_generate(model, cfg, prompts[:, :64], max_new=2, device=DEVICE)
+
+    # (a) the main path through the kernel
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"mla greedy_generate launched flash_attention "
+          f"{launches['flash_attention']} times, want {cfg.n_layers} (one "
+          f"prefill)")
+    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+          and bool(torch.isfinite(logits).all()),
+          f"mla greedy_generate gave {tuple(out.shape)}")
+    print(f"{label} (a) B={SERVE_B} S={SERVE_S} new={SERVE_NEW}: "
+          f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
+          f"greedy_generate_wall_s={wall:.6f} launches={launches}",
+          flush=True)
+
+    # (b) the same weights with the plain prefill attention, SDPA's as a
+    # control, each site's attention against the plain version on the
+    # same q, k, v, and the routing of each layer from the same input
+    with _plain_prefill_attention():
+        p_logits, p_out, p_ttft, _, _, p_launches = _generate(model, cfg,
+                                                              prompts)
+    check(p_launches["flash_attention"] == 0,
+          "the plain prefill launched the kernel")
+    prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
+    with torch.no_grad():
+        with _sdpa_prefill_attention():
+            s_logits, _ = prefill(model, {"tokens": prompts})
+        with _AttentionBesidePlain() as sites:
+            prefill(model, {"tokens": prompts})
+        with _TeacherForced() as forced:
+            prefill(model, {"tokens": prompts})
+    shares = _routing_agreement(forced.kernel, forced.plain)
+    err = float((logits - p_logits).abs().max())
+    s_err = float((s_logits - p_logits).abs().max())
+    agree = float((out == p_out).float().mean())
+    print(f"{label} (b) bf16 kernel vs plain prefill attention, same "
+          f"weights: last-position logits max_abs_err={err:.6g} "
+          f"greedy_agreement={agree:.6f} plain ttft_s={p_ttft:.6f}; SDPA vs "
+          f"plain (control): max_abs_err={s_err:.6g}; each site's "
+          f"attention output vs plain on the same q, k, v: max="
+          f"{max(sites.errs):.6g} {[round(e, 6) for e in sites.errs]}; "
+          f"routing agreement per MoE layer (teacher-forced): min="
+          f"{min(shares):.6f} mean={float(np.mean(shares)):.6f} "
+          f"{[round(v, 6) for v in shares]}", flush=True)
+    check(len(sites.errs) == cfg.n_layers
+          and max(sites.errs) <= FLASH_TOL[torch.bfloat16],
+          f"mla prefill attention vs plain at the sites: {sites.errs}")
+    check(len(shares) == len(model.layers)
+          and min(shares) >= AGREE_ROUTING,
+          f"mla prefill routing agreement {shares}")
+    check(bool(torch.isfinite(p_logits).all())
+          and bool(torch.isfinite(s_logits).all()),
+          "plain or SDPA logits not finite")
+
+    # (d) the int8 latent cache on the same weights
+    qcfg = dataclasses.replace(cfg, kv_cache_quant=True)
+    q_logits, q_out, q_ttft, q_tok_s, _, q_launches = _generate(
+        model, qcfg, prompts)
+    check(q_launches["flash_attention"] == cfg.n_layers
+          and bool(torch.isfinite(q_logits).all()),
+          f"int8 mla greedy_generate: launches {q_launches}, finite "
+          f"{bool(torch.isfinite(q_logits).all())}")
+    print(f"{label} (d) bf16 on the int8 latent cache: ttft_s={q_ttft:.6f} "
+          f"decode_tok_per_s={q_tok_s:.3f}; vs the float cache: "
+          f"last-position logits max_abs_err="
+          f"{float((q_logits - logits).abs().max()):.6g} greedy_agreement="
+          f"{float((q_out == out).float().mean()):.6f}", flush=True)
+
+    # (e) the continuous batcher
+    _batcher_run(f"{label} (e)", cfg, model, rng)
+
+    # (f) where a prefill's and a decode step's device time goes
+    decode = make_decode_step(cfg, device=DEVICE)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(model,
+                                                   {"tokens": prompts})
+
+    def run_decode():
+        tok = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        decode(model, state["caches"], {"tokens": tok}, SERVE_S)
+
+    with torch.no_grad():
+        for what, fn, wall_s in (("prefill", run_prefill, ttft),
+                                 ("decode step", run_decode,
+                                  SERVE_B / tok_s)):
+            split = _moe_device_split(f"{label} (f) {what}", fn)
+            measured = split["rest_ms"] is not None
+            busy = sum(split.values()) / 1e3 / wall_s if measured else None
+            print(f"{label} (f) one B={SERVE_B} S={SERVE_S} {what}, device "
+                  f"time (torch.profiler): " +
+                  " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
+                           for k, v in split.items()) +
+                  f"; device busy share of its wall time ({wall_s:.6f} s, "
+                  f"unprofiled): "
+                  f"{'not measured' if busy is None else f'{busy:.4f}'}",
+                  flush=True)
+    print(f"{label}: peak_memory_bytes (max_memory_allocated, bf16 model "
+          f"through (f))={torch.cuda.max_memory_allocated()}", flush=True)
+    del model, state, prefill, decode, attn
+    gc.collect()
+    _free_card(f"{label} (c)")
+    _mla_f32_card_vs_cpu(seed, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mla_launcher()
+    return launches["flash_attention"]
 
 
 # ---------------------------------------------------------------- training
@@ -3111,6 +3554,14 @@ def train_phase(seed: int) -> int:
     return launches["flash_attention_bwd"]
 
 
+def _phase(name: str, fn, *args):
+    """``fn(*args)``, with its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3142,20 +3593,21 @@ def main() -> int:
     motion = motion_path_phase(args.seed, frames)
     store, ingest = ingest_phase(frames, dets)
     scan, oracle = scan_phase(store)
-    video_server_phase(store, oracle)
+    _phase("video server", video_server_phase, store, oracle)
     store.close()
     del store, oracle
     cli_server_phase(args.seed)
-    cluster_phase(args.seed)
+    _phase("cluster", cluster_phase, args.seed)
     for mode in ("inline", "background"):
         retile_phase(frames, dets, mode)
     del frames
     calibration_phase()
-    serve_phase(args.seed)
-    moe = moe_serve_phase(args.seed)
-    hybrid = ssm_serve_phase(args.seed)
+    _phase("serve", serve_phase, args.seed)
+    moe = _phase("moe serve", moe_serve_phase, args.seed)
+    hybrid = _phase("ssm serve", ssm_serve_phase, args.seed)
+    mla = _phase("mla serve", mla_serve_phase, args.seed)
     numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
-    train = train_phase(args.seed)
+    train = _phase("train", train_phase, args.seed)
 
     now = {"decode_gop_blocks F=16 M=32768":
            numbers["decode_gop_blocks"]["ms"],
@@ -3178,9 +3630,10 @@ def main() -> int:
     launches = {"decode_gop_blocks": scan["decode_gop_blocks"],
                 "dct_quant": ingest["dct_quant"],
                 "idct_dequant": ingest["idct_dequant"],
-                "flash_attention": hybrid,
+                "flash_attention": mla,
                 "sad_search": motion, "flash_attention_bwd": train}
-    by_path = {"flash_attention": {"zamba2_prefill": hybrid,
+    by_path = {"flash_attention": {"mla_prefill": mla,
+                                   "zamba2_prefill": hybrid,
                                    "moe_prefill": moe}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", **KERNELS[name],

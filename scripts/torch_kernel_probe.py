@@ -6,7 +6,7 @@ strip of candidates per thread).
 
     python3 scripts/torch_kernel_probe.py [--baseline DIR] [--seeds 0 1 2 3]
                                           [--ptxas-only | --sad-only |
-                                           --bwd-only]
+                                           --bwd-only | --flash-only]
 
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
@@ -35,7 +35,9 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    ``dct_quant``, ``idct_dequant``, ``sad_search`` and ``flash_attention``
    (over the smoke's shapes, bf16 and f32, causal and not, and with the
    current kernel also writing its row logsumexp; the baseline's entry
-   must take the ``lse`` pointer too) give bit-identical
+   must take the ``lse`` pointer too; one whose entry takes a single head
+   width, from before v's width was a parameter, is called through the
+   current one) give bit-identical
    output at ragged and full shapes (the encode kernels for intra and
    inter at qp 4, 8 and 16; the search at both motion shapes, N in {1, 7,
    33, 500, 32400}, on float and integer pixels; ``flash_attention_bwd``'s
@@ -63,7 +65,13 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 ``--ptxas-only`` stops after the ptxas reports (about 40 s);
 ``--sad-only`` stops after the ptxas reports and ``sad_search``;
 ``--bwd-only`` prints the two attention sources' ptxas reports and runs
-5 and the backward's part of 3 alone (about a minute).
+5 and the backward's part of 3 alone (about a minute).  ``--flash-only``
+prints the forward's ptxas report (and the baseline's), runs the
+forward's part of 3, prints the sha256 digests of the (D, D) pairs'
+outputs that ``chip_smoke.py`` holds the kernel to
+(``chip_smoke.flash_digests``), from the current kernel and from the
+baseline's, and times the kernel at MLA's prefill shape (8, 16, 16, 512,
+192 / 128) beside the plain version and SDPA.
 
 Imports neither JAX nor the reference package.  Exits non-zero without a
 CUDA device.
@@ -112,13 +120,13 @@ BWD_F32_SHAPES = [cs.BWD_F32, (1, 4, 2, 257, 32), (1, 6, 2, 100, 128),
                   (2, 3, 3, 1, 64), (1, 3, 1, 1500, 64)]
 
 
-def ptxas_report(source: pathlib.Path) -> None:
-    out = ROOT / "build" / "probe" / f"{source.stem}_ptxas.so"
+def ptxas_report(source: pathlib.Path, tag: str = "") -> None:
+    out = ROOT / "build" / "probe" / f"{source.stem}{tag}_ptxas.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-Xptxas",
                            "-v", "-o", str(out), str(source)],
                           capture_output=True, text=True, check=True)
-    print(f"ptxas {source.name}:")
+    print(f"ptxas {source.name}{f' ({tag})' if tag else ''}:")
     filt = pathlib.Path(kbuild.nvcc()).with_name("cu++filt")
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry function" in line:
@@ -133,15 +141,51 @@ def ptxas_report(source: pathlib.Path) -> None:
             print("    " + line.split("ptxas info", 1)[-1].strip(" :"))
 
 
+def _bind_one_width(lib: ctypes.CDLL) -> None:
+    """The forward's entry before v's width was a parameter: one head
+    width ``d`` where the current entry takes ``dqk, dv``."""
+    fn = lib.flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 +
+                   [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+class OneWidthFlash:
+    """A baseline forward library with the one-width entry, called
+    through the current signature (``dqk != dv`` is refused, as the
+    kernel would refuse an unknown width), so it can stand in for
+    ``flash.LIBRARY``."""
+
+    def __init__(self, source: pathlib.Path):
+        self.lib = kbuild.CudaLibrary(source, _bind_one_width)
+
+    def build(self):
+        return self.lib.build()
+
+    def load(self):
+        raw = self.lib.load()
+
+        class Entry:
+            @staticmethod
+            def flash_attention(q, k, v, o, lse, b, h, kvh, s, dqk, dv, dtype,
+                                causal, scale, stream):
+                if dqk != dv:
+                    return 1  # cudaErrorInvalidValue
+                return raw.flash_attention(q, k, v, o, lse, b, h, kvh, s,
+                                           dqk, dtype, causal, scale, stream)
+        return Entry
+
+
 def baseline_libraries(tree: pathlib.Path, only=None) -> dict:
     """The baseline's libraries (those named in ``only``, or all), built."""
     kernels = tree / "src" / "repro_torch" / "kernels"
+    flash_src = kernels / "flash_attention" / "csrc" / fmod.SOURCE.name
     libs = {
         "decode": kbuild.CudaLibrary(
             kernels / "decode" / "csrc" / dbuild.SOURCE.name, dbuild._bind),
-        "flash": kbuild.CudaLibrary(
-            kernels / "flash_attention" / "csrc" / fmod.SOURCE.name,
-            fmod._bind),
+        "flash": (kbuild.CudaLibrary(flash_src, fmod._bind)
+                  if "int dqk, int dv" in flash_src.read_text()
+                  else OneWidthFlash(flash_src)),
         "dct": kbuild.CudaLibrary(
             kernels / "dct" / "csrc" / dct_mod.SOURCE.name, dct_mod._bind),
         "idct": kbuild.CudaLibrary(
@@ -507,7 +551,15 @@ def flash_versions(base) -> None:
                 n += 1
     print(f"flash_attention: {n} cases bit-identical to the baseline, with "
           f"and without lse", flush=True)
-    for shape in (cs.FLASH_MAIN, cs.FLASH_LONG, cs.FLASH_MOE):
+    with patched(base):
+        old = cs.flash_digests(fmod.flash_attention)
+    cur = cs.flash_digests(fmod.flash_attention)
+    print(f"flash_attention (D, D) digests (chip_smoke.flash_digests): "
+          f"baseline {old}; current {cur}; recorded in chip_smoke "
+          f"{cs.FLASH_OLD_DIGESTS}", flush=True)
+    cs.check(old == cur, "the digests differ from the baseline's")
+    for shape in (cs.FLASH_MAIN, cs.FLASH_LONG, cs.FLASH_MOE,
+                  cs.FLASH_HYBRID):
         q, k, v = cs._qkv(rng, *shape, torch.bfloat16)
         b_ms, b_by = cs.flash_bound_ms(shape, torch.bfloat16, True)
         in_turns(f"flash_attention {shape} bf16 causal (bound {b_ms:.6f} ms, "
@@ -517,6 +569,26 @@ def flash_versions(base) -> None:
         l_ms = cs.cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
                                        enable_gqa=True), iters=20)
         print(f"  sdpa: {l_ms:.6f} ms", flush=True)
+
+
+def flash_mla() -> None:
+    """The kernel at MLA's prefill shape, bf16 causal: against the plain
+    version and SDPA (v narrower than q and k), and its error."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(5)
+    shape = cs.FLASH_MLA
+    q, k, v = cs._qkv(rng, *shape[:5], torch.bfloat16, dv=shape[5])
+    got = fmod.flash_attention(q, k, v)
+    err = float((got.float() - attention_ref(q, k, v).float()).abs().max())
+    b_ms, b_by = cs.flash_bound_ms(shape, torch.bfloat16, True)
+    times = [cs.cuda_ms(lambda: fmod.flash_attention(q, k, v), iters=20)
+             for _ in range(3)]
+    r_ms = cs.cuda_ms(lambda: attention_ref(q, k, v), iters=3, warmup=1)
+    l_ms = cs.cuda_ms(lambda: sdpa(q, k, v, is_causal=True), iters=20)
+    print(f"flash_attention {shape} bf16 causal: kernel "
+          f"{' / '.join(f'{t:.6f}' for t in times)} ms, plain {r_ms:.6f} "
+          f"ms, sdpa {l_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), max |diff| "
+          f"from plain {err:.3g}", flush=True)
 
 
 def bwd_versions(base) -> None:
@@ -666,6 +738,9 @@ def main() -> int:
     only.add_argument("--bwd-only", action="store_true",
                       help="the attention sources' ptxas reports and the "
                            "backward's versions alone")
+    only.add_argument("--flash-only", action="store_true",
+                      help="the forward's ptxas reports, versions, digests "
+                           "and MLA shape alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device available",
@@ -683,6 +758,19 @@ def main() -> int:
         bwd_rounding()
         if args.baseline:
             bwd_versions(baseline_libraries(args.baseline, ("bwd",))["bwd"])
+        return 0
+    if args.flash_only:
+        ptxas_report(fmod.SOURCE)
+        base = None
+        if args.baseline:
+            src = (args.baseline / "src" / "repro_torch" / "kernels" /
+                   "flash_attention" / "csrc" / fmod.SOURCE.name)
+            ptxas_report(src, tag="baseline")
+            base = baseline_libraries(args.baseline, ("flash",))["flash"]
+        fmod.LIBRARY.build()
+        if base is not None:
+            flash_versions(base)
+        flash_mla()
         return 0
     for source in (fmod.SOURCE, bwd_mod.SOURCE, dbuild.SOURCE,
                    dct_mod.SOURCE, idct_mod.SOURCE, sad_mod.SOURCE):

@@ -2,32 +2,42 @@
 // prefill attention of every layer of the LM serving path.
 //
 // Replaces the Pallas TPU kernel `flash_attention`
-// (src/repro/kernels/flash_attention/flash.py).  Same contract:
-//   q [B, H, S, D], k and v [B, KV, S, D], H % KV == 0, f32 or bf16
-//   o [B, H, S, D] in q's type, o = softmax(q k^T / sqrt(D)) v per head,
+// (src/repro/kernels/flash_attention/flash.py).  Same contract, with v's
+// width apart from q's and k's as the reference's chunked attention
+// allows it (MLA: q.k over 192 dims, v over 128):
+//   q [B, H, S, DQK], k [B, KV, S, DQK], v [B, KV, S, DV], H % KV == 0,
+//   f32 or bf16; o [B, H, S, DV] in q's type,
+//   o = softmax(q k^T / sqrt(DQK)) v per head,
 // query head bh reading KV head bh / (H / KV) (K and V are never
 // replicated), keys after the query masked with -1e30 when causal, the
-// softmax sum clamped to 1e-30 before the divide.
+// softmax sum clamped to 1e-30 before the divide.  (DQK, DV) is one of
+// (32, 32), (64, 64), (128, 128) and (192, 128); every (D, D) pair is the
+// same code, and so the same bits, as before DV was a parameter.
 //
 // Bound: at the serving shapes it is bytes (q, k, v read once and o written
-// once: 12.6 MB at B=8, S=512 and smollm's 9/3 heads, 3.8 us at 3.35 TB/s)
-// or, for long prompts, the causal S^2 D products (19 GFLOP at S=4096,
-// 20 us at the bf16 tensor-core rate).
+// once: 12.6 MB at B=8, S=512 and smollm's 9/3 heads, 3.8 us at 3.35 TB/s;
+// 83.9 MB at deepseek-v2-lite's 16/16 heads at 192/128, 25 us) or, for long
+// prompts, the causal S^2 D products (19 GFLOP at S=4096, 20 us at the
+// bf16 tensor-core rate).
 //
 // The TPU kernel walks the KV blocks as the sequential innermost grid axis
 // and keeps (m, l, acc) in VMEM scratch across grid steps.  Here one thread
-// block owns one (batch * head, 64-row query tile) and walks the 64-key KV
-// tiles in a loop with every running statistic in registers.  Under
-// `causal`, tiles wholly after the tile's last query row are never loaded
-// (the loop ends at the diagonal tile, whose later keys are masked by
-// index), and the heaviest query tiles are scheduled first.  Any S: rows of
-// a ragged last tile are zero-filled and masked as keys, and not written as
-// queries.  The two dtypes take two kernels.
+// block owns one (batch * head, query tile) and walks the 64-key KV tiles
+// in a loop with every running statistic in registers.  Under `causal`,
+// tiles wholly after the tile's last query row are never loaded (the loop
+// ends at the diagonal tile, whose later keys are masked by index), and the
+// heaviest query tiles are scheduled first.  Any S: rows of a ragged last
+// tile are zero-filled and masked as keys, and not written as queries.  The
+// two dtypes take two kernels.
 //
 // bf16 (the serving path): tensor cores.  A block is 4 warps; each warp
 // owns 16 query rows and issues mma.sync.m16n8k16 on bf16 with f32
 // accumulators, for S = Q K^T and for O += P V:
-//   - Q's A fragments are loaded once with ldmatrix; K's B fragments with
+//   - Q's A fragments are loaded with ldmatrix, once per block at
+//     DQK <= 128; at DQK = 192 they would take 48 registers on top of the
+//     D=128 kernel's 228 under the 255 cap, so each KV tile re-reads them
+//     from the Q tile in shared memory, one k-step at a time (12 more
+//     ldmatrix.x4 a tile beside K's 48 and V's 32); K's B fragments with
 //     ldmatrix, V's with ldmatrix.trans, from bf16 tiles in shared memory;
 //   - K and V tiles stay bf16 and go through a 2-stage ring filled by
 //     16-byte cp.async (src-size 0 zero-fills rows >= S), so tile j+1 loads
@@ -35,7 +45,7 @@
 //     which puts the 8 rows of every ldmatrix in 8 distinct bank groups;
 //   - the online softmax runs on the accumulator fragments: a thread holds
 //     two rows' scores, the row max and the row sum take two xor shuffles
-//     across the quad; exp2f with log2(e)/sqrt(D) folded into the scale;
+//     across the quad; exp2f with log2(e)/sqrt(DQK) folded into the scale;
 //   - P goes from the S accumulators straight into the A fragments of the
 //     PV product, in registers, split into two bf16 parts P_hi + P_lo that
 //     take one product each (50 % more tensor-core work than P_hi alone,
@@ -44,22 +54,30 @@
 //     their 5e-2 gate against the plain attention
 //     (scripts/torch_kernel_probe.py measures both roundings); the row sum
 //     l adds the f32 P;
-//   - the output tile is staged in the warp's own rows of the Q tile and
-//     written as 16-byte chunks of rows < S.
-// Registers stay under the 255 of __launch_bounds__(128); at D=64 a block
-// takes 45 KB of shared memory, so several blocks share an SM.
+//   - the output tile is staged in the warp's own rows of the Q tile (row
+//     stride DQK + 8) and written as 16-byte chunks of rows < S at stride
+//     DV.
+// Registers stay under the 255 of __launch_bounds__(128).  Shared memory
+// is the Q tile and two stages of K (64 x (DQK + 8) bf16 each) and two of
+// V (64 x (DV + 8)): 45 KB at D=64, so several blocks share an SM; 85 KB
+// at D=128 and 109 KB at 192/128, which opt in past the 48 KB default and
+// fit two blocks an SM.
 //
 // f32 (the 2e-5 check; TF32 would break it): the CUDA-core design of the
-// first version.  D / 16 threads share a query row, each owning 16 of its
-// dims as four float4 chunks interleaved across the row's threads; a 64-key
-// K and V tile is staged in shared memory as f32; per key each thread forms
-// its partial dot product and the row's threads sum it with xor shuffles;
-// then one max, one rescale of (l, acc) and the probabilities times V.
-// Arithmetic is f32 throughout, with expf (not __expf) and an IEEE divide.
-// A block owns 64 query rows, or 32 at D=128: 64 rows of 8 threads would
-// be 512 threads, whose 128-register cap spilled the 64 scores a thread
-// holds; a row's arithmetic does not depend on how many rows share its
-// block (a wholly masked key tile leaves (m, l, acc) exactly as they are).
+// first version.  kTPR threads share a query row; each owns DQK / kTPR of
+// its q.k dims and DV / kTPR of its output dims as float4 chunks
+// interleaved across the row's threads; a 64-key K and V tile is staged in
+// shared memory as f32; per key each thread forms its partial dot product
+// and the row's threads sum it with xor shuffles; then one max, one
+// rescale of (l, acc) and the probabilities times V.  Arithmetic is f32
+// throughout, with expf (not __expf) and an IEEE divide.  At DQK = DV = D,
+// kTPR = D / 16 (16 dims each); at 192/128 D / 16 would be 12 threads, not
+// a power of two for the shuffles, so kTPR = 16: 12 q.k dims and 8 output
+// dims a thread.  A block owns 64 query rows, 32 at D=128 and 16 at
+// 192/128: 64 rows of 8 threads would be 512 threads, whose 128-register
+// cap spilled the 64 scores a thread holds; a row's arithmetic does not
+// depend on how many rows share its block (a wholly masked key tile leaves
+// (m, l, acc) exactly as they are).
 //
 // The build uses no --use_fast_math.
 #include <cuda_bf16.h>
@@ -70,15 +88,21 @@ namespace {
 constexpr int kBQ = 64;          // query rows per thread block
 constexpr int kBKV = 64;         // keys per staged K/V tile
 constexpr int kDimsPerThread = 16;
-constexpr int kChunks = kDimsPerThread / 4;  // float4 chunks per thread
 constexpr float kNegInf = -1e30f;
 
-template <int D>
+template <int DQK, int DV>
 struct Shape {
-  static constexpr int kTPR = D / kDimsPerThread;  // threads per query row
-  static constexpr int kRows = D == 128 ? kBQ / 2 : kBQ;  // rows per block
+  static_assert(DQK >= DV, "the pairs have DQK >= DV");
+  // threads per query row: D / 16 at DQK = DV = D, else 16
+  static constexpr int kTPR = DQK == DV ? DQK / kDimsPerThread : 16;
+  static constexpr int kQkChunks = DQK / (4 * kTPR);  // float4s of q.k
+  static constexpr int kVChunks = DV / (4 * kTPR);    // float4s of o
+  static constexpr int kRows =  // query rows per block
+      DQK != DV ? kBQ / 4 : (DQK == 128 ? kBQ / 2 : kBQ);
   static constexpr int kThreads = kRows * kTPR;
-  static constexpr size_t kSmem = 2 * kBKV * D * sizeof(float);
+  static constexpr size_t kSmem = kBKV * (DQK + DV) * sizeof(float);
+  static_assert(kQkChunks * 4 * kTPR == DQK && kVChunks * 4 * kTPR == DV,
+                "whole float4 chunks per thread");
 };
 
 // ------------------------------------------------ f32: CUDA-core path
@@ -101,26 +125,48 @@ struct Elem<float> {
   }
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Shape<D>::kThreads)
+// rows [j0, j0 + 64) of a [s, D] matrix into a shared f32 tile of 64 x D,
+// zero past row s
+template <typename T, int D, int kThreads>
+__device__ __forceinline__ void stage_f32(float* dst, const T* src, int j0,
+                                          int s) {
+  constexpr int kPer16 = Elem<T>::kPer16;
+  constexpr int kVecs = kBKV * D / kPer16;  // 16-byte loads per full tile
+  const int valid = min(kBKV, s - j0) * D / kPer16;
+  const T* g = src + (long long)j0 * D;
+  for (int i = threadIdx.x; i < kVecs; i += kThreads) {
+    float* d = dst + i * kPer16;
+    if (i < valid) {
+      Elem<T>::load16(g + (long long)i * kPer16, d);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPer16; e += 4)
+        *reinterpret_cast<float4*>(d + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(Shape<DQK, DV>::kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int h, int kvh, int s,
                        float scale, int causal) {
-  constexpr int kTPR = Shape<D>::kTPR;
-  constexpr int kRows = Shape<D>::kRows;
-  constexpr int kThreads = Shape<D>::kThreads;
-  constexpr int kPer16 = Elem<T>::kPer16;
+  using Sh = Shape<DQK, DV>;
+  constexpr int kTPR = Sh::kTPR;
+  constexpr int kRows = Sh::kRows;
+  constexpr int kThreads = Sh::kThreads;
+  constexpr int kQk = Sh::kQkChunks;
+  constexpr int kV = Sh::kVChunks;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
-  float* vs = smem + kBKV * D;
+  float* vs = smem + kBKV * DQK;
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int b = bh / h;
   const int kv_head = (bh % h) / (h / kvh);
-  const long long q_base = (long long)bh * s * D;
-  const long long kv_base = ((long long)b * kvh + kv_head) * s * D;
+  const long long kv_row0 = ((long long)b * kvh + kv_head) * s;
 
   const int tid = threadIdx.x;
   const int r = tid / kTPR;  // query row within the tile
@@ -128,46 +174,31 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos = qt * kRows + r;
   const bool row_ok = qpos < s;
 
-  float qr[kDimsPerThread];
-  float acc[kDimsPerThread];
+  float qr[4 * kQk];
+  float acc[4 * kV];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < kQk; ++c) {
     const int d0 = (c * kTPR + t) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row_ok) x = Elem<T>::load4(q + q_base + (long long)qpos * D + d0);
+    if (row_ok)
+      x = Elem<T>::load4(q + ((long long)bh * s + qpos) * DQK + d0);
     qr[4 * c] = x.x;
     qr[4 * c + 1] = x.y;
     qr[4 * c + 2] = x.z;
     qr[4 * c + 3] = x.w;
   }
 #pragma unroll
-  for (int i = 0; i < kDimsPerThread; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 4 * kV; ++i) acc[i] = 0.f;
   float m = kNegInf;
   float l = 0.f;
 
   const int q_last = min(qt * kRows + kRows, s) - 1;
   const int n_kt = causal ? q_last / kBKV + 1 : (s + kBKV - 1) / kBKV;
-  constexpr int kVecs = kBKV * D / kPer16;  // 16-byte loads per full tile
   for (int kt = 0; kt < n_kt; ++kt) {
     const int j0 = kt * kBKV;
-    const int valid = min(kBKV, s - j0) * D / kPer16;
-    const T* kg = k + kv_base + (long long)j0 * D;
-    const T* vg = v + kv_base + (long long)j0 * D;
     __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < kVecs; i += kThreads) {
-      float* kd = ks + i * kPer16;
-      float* vd = vs + i * kPer16;
-      if (i < valid) {
-        Elem<T>::load16(kg + (long long)i * kPer16, kd);
-        Elem<T>::load16(vg + (long long)i * kPer16, vd);
-      } else {
-#pragma unroll
-        for (int e = 0; e < kPer16; e += 4) {
-          *reinterpret_cast<float4*>(kd + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-          *reinterpret_cast<float4*>(vd + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      }
-    }
+    stage_f32<T, DQK, kThreads>(ks, k + kv_row0 * DQK, j0, s);
+    stage_f32<T, DV, kThreads>(vs, v + kv_row0 * DV, j0, s);
     __syncthreads();
 
     // scores of this tile: sc[j] = q . k_j * scale, masked to -1e30
@@ -175,10 +206,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float mx = kNegInf;
 #pragma unroll
     for (int j = 0; j < kBKV; ++j) {
-      const float* kr = ks + j * D;
+      const float* kr = ks + j * DQK;
       float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
+      for (int c = 0; c < kQk; ++c) {
         const float4 kk =
             *reinterpret_cast<const float4*>(kr + (c * kTPR + t) * 4);
         dot = fmaf(qr[4 * c], kk.x, dot);
@@ -205,13 +236,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     l = l * alpha + psum;
 #pragma unroll
-    for (int i = 0; i < kDimsPerThread; ++i) acc[i] *= alpha;
+    for (int i = 0; i < 4 * kV; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < kBKV; ++j) {
-      const float* vr = vs + j * D;
+      const float* vr = vs + j * DV;
       const float p = sc[j];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
+      for (int c = 0; c < kV; ++c) {
         const float4 vv =
             *reinterpret_cast<const float4*>(vr + (c * kTPR + t) * 4);
         acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
@@ -227,9 +258,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float denom = fmaxf(l, 1e-30f);
   if (lse != nullptr && t == 0)  // natural log of the scaled scores
     lse[(long long)bh * s + qpos] = m + logf(denom);
-  T* orow = o + q_base + (long long)qpos * D;
+  T* orow = o + ((long long)bh * s + qpos) * DV;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < kV; ++c) {
     const float4 y = make_float4(acc[4 * c] / denom, acc[4 * c + 1] / denom,
                                  acc[4 * c + 2] / denom,
                                  acc[4 * c + 3] / denom);
@@ -237,20 +268,22 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int b, int h, int kvh, int s, float scale, int causal,
            cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D>;
-  constexpr size_t smem = Shape<D>::kSmem;
+  auto kernel = flash_attention_kernel<T, DQK, DV>;
+  using Sh = Shape<DQK, DV>;
+  constexpr size_t smem = Sh::kSmem;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  constexpr int rows = Shape<D>::kRows;
+  constexpr int rows = Sh::kRows;
+  if ((s + rows - 1) / rows > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)(b * h), (unsigned int)((s + rows - 1) / rows));
-  kernel<<<grid, Shape<D>::kThreads, smem, stream>>>(
+  kernel<<<grid, Sh::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, h, kvh, s, scale,
       causal);
@@ -259,21 +292,21 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o,
-               float* lse, int b, int h, int kvh, int s, int d, float scale,
-               int causal, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                            stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+               float* lse, int b, int h, int kvh, int s, int dqk, int dv,
+               float scale, int causal, cudaStream_t stream) {
+  if (dqk == 32 && dv == 32)
+    return launch<T, 32, 32>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                             stream);
+  if (dqk == 64 && dv == 64)
+    return launch<T, 64, 64>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                             stream);
+  if (dqk == 128 && dv == 128)
+    return launch<T, 128, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                               stream);
+  if (dqk == 192 && dv == 128)
+    return launch<T, 192, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                               stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------- bf16: tensor-core path
@@ -281,14 +314,23 @@ constexpr int kWarps = 4;                 // 16 query rows each
 constexpr int kMmaThreads = kWarps * 32;
 constexpr int kPad = 8;                   // bf16 of padding per shared row
 
+// a 64-row bf16 tile of D-wide rows in shared memory
 template <int D>
-struct MmaShape {
+struct Tile {
   static constexpr int kRow = D + kPad;       // shared row stride (bf16)
-  static constexpr int kTile = kBKV * kRow;   // one 64-row tile (bf16)
+  static constexpr int kSize = kBKV * kRow;   // one 64-row tile (bf16)
   static constexpr int kChunks = D / 8;       // 16-byte chunks per row
   static constexpr int kLoads = kBKV * kChunks / kMmaThreads;  // per thread
+};
+
+template <int DQK, int DV>
+struct MmaShape {
+  // Q's fragments held in registers across the KV tiles (DQK <= 128), or
+  // re-read from the Q tile for each (see the top of the file)
+  static constexpr bool kQInRegs = DQK <= 128;
   // the Q tile, then two stages of K and two of V
-  static constexpr size_t kSmem = 5 * kTile * sizeof(__nv_bfloat16);
+  static constexpr size_t kSmem =
+      (3 * Tile<DQK>::kSize + 2 * Tile<DV>::kSize) * sizeof(__nv_bfloat16);
 };
 static_assert(kBQ == kBKV && kBQ == kWarps * 16, "one tile shape");
 
@@ -359,7 +401,7 @@ template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int row0,
                                           int s) {
-  using Sh = MmaShape<D>;
+  using Sh = Tile<D>;
 #pragma unroll
   for (int it = 0; it < Sh::kLoads; ++it) {
     const int i = threadIdx.x + it * kMmaThreads;
@@ -371,7 +413,26 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+// sacc += Q K^T over k-step ks (dims 16 ks + 0..15) for the warp's 16 rows
+// and the tile's 64 keys, from Q's A fragment `a`
+template <int kRow, int kNTiles>
+__device__ __forceinline__ void qk_kstep(float (&sacc)[kNTiles][4],
+                                         const unsigned a[4],
+                                         const __nv_bfloat16* kt_s, int ks,
+                                         int lane) {
+#pragma unroll
+  for (int jp = 0; jp < kNTiles / 2; ++jp) {
+    unsigned bf[4];  // keys 16 jp + 0..7 and + 8..15, dims 16 ks + 0..15
+    ldmatrix_x4(smem_addr(kt_s + (jp * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                     kRow +
+                          ks * 16 + ((lane >> 3) & 1) * 8),
+                bf);
+    mma_bf16(sacc[2 * jp], a, bf[0], bf[1]);
+    mma_bf16(sacc[2 * jp + 1], a, bf[2], bf[3]);
+  }
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -379,23 +440,27 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int h, int kvh, int s,
                            float scale_log2, int causal) {
-  using Sh = MmaShape<D>;
-  constexpr int kRow = Sh::kRow;
-  constexpr int kKSteps = D / 16;      // k-steps of Q K^T
-  constexpr int kDTiles = D / 8;       // n-tiles of O
+  using QK = Tile<DQK>;
+  using VT = Tile<DV>;
+  constexpr bool kQInRegs = MmaShape<DQK, DV>::kQInRegs;
+  constexpr int kRow = QK::kRow;       // Q and K tiles' row stride
+  constexpr int kRowV = VT::kRow;
+  constexpr int kKSteps = DQK / 16;    // k-steps of Q K^T
+  constexpr int kDTiles = DV / 8;      // n-tiles of O
   constexpr int kNTiles = kBKV / 8;    // n-tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + Sh::kTile;      // stages 0, 1
-  __nv_bfloat16* sv = sk + 2 * Sh::kTile;  // stages 0, 1
+  __nv_bfloat16* sk = sq + QK::kSize;      // stages 0, 1
+  __nv_bfloat16* sv = sk + 2 * QK::kSize;  // stages 0, 1
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
   const int b = bh / h;
   const int kv_head = (bh % h) / (h / kvh);
-  const __nv_bfloat16* qg = q + (long long)bh * s * D;
-  const __nv_bfloat16* kg = k + ((long long)b * kvh + kv_head) * s * D;
-  const __nv_bfloat16* vg = v + ((long long)b * kvh + kv_head) * s * D;
+  const long long kv_row0 = ((long long)b * kvh + kv_head) * s;
+  const __nv_bfloat16* qg = q + (long long)bh * s * DQK;
+  const __nv_bfloat16* kg = k + kv_row0 * DQK;
+  const __nv_bfloat16* vg = v + kv_row0 * DV;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -406,12 +471,15 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int q_last = min(q0 + kBQ, s) - 1;
   const int n_kt = causal ? q_last / kBKV + 1 : (s + kBKV - 1) / kBKV;
 
-  load_tile<D>(sq, qg, q0, s);
-  load_tile<D>(sk, kg, 0, s);
-  load_tile<D>(sv, vg, 0, s);
+  load_tile<DQK>(sq, qg, q0, s);
+  load_tile<DQK>(sk, kg, 0, s);
+  load_tile<DV>(sv, vg, 0, s);
   cp_async_commit();
 
-  unsigned qf[kKSteps][4];
+  // Q's A fragment of k-step ks, from the warp's own rows of the Q tile
+  const unsigned q_frag0 =
+      smem_addr(sq + (wrow + (lane & 15)) * kRow + (lane >> 4) * 8);
+  unsigned qf[kQInRegs ? kKSteps : 1][4];
   float oacc[kDTiles][4];
 #pragma unroll
   for (int n = 0; n < kDTiles; ++n)
@@ -422,23 +490,25 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int stage = kt & 1;
     if (kt + 1 < n_kt) {
-      load_tile<D>(sk + (stage ^ 1) * Sh::kTile, kg, (kt + 1) * kBKV, s);
-      load_tile<D>(sv + (stage ^ 1) * Sh::kTile, vg, (kt + 1) * kBKV, s);
+      load_tile<DQK>(sk + (stage ^ 1) * QK::kSize, kg, (kt + 1) * kBKV, s);
+      load_tile<DV>(sv + (stage ^ 1) * VT::kSize, vg, (kt + 1) * kBKV, s);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile kt (and at kt == 0 the Q tile) has landed
-    if (kt == 0) {
+    if constexpr (kQInRegs) {
+      if (kt == 0) {
 #pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks)
-        ldmatrix_x4(smem_addr(sq + (wrow + (lane & 15)) * kRow + ks * 16 +
-                              (lane >> 4) * 8),
-                    qf[ks]);
+        for (int ks = 0; ks < kKSteps; ++ks)
+          ldmatrix_x4(smem_addr(sq + (wrow + (lane & 15)) * kRow + ks * 16 +
+                                (lane >> 4) * 8),
+                      qf[ks]);
+      }
     }
-    const __nv_bfloat16* kt_s = sk + stage * Sh::kTile;
-    const __nv_bfloat16* vt_s = sv + stage * Sh::kTile;
+    const __nv_bfloat16* kt_s = sk + stage * QK::kSize;
+    const __nv_bfloat16* vt_s = sv + stage * VT::kSize;
 
     // S = Q K^T for the warp's 16 rows and the tile's 64 keys
     float sacc[kNTiles][4];
@@ -447,15 +517,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
-#pragma unroll
-      for (int jp = 0; jp < kNTiles / 2; ++jp) {
-        unsigned bf[4];  // keys 16 jp + 0..7 and + 8..15, dims 16 ks + 0..15
-        ldmatrix_x4(smem_addr(kt_s +
-                              (jp * 16 + (lane & 7) + (lane >> 4) * 8) * kRow +
-                              ks * 16 + ((lane >> 3) & 1) * 8),
-                    bf);
-        mma_bf16(sacc[2 * jp], qf[ks], bf[0], bf[1]);
-        mma_bf16(sacc[2 * jp + 1], qf[ks], bf[2], bf[3]);
+      if constexpr (kQInRegs) {
+        qk_kstep<kRow, kNTiles>(sacc, qf[ks], kt_s, ks, lane);
+      } else {
+        unsigned a[4];
+        ldmatrix_x4(q_frag0 + ks * 32, a);
+        qk_kstep<kRow, kNTiles>(sacc, a, kt_s, ks, lane);
       }
     }
 
@@ -518,7 +585,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
         unsigned bf[4];  // keys 16 kk + 0..15, dims 16 dp + 0..7, + 8..15
         ldmatrix_x4_trans(
             smem_addr(vt_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                 kRow +
+                                 kRowV +
                       dp * 16 + (lane >> 4) * 8),
             bf);
         mma_bf16(oacc[2 * dp], p_hi[kk], bf[0], bf[1]);
@@ -548,8 +615,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
             (m_r[r] + log2f(denom[r])) * 0.6931471805599453f;
     }
   }
-  // the warp's 16 rows of the Q tile are its own: stage O there, then
-  // write 16-byte chunks of the rows < s
+  // the warp's 16 rows of the Q tile are its own: stage O there (DV of
+  // each DQK-wide row), then write 16-byte chunks of the rows < s
   __nv_bfloat16* so = sq + wrow * kRow;
 #pragma unroll
   for (int n = 0; n < kDTiles; ++n) {
@@ -560,29 +627,29 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncwarp();
 #pragma unroll
-  for (int it = 0; it < Sh::kChunks / 2; ++it) {  // 16 rows, 32 lanes
+  for (int it = 0; it < VT::kChunks / 2; ++it) {  // 16 rows, 32 lanes
     const int i = lane + 32 * it;
-    const int r = i / Sh::kChunks;
-    const int c = i % Sh::kChunks;
+    const int r = i / VT::kChunks;
+    const int c = i % VT::kChunks;
     const int row = q0 + wrow + r;
     if (row < s)
-      *reinterpret_cast<uint4*>(o + (long long)bh * s * D +
-                                (long long)row * D + c * 8) =
+      *reinterpret_cast<uint4*>(o + ((long long)bh * s + row) * DV + c * 8) =
           *reinterpret_cast<const uint4*>(so + r * kRow + c * 8);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* lse, int b, int h, int kvh, int s, float scale,
                int causal, cudaStream_t stream) {
-  auto kernel = flash_attention_mma_kernel<D>;
-  constexpr size_t smem = MmaShape<D>::kSmem;
+  auto kernel = flash_attention_mma_kernel<DQK, DV>;
+  constexpr size_t smem = MmaShape<DQK, DV>::kSmem;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  if ((s + kBQ - 1) / kBQ > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)(b * h), (unsigned int)((s + kBQ - 1) / kBQ));
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -592,27 +659,28 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 int dispatch_mma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int b, int h, int kvh, int s, int d, float scale,
-                 int causal, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch_mma<32>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                            stream);
-    case 64:
-      return launch_mma<64>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                            stream);
-    case 128:
-      return launch_mma<128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                             stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                 float* lse, int b, int h, int kvh, int s, int dqk, int dv,
+                 float scale, int causal, cudaStream_t stream) {
+  if (dqk == 32 && dv == 32)
+    return launch_mma<32, 32>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                              stream);
+  if (dqk == 64 && dv == 64)
+    return launch_mma<64, 64>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                              stream);
+  if (dqk == 128 && dv == 128)
+    return launch_mma<128, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                                stream);
+  if (dqk == 192 && dv == 128)
+    return launch_mma<192, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
+                                stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(); never synchronises.
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
+// (dqk, dv): q's and k's width, and v's and o's, one of the pairs above.
 // All four tensors are contiguous and 16-byte aligned (the wrapper checks).
 // `lse` is null (serving) or an f32 [B, H, S] that receives each query
 // row's logsumexp of its scaled, masked scores, in the natural log domain:
@@ -620,18 +688,18 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o,
 // Writing it changes no arithmetic of o.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* lse, int b, int h, int kvh,
-                               int s, int d, int dtype, int causal,
+                               int s, int dqk, int dv, int dtype, int causal,
                                float scale, void* stream) {
-  const int rows = dtype == 0 && d == 128 ? kBQ / 2 : kBQ;  // per block
   if (b < 1 || h < 1 || kvh < 1 || s < 1 || h % kvh != 0 ||
-      (long long)b * h > 0x7fffffffLL || (s + rows - 1) / rows > 65535)
+      (long long)b * h > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, l, b, h, kvh, s, d, scale, causal,
-                             st);
+    return dispatch_d<float>(q, k, v, o, l, b, h, kvh, s, dqk, dv, scale,
+                             causal, st);
   if (dtype == 1)
-    return dispatch_mma(q, k, v, o, l, b, h, kvh, s, d, scale, causal, st);
+    return dispatch_mma(q, k, v, o, l, b, h, kvh, s, dqk, dv, scale, causal,
+                        st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
 """Wrapper of the CUDA kernel ``csrc/flash_attention.cu``: forward GQA
-attention with an online softmax, q ``[B, H, S, D]``, k and v
-``[B, KV, S, D]``, f32 or bf16, out in q's dtype.
+attention with an online softmax, q ``[B, H, S, Dqk]``, k ``[B, KV, S,
+Dqk]`` and v ``[B, KV, S, Dv]``, f32 or bf16, out ``[B, H, S, Dv]`` in
+q's dtype, scaled by ``1/sqrt(Dqk)``.  v's width may differ from q's as
+in MLA (q.k over 128 + 64 dims, v over 128).
 
 bf16 runs on the tensor cores (``mma.sync`` m16n8k16 with f32
 accumulators, K and V staged as bf16 through a 2-stage ``cp.async`` ring,
@@ -15,9 +17,10 @@ statistic the backward kernel (``flash_attention_bwd.py``) recomputes the
 probabilities from.  Without it the kernel gets a null pointer and ``o``
 is the same, bit for bit.
 
-The wrapper checks what the kernel takes (D in 32, 64, 128; one dtype for
-all three; matching shapes; ``H % KV == 0``; contiguous, 16-byte aligned
-CUDA tensors on one device), allocates the output, launches on PyTorch's
+The wrapper checks what the kernel takes ((Dqk, Dv) one of ``PAIRS``: (32,
+32), (64, 64), (128, 128), (192, 128); one dtype for all three; matching
+shapes; ``H % KV == 0``; contiguous, 16-byte aligned CUDA tensors on one
+device), allocates the output, launches on PyTorch's
 current stream without synchronising, and raises if the launch was
 refused.  ``LAUNCHES`` counts launches, so a run can show that its
 prefills went through the kernel.  The library is built at first use (see
@@ -35,13 +38,14 @@ from repro_torch.kernels.build import CudaLibrary, LaunchCounter
 
 SOURCE = (pathlib.Path(__file__).resolve().parent / "csrc" /
           "flash_attention.cu")
-HEAD_DIMS = (32, 64, 128)
+#: the (q.k, v) head widths the kernel is built for
+PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 +
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
                    [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -65,13 +69,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention needs contiguous, 16-byte "
                              f"aligned tensors; {name} is not")
     b, h, s, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d):
-        raise ValueError(f"flash_attention needs q [B, H, S, D] and k, v "
-                         f"[B, KV, S, D], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
-                         f"got {d}")
+    if (k.shape[0] != b or k.shape[2:] != (s, d)
+            or v.shape[:3] != k.shape[:3]):
+        raise ValueError(f"flash_attention needs q [B, H, S, Dqk], k "
+                         f"[B, KV, S, Dqk] and v [B, KV, S, Dv], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if (d, v.shape[3]) not in PAIRS:
+        raise ValueError(f"flash_attention takes (q.k, v) head dims "
+                         f"{PAIRS}, got {(d, v.shape[3])}")
     if min(b, h, s) < 1 or k.shape[1] < 1 or h % k.shape[1]:
         raise ValueError(f"flash_attention needs B, S >= 1 and H a multiple "
                          f"of KV, got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -79,13 +85,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, return_lse: bool = False):
-    """q: [B, H, S, D]; k, v: [B, KV, S, D] on a CUDA device.  Returns
-    [B, H, S, D] in q's dtype there, and with ``return_lse`` also the f32
-    row logsumexp [B, H, S]."""
+    """q: [B, H, S, Dqk]; k: [B, KV, S, Dqk]; v: [B, KV, S, Dv] on a CUDA
+    device.  Returns [B, H, S, Dv] in q's dtype there, and with
+    ``return_lse`` also the f32 row logsumexp [B, H, S]."""
     _check(q, k, v)
     b, h, s, d = q.shape
+    dv = v.shape[3]
     lib = LIBRARY.load()
-    out = torch.empty_like(q)
+    out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
     with torch.cuda.device(q.device):
@@ -93,7 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, h, k.shape[1], s, d,
-            DTYPES[q.dtype], int(bool(causal)), 1.0 / math.sqrt(d), stream)
+            dv, DTYPES[q.dtype], int(bool(causal)), 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES.add()

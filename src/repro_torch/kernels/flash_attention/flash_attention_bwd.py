@@ -54,8 +54,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True):
     """Returns ``(dq, dk, dv)`` for the attention ``o`` of q, k, v, all on
-    one CUDA device."""
+    one CUDA device.  The kernel has one head width for q, k and v: v
+    narrower than q and k (MLA) raises ``ValueError``."""
     _check(q, k, v)
+    if v.shape[3] != q.shape[3]:
+        raise ValueError(
+            f"flash_attention_bwd takes one head width for q, k and v, got "
+            f"q.k {q.shape[3]} and v {v.shape[3]}: the backward at a v "
+            f"width apart from q's (MLA training) is not ported yet "
+            f"(ROADMAP, queue 1 item 7)")
     for name, x in (("o", o), ("dout", dout)):
         if (x.shape != q.shape or x.dtype != q.dtype or x.device != q.device
                 or not x.is_contiguous() or x.data_ptr() % 16):

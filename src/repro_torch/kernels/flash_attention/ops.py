@@ -29,10 +29,12 @@ def _device(q: torch.Tensor) -> str:
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """``apply(q, k, v, causal, save)``: q [B, H, S, D], k and v
-    [B, KV, S, D] -> o [B, H, S, D] in q's dtype.  ``save`` keeps what the
-    backward needs (q, k, v, o and the f32 row logsumexp); without it the
-    forward is the serving call and the backward raises."""
+    """``apply(q, k, v, causal, save)``: q [B, H, S, Dqk], k [B, KV, S,
+    Dqk] and v [B, KV, S, Dv] -> o [B, H, S, Dv] in q's dtype (Dv < Dqk
+    is MLA's).  ``save`` keeps what the backward needs (q, k, v, o and the
+    f32 row logsumexp); without it the forward is the serving call and the
+    backward raises.  On the card the backward kernel takes Dv == Dqk only
+    and raises otherwise; on the CPU the plain backward takes any."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, save: bool):
@@ -69,9 +71,10 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True) -> torch.Tensor:
-    """q: [B, H, S, D]; k, v: [B, KV, S, D] -> [B, H, S, D] in q's dtype,
-    on the tensors' device, through :class:`FlashAttentionFn`; the row
-    logsumexp is kept only where autograd records the call."""
+    """q: [B, H, S, Dqk]; k: [B, KV, S, Dqk]; v: [B, KV, S, Dv] ->
+    [B, H, S, Dv] in q's dtype, on the tensors' device, through
+    :class:`FlashAttentionFn`; the row logsumexp is kept only where
+    autograd records the call."""
     save = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
     return FlashAttentionFn.apply(q, k, v, causal, save)

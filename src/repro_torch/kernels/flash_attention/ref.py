@@ -2,7 +2,9 @@
 
 Same function as ``csrc/flash_attention.cu`` and as the reference's
 ``attention_ref``: GQA attention in f32, masked scores ``-1e30``, cast
-back to q's dtype.  ``attention_lse_ref`` is the row logsumexp the forward
+back to q's dtype.  v may be narrower than q and k (MLA), as in the
+reference's chunked attention: the output takes v's width and the scale
+stays ``1/sqrt(Dqk)``.  ``attention_lse_ref`` is the row logsumexp the forward
 kernel writes for the backward, and ``attention_bwd_ref`` the gradient
 that ``csrc/flash_attention_bwd.cu`` computes from it.
 ``attention_bf16_mma_ref`` and ``attention_bwd_bf16_mma_ref`` emulate the
@@ -19,11 +21,12 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """q: [B, H, S, D]; k, v: [B, KV, S, D] with H % KV == 0."""
-    b, h, s, d = q.shape
+    """q: [B, H, S, Dqk]; k: [B, KV, S, Dqk]; v: [B, KV, S, Dv] with
+    H % KV == 0.  Returns [B, H, S, Dv]."""
+    b, h, s, _ = q.shape
     w = torch.softmax(_scores(q, k, causal), dim=-1)
     out = torch.einsum("bkgqp,bkpd->bkgqd", w, v.float())
-    return out.reshape(b, h, s, d).to(q.dtype)
+    return out.reshape(b, h, s, v.shape[3]).to(q.dtype)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
@@ -64,15 +67,15 @@ def _attention_bwd(q, k, v, o, dout, lse, causal: bool,
     """``attention_bwd_ref`` with P and dS passed through ``operand``
     before the products that take them (dv, dk, dq)."""
     b, h, s, d = q.shape
-    kv = k.shape[1]
+    kv, d_v = k.shape[1], v.shape[3]
     shape = (b, kv, h // kv, s)
     lse = lse.float().reshape(shape)[..., None]
     p = torch.exp(_scores(q, k, causal) - lse)
-    do = dout.float().reshape(*shape, d)
+    do = dout.float().reshape(*shape, d_v)
     qf, kf, vf = q.float().reshape(*shape, d), k.float(), v.float()
     dv = torch.einsum("bkgqp,bkgqd->bkpd", operand(p), do)
     dp = torch.einsum("bkgqd,bkpd->bkgqp", do, vf)
-    delta = (do * o.float().reshape(*shape, d)).sum(dim=-1)
+    delta = (do * o.float().reshape(*shape, d_v)).sum(dim=-1)
     ds = operand(p * (dp - delta[..., None]))
     dq = torch.einsum("bkgqp,bkpd->bkgqd", ds, kf) / math.sqrt(d)
     dk = torch.einsum("bkgqp,bkgqd->bkpd", ds, qf) / math.sqrt(d)
@@ -95,7 +98,7 @@ def attention_bf16_mma_ref(q: torch.Tensor, k: torch.Tensor,
     P and clamped to 1e-30, the output cast to q's dtype.  ``split_p=False``
     keeps ``P_hi`` alone: the rounding the kernel's design rejected."""
     b, h, s, d = q.shape
-    kv = k.shape[1]
+    kv, d_v = k.shape[1], v.shape[3]
     shape = (b, kv, h // kv, s)
     qf = q.float().reshape(*shape, d)
     kf, vf = k.float(), v.float()
@@ -103,7 +106,7 @@ def attention_bf16_mma_ref(q: torch.Tensor, k: torch.Tensor,
                               dtype=torch.float32)
     m = torch.full(shape, -1e30, device=q.device)
     l = torch.zeros(shape, device=q.device)
-    acc = torch.zeros((*shape, d), device=q.device)
+    acc = torch.zeros((*shape, d_v), device=q.device)
     qpos = torch.arange(s, device=q.device)[:, None]
     for j0 in range(0, s, KERNEL_BKV):
         kt, vt = kf[:, :, j0:j0 + KERNEL_BKV], vf[:, :, j0:j0 + KERNEL_BKV]
@@ -123,7 +126,7 @@ def attention_bf16_mma_ref(q: torch.Tensor, k: torch.Tensor,
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(b, h, s, d).to(q.dtype)
+    return out.reshape(b, h, s, d_v).to(q.dtype)
 
 
 def _bf16_parts(x: torch.Tensor, split: bool) -> torch.Tensor:

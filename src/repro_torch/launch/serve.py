@@ -1,18 +1,20 @@
 """Serving launcher: batched prefill + decode driver.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
-        --reduced --batch 8 --prompt-len 32 --max-new 32 [--device cpu]
+        --reduced --batch 8 --prompt-len 32 --max-new 32 [--kv-quant] \\
+        [--device cpu]
 
 Counterpart of the reference's ``launch/serve.py``, on one device: the
 prefill and decode steps of ``repro_torch/serve/serve_step.py`` on
 ``--device`` (``cuda`` by default; without a CUDA device it exits 1).
-The dense, MoE, SSM and hybrid families serve (``--arch
-qwen3-moe-30b-a3b`` at full width takes 61 GB of bf16 weights on one 80
-GB card, ``falcon-mamba-7b`` 14.5 GB, ``zamba2-1.2b`` 2.6 GB).  On a CUDA device
-the random weights are drawn there, from a CUDA generator seeded with 0.
-Refused, because the port has no counterpart yet: ``--mesh`` (sharding,
-ROADMAP queue 1 item 9), ``--kv-quant`` and ``--kv-shard seq`` (the int8
-and the sequence-sharded KV caches, ROADMAP queue 1 item 7).
+The dense, MoE (DeepSeek's MLA included), SSM and hybrid families serve
+(``--arch qwen3-moe-30b-a3b`` at full width takes 61 GB of bf16 weights
+on one 80 GB card, ``deepseek-v2-lite-16b`` 31.4 GB, ``falcon-mamba-7b``
+14.5 GB, ``zamba2-1.2b`` 2.6 GB), with ``--kv-quant`` on the int8 KV
+cache.  On a CUDA device the random weights are drawn there, from a CUDA
+generator seeded with 0.  Refused, because the port has no counterpart
+yet: ``--mesh`` and ``--kv-shard seq`` (sharding, and the cache's
+sequence axis placed over a mesh: ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -32,10 +34,9 @@ from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 REFUSED = {
     "mesh": "--mesh: sharding is not ported; the port serves on one device "
             "(ROADMAP, queue 1 item 9, distributed/)",
-    "kv_quant": "--kv-quant: the int8 KV cache is not ported (ROADMAP, "
-                "queue 1 item 7)",
     "kv_shard": "--kv-shard seq: the sequence-sharded KV cache is not "
-                "ported (ROADMAP, queue 1 item 7)",
+                "ported; it places the cache over a mesh (ROADMAP, queue 1 "
+                "item 9, distributed/)",
 }
 
 
@@ -49,14 +50,14 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--mesh", default="", help="refused: not ported")
     ap.add_argument("--kv-quant", action="store_true",
-                    help="refused: not ported")
+                    help="int8 KV cache")
     ap.add_argument("--kv-shard", default="heads", choices=["heads", "seq"],
                     help="heads (seq is refused: not ported)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; exits 1 without a CUDA device), "
                          "cuda:N, or cpu")
     args = ap.parse_args(argv)
-    for flag, given in (("mesh", args.mesh), ("kv_quant", args.kv_quant),
+    for flag, given in (("mesh", args.mesh),
                         ("kv_shard", args.kv_shard == "seq")):
         if given:
             ap.error(REFUSED[flag])
@@ -64,6 +65,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    cfg = dataclasses.replace(cfg, kv_cache_quant=args.kv_quant)
     cfg = make_serve_config(cfg, 1)
     print(f"serving {cfg.name}: kv_repeat={cfg.kv_repeat} "
           f"quant={cfg.kv_cache_quant} shard={cfg.kv_cache_shard}",

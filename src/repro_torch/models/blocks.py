@@ -2,7 +2,8 @@
 
 Counterpart of the reference's ``models/blocks.py`` for kinds ``"dense"``,
 ``"moe"``, ``"ssm1"`` and ``"ssm2"``.  A dense or moe block is pre-norm
-attention, then the pre-norm SwiGLU MLP (dense) or the routed-expert FFN
+attention (MLA when the config has ``mla``, as DeepSeek's dense and MoE
+layers do), then the pre-norm SwiGLU MLP (dense) or the routed-expert FFN
 (moe, ``models/moe.py``); an SSM block is the pre-norm Mamba-1 (ssm1) or
 Mamba-2 (ssm2) mixer of ``models/ssm.py``.  Each adds to the residual
 stream in the compute dtype.  The reference's sharding constraints are
@@ -17,7 +18,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import Attention, attention_apply
+from repro_torch.models.attention import (Attention, MLAAttention,
+                                          attention_apply, mla_apply)
 from repro_torch.models.layers import MLP, Norm, mlp_apply, norm_apply
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.ssm import Mamba1, Mamba2, mamba1_apply, mamba2_apply
@@ -34,8 +36,8 @@ def _check_kind(kind: str) -> None:
 
 
 class Block(nn.Module):
-    """``ln1`` and ``mamba`` (ssm1, ssm2), or ``ln1``, ``attn``, ``ln2``
-    and ``mlp`` (dense) or ``moe`` (moe)."""
+    """``ln1`` and ``mamba`` (ssm1, ssm2), or ``ln1``, ``attn`` (GQA or
+    MLA), ``ln2`` and ``mlp`` (dense) or ``moe`` (moe)."""
 
     def __init__(self, cfg: ArchConfig, kind: str = "dense", *,
                  device="cpu", generator: Optional[torch.Generator] = None):
@@ -47,7 +49,8 @@ class Block(nn.Module):
         if kind in SSM_KINDS:
             self.mamba = (Mamba1 if kind == "ssm1" else Mamba2)(cfg, **kw)
             return
-        self.attn = Attention(cfg, **kw)
+        self.attn = (MLAAttention if cfg.mla is not None
+                     else Attention)(cfg, **kw)
         self.ln2 = Norm(cfg.norm, cfg.d_model, dtype=dt, device=device)
         if kind == "moe":
             self.moe = MoE(cfg, **kw)
@@ -73,9 +76,10 @@ def block_apply(p: Block, h: torch.Tensor, cfg: ArchConfig, kind: str, *,
         fn = mamba1_apply if kind == "ssm1" else mamba2_apply
         y, state = fn(p.mamba, hn, cfg, state=cache)
         return h + y, state
-    a, cache = attention_apply(p.attn, hn, cfg, causal=causal,
-                               positions=positions, kv_cache=cache,
-                               cache_index=cache_index, cache_len=cache_len)
+    attn_fn = mla_apply if cfg.mla is not None else attention_apply
+    a, cache = attn_fn(p.attn, hn, cfg, causal=causal, positions=positions,
+                       kv_cache=cache, cache_index=cache_index,
+                       cache_len=cache_len)
     h = h + a
     hn = norm_apply(cfg.norm, p.ln2, h)
     if kind == "moe":

@@ -1,5 +1,6 @@
 """Model assembly: init, forward, logits, decode caches and the decode
-step, for the dense, MoE, SSM (Mamba-1) and hybrid (Zamba2) families.
+step, for the dense, MoE (DeepSeek's MLA included), SSM (Mamba-1) and
+hybrid (Zamba2) families.
 
 Counterpart of the reference's ``models/zoo.py``:
 
@@ -21,12 +22,14 @@ every ``shared_attn_every``-th, the one ``shared_attn`` block on
 [every-layer scan -> shared attn] x n_sites + trailing layers; under
 remat only the Mamba layers are checkpointed, as in the reference.
 The decode cache keeps the reference's stacked layout: {"layers": {"k",
-"v"}: [L, B, max_len, KV, D]} (and "dense_layers" likewise) for
-attention, {"layers": {"conv", "ssm"}} (Mamba-1) or {"layers":
-{"conv_x", "conv_B", "conv_C", "ssm"}} (Mamba-2) stacked over L, and for
-the hybrid also {"shared": {"k", "v"}} stacked over its call sites.
-Each layer writes its slice in place.  The other families (audio, vlm)
-and MLA are not ported yet and raise.
+"v"}: [L, B, max_len, KV, D]} (and "dense_layers" likewise) for GQA
+attention, {"c_kv": [L, B, max_len, r], "k_rope": [L, B, max_len, dr]}
+for MLA, under ``kv_cache_quant`` int8 "k", "v" (or "c_kv") with bf16
+per-row scales "k_scale", "v_scale" (or "c_kv_scale"), {"layers":
+{"conv", "ssm"}} (Mamba-1) or {"layers": {"conv_x", "conv_B", "conv_C",
+"ssm"}} (Mamba-2) stacked over L, and for the hybrid also {"shared":
+{"k", "v"}} stacked over its call sites.  Each layer writes its slice in
+place.  The other families (audio, vlm) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -319,21 +322,43 @@ def logits_fn(params: Model, cfg: ArchConfig,
 # ==========================================================================
 # KV caches + decode
 # ==========================================================================
+def _attn_cache_spec(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """One attention layer's cache as {name: (shape, dtype)}: the MLA
+    latent and rope key, or GQA's k and v; under ``kv_cache_quant`` the
+    latent (or k and v) in int8 with bf16 per-row scales."""
+    cd = torch_dtype(cfg.compute_dtype)
+    i8, bf = torch.int8, torch.bfloat16
+    if cfg.mla is not None:
+        latent = (batch, max_len, cfg.mla.kv_lora_rank)
+        spec = {"c_kv": (latent, i8 if cfg.kv_cache_quant else cd),
+                "k_rope": ((batch, max_len, cfg.mla.qk_rope_head_dim), cd)}
+        if cfg.kv_cache_quant:
+            spec["c_kv_scale"] = ((batch, max_len), bf)
+        return spec
+    rows = (batch, max_len, cfg.n_kv_heads * cfg.kv_repeat)
+    if cfg.kv_cache_quant:
+        return {"k": (rows + (cfg.head_dim,), i8),
+                "v": (rows + (cfg.head_dim,), i8),
+                "k_scale": (rows, bf), "v_scale": (rows, bf)}
+    return {"k": (rows + (cfg.head_dim,), cd),
+            "v": (rows + (cfg.head_dim,), cd)}
+
+
 def init_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """The decode cache's shapes and dtypes as ``meta`` tensors, stacked
     over the layers of each stack (the reference returns
-    ShapeDtypeStructs): {"dense_layers" (if any), "layers"}: {"k", "v"}
-    for attention layers or the SSM state (conv states in the compute
-    dtype, the SSM state in f32), and for the hybrid "shared": {"k",
-    "v"} at the wide config, stacked over the call sites."""
+    ShapeDtypeStructs): {"dense_layers" (if any), "layers"}: an attention
+    layer's cache (:func:`_attn_cache_spec`) or the SSM state (conv states
+    in the compute dtype, the SSM state in f32), and for the hybrid
+    "shared": the attention cache at the wide config, stacked over the
+    call sites."""
     check_family(cfg)
-    cd = torch_dtype(cfg.compute_dtype)
     n_dense = _n_dense_layers(cfg)
 
     def kv(c: ArchConfig, n: int) -> dict:
-        shape = (n, batch, max_len, c.n_kv_heads * c.kv_repeat, c.head_dim)
-        return {"k": torch.empty(shape, dtype=cd, device="meta"),
-                "v": torch.empty(shape, dtype=cd, device="meta")}
+        return {name: torch.empty((n,) + shape, dtype=dt, device="meta")
+                for name, (shape, dt) in
+                _attn_cache_spec(c, batch, max_len).items()}
 
     specs = {"dense_layers": kv(cfg, n_dense)} if n_dense else {}
     n = cfg.n_layers - n_dense

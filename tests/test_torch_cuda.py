@@ -426,7 +426,7 @@ def test_flash_attention_writes_no_row_past_s(cuda, dtype, s):
     lib = flash_kernel.LIBRARY.load()
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), fill.data_ptr(), None, b,
-        h, kv, s, d, flash_kernel.flash.DTYPES[dtype], 1, d ** -0.5,
+        h, kv, s, d, d, flash_kernel.flash.DTYPES[dtype], 1, d ** -0.5,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -459,6 +459,8 @@ def test_flash_attention_rejects_bad_input(cuda):
         fa(q, k.bfloat16(), v)
     with pytest.raises(ValueError):  # head dim 48
         fa(*_qkv(0, 1, 4, 2, 16, 48, torch.float32, cuda))
+    with pytest.raises(ValueError):  # (q.k, v) = (128, 64): no such pair
+        fa(q.new_zeros(1, 4, 16, 128), k.new_zeros(1, 2, 16, 128), v)
     with pytest.raises(ValueError):  # 4 query heads on 3 KV heads
         fa(*_qkv(0, 1, 4, 3, 16, 64, torch.float32, cuda))
     with pytest.raises(ValueError):  # k and v of other lengths than q
@@ -843,6 +845,151 @@ def test_init_model_draws_on_the_card_with_a_cuda_generator(cuda):
         assert abs(std - scale) <= 0.02 * scale, (name, std, scale)
     with pytest.raises(ValueError, match="draws on that device"):
         init_model(cfg, torch.Generator(device=cuda), device="cpu")
+
+
+# ------------------------------------------------------ MLA: q.k 192, v 128
+def _qkv_mla(seed, b, h, kv, s, dtype, device):
+    q, k, _ = _qkv(seed, b, h, kv, s, 192, dtype, device)
+    v = _qkv(seed + 1, b, kv, kv, s, 128, dtype, device)[2]
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 100, 257, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_192_128_matches_plain_version(cuda, dtype, g, s,
+                                                          causal):
+    """MLA's widths: q and k of 192 dims, v and o of 128, scaled by
+    1/sqrt(192); G query heads on a KV head, S around the tiles."""
+    q, k, v = _qkv_mla(s + g, 2, 2 * g, 2, s, dtype, cuda)
+    before = flash_kernel.LAUNCHES.count
+    got = flash_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count == before + 1
+    assert got.dtype == dtype and got.shape == (2, 2 * g, s, 128)
+    want = flash_kernel.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_at_the_mla_prefill_shape(cuda, dtype):
+    """deepseek-v2-lite-16b's B=8, S=512 prefill: 16 heads on 16 (G = 1),
+    with the row logsumexp against the plain one."""
+    q, k, v = _qkv_mla(0, 8, 16, 16, 512, dtype, cuda)
+    got, lse = flash_kernel.flash_attention(q, k, v, causal=True,
+                                            return_lse=True)
+    want = flash_kernel.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, flash_kernel.attention_lse_ref(q, k),
+                               atol=LSE_ATOL, rtol=0)
+    assert torch.equal(flash_kernel.flash_attention(q, k, v), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_old_pairs_same_bits_twice(cuda, dtype, d):
+    """The (D, D) pairs after the kernel took a v width of its own: two
+    calls give the same bits, causal and not, at a ragged S and G = 3
+    (``scripts/torch_kernel_probe.py --baseline`` holds them bit for bit
+    against the kernel before the change)."""
+    q, k, v = _qkv(d, 2, 6, 2, 200, d, dtype, cuda)
+    for causal in (True, False):
+        a = flash_kernel.flash_attention(q, k, v, causal=causal)
+        b = flash_kernel.flash_attention(q, k, v, causal=causal)
+        assert torch.equal(a, b)
+        torch.testing.assert_close(
+            a.float(), flash_kernel.attention_ref(q, k, v,
+                                                  causal=causal).float(),
+            atol=FLASH_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bwd_refuses_a_narrower_v(cuda, dtype):
+    """The backward kernel takes one head width: at q.k 192, v 128 it
+    raises, naming the ROADMAP item, and launches nothing; so does a
+    gradient through ``FlashAttentionFn`` on the card."""
+    q, k, v = _qkv_mla(1, 1, 4, 4, 64, dtype, cuda)
+    o, lse = flash_kernel.flash_attention(q, k, v, return_lse=True)
+    before = flash_kernel.BWD_LAUNCHES.count
+    with pytest.raises(ValueError, match="queue 1 item 7"):
+        flash_kernel.flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse)
+    q.requires_grad_(True)
+    out = flash_kernel.flash_attention_op(q, k, v)
+    with pytest.raises(ValueError, match="queue 1 item 7"):
+        out.sum().backward()
+    assert flash_kernel.BWD_LAUNCHES.count == before
+
+
+def _mla_cfg(**kw):
+    """Reduced deepseek-v2-lite-16b in f32 with MLA at its published
+    widths (q.k 128 + 64, v 128, rank 512), so the prefill runs the
+    kernel at 192 / 128."""
+    from repro_torch.configs.base import reduce_config
+
+    cfg = reduce_config(get_config("deepseek-v2-lite-16b"))
+    mla = dataclasses.replace(cfg.mla, kv_lora_rank=512, qk_nope_head_dim=128,
+                              qk_rope_head_dim=64, v_head_dim=128)
+    return dataclasses.replace(cfg, mla=mla, d_model=256,
+                               param_dtype="float32",
+                               compute_dtype="float32", **kw)
+
+
+@pytest.mark.parametrize("arch,quant", [("deepseek-v2-lite-16b", False),
+                                        ("deepseek-v2-lite-16b", True),
+                                        ("smollm-135m", True)],
+                         ids=["mla", "mla-int8", "gqa-int8"])
+def test_int8_and_mla_decode_on_the_card_match_the_cpu(cuda, arch, quant):
+    """An f32 model on the card against the CPU on the same weights: a
+    prefill of 64 tokens (the kernel once per layer) and three decode
+    steps, logits within 1e-4 on the float cache; every float cache entry
+    within 1e-4.  On the int8 cache a code differs by one where x / scale
+    lies within the two devices' f32 error of .5 (at most 1e-3 of the
+    codes), which moves that latent value by a whole quantum (1/127 of
+    its row's largest): the logits are held to 1e-3 there, the smoke's
+    int8 gate."""
+    from repro_torch.configs.base import reduce_config
+    from repro_torch.models import decode_step, init_cache
+
+    if arch == "smollm-135m":
+        cfg = dataclasses.replace(reduce_config(get_config(arch)),
+                                  d_model=256, head_dim=64,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+    else:
+        cfg = _mla_cfg()
+    cfg = dataclasses.replace(cfg, kv_cache_quant=quant)
+    model = init_model(cfg, torch.Generator(device=cuda).manual_seed(3),
+                       device=cuda)
+    cpu = _on_cpu(model, cfg)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 70)))
+    caches = {d: init_cache(cfg, 2, 80, device=d) for d in ("cpu", cuda)}
+    before = flash_kernel.LAUNCHES.count
+    for step in range(4):
+        idx = 0 if step == 0 else 63 + step
+        t = tokens[:, :64] if step == 0 else tokens[:, idx:idx + 1]
+        want, _ = decode_step(cpu, cfg, {"tokens": t}, caches["cpu"],
+                              cache_index=idx)
+        got, _ = decode_step(model, cfg, {"tokens": t.to(cuda)},
+                             caches[cuda], cache_index=idx)
+        torch.testing.assert_close(got.cpu(), want,
+                                   atol=1e-3 if quant else 1e-4, rtol=0)
+    for key, stack in caches["cpu"].items():
+        for n, c in stack.items():
+            g = caches[cuda][key][n].cpu()
+            if c.dtype == torch.int8:
+                assert (g.int() - c.int()).abs().max() <= 1
+                assert float((g != c).float().mean()) <= 1e-3
+            else:
+                torch.testing.assert_close(g, c, atol=1e-4, rtol=0)
+    assert flash_kernel.LAUNCHES.count - before == cfg.n_layers
 
 
 # ------------------------------------------------- SSM and hybrid families

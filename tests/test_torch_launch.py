@@ -1,8 +1,9 @@
 """The port's LM launchers and training example as subprocesses on the CPU:
 ``python -m repro_torch.launch.train --device cpu --reduced`` for 3 steps,
 then ``--resume`` to 5 from its checkpoint; ``python -m
-repro_torch.launch.serve`` (smollm, and the SSM and hybrid families); the
-flags the port refuses (``--mesh``, ``--kv-quant``, ``--kv-shard seq``);
+repro_torch.launch.serve`` (smollm, the SSM and hybrid families, and
+DeepSeek's MLA with and without ``--kv-quant``); the flags the port
+refuses (``--mesh``, ``--kv-shard seq``);
 ``--device cuda`` without a card (exit 1, "no CUDA device");
 ``examples/train_video_lm_torch.py`` through its simulated fault."""
 import json
@@ -69,12 +70,23 @@ def test_serve_runs_the_ssm_families(arch):
     assert "prefill 2x8 in" in out.stdout and "decode 4 steps" in out.stdout
 
 
+@pytest.mark.parametrize("quant", [(), ("--kv-quant",)],
+                         ids=["float", "int8"])
+def test_serve_runs_mla(quant):
+    out = _run("-m", "repro_torch.launch.serve", "--arch",
+               "deepseek-v2-lite-16b", "--reduced", "--device", "cpu",
+               "--batch", "2", "--prompt-len", "8", "--max-new", "4", *quant)
+    assert out.returncode == 0, out.stderr
+    assert (f"serving deepseek-v2-lite-16b-smoke: kv_repeat=1 "
+            f"quant={bool(quant)} shard=heads") in out.stdout
+    assert "prefill 2x8 in" in out.stdout and "decode 4 steps" in out.stdout
+
+
 @pytest.mark.parametrize("args,names", [
     (("-m", "repro_torch.launch.train", "--mesh", "2,2"), "queue 1 item 9"),
     (("-m", "repro_torch.launch.serve", "--mesh", "2,2"), "queue 1 item 9"),
-    (("-m", "repro_torch.launch.serve", "--kv-quant"), "queue 1 item 7"),
     (("-m", "repro_torch.launch.serve", "--kv-shard", "seq"),
-     "queue 1 item 7"),
+     "queue 1 item 9"),
 ])
 def test_refused_flags(args, names):
     out = _run(*args, "--device", "cpu")

@@ -76,12 +76,24 @@ def test_param_count_of_smollm_135m():
     assert cfg.active_param_count() == 134_515_008
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "seamless-m4t-medium",
-                                  "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
 def test_unported_families_raise(arch):
-    # deepseek-v2-lite-16b is MoE, which the port has, but needs MLA
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zoo.init_model(port_get_config(arch), 0, device="cpu")
+
+
+def test_mla_family_builds_on_meta():
+    """deepseek-v2-lite-16b (MoE with MLA) builds: every layer's attention
+    is MLA, with the reference's leaves."""
+    cfg = port_get_config("deepseek-v2-lite-16b")
+    model = zoo.Model(cfg, device="meta")
+    assert len(model.dense_layers) == 1 and len(model.layers) == 26
+    for layer in (model.dense_layers[0], model.layers[0]):
+        assert isinstance(layer.attn, attention.MLAAttention)
+        assert {n for n, _ in layer.attn.named_parameters()} == {
+            "wq.w", "wkv_a.w", "kv_a_norm.scale", "wkv_b.w", "wo.w"}
+    assert cfg.param_count() == get_config(
+        "deepseek-v2-lite-16b").param_count()
 
 
 def test_moe_family_builds_on_meta():
@@ -92,12 +104,35 @@ def test_moe_family_builds_on_meta():
     assert cfg.param_count() == get_config("qwen3-moe-30b-a3b").param_count()
 
 
-@pytest.mark.parametrize("kw", [dict(kv_cache_quant=True),
-                                dict(kv_cache_shard="seq")])
+@pytest.mark.parametrize("kw", [dict(kv_cache_shard="seq")])
 def test_unported_cache_layouts_raise(kw):
     _, tcfg = f32(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         zoo.init_model(tcfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-lite-16b",
+                                  "zamba2-1.2b"])
+def test_int8_cache_layouts_match_reference(arch):
+    """``kv_cache_quant``: the decode cache's names, shapes and dtypes
+    equal the reference's (int8 k and v with bf16 scales for GQA and the
+    hybrid's shared block, an int8 latent with a bf16 scale for MLA)."""
+    from repro.configs.base import reduce_config as jax_reduce
+    from repro_torch.configs.base import reduce_config
+
+    jcfg = dataclasses.replace(jax_reduce(get_config(arch)),
+                               kv_cache_quant=True)
+    tcfg = dataclasses.replace(reduce_config(port_get_config(arch)),
+                               kv_cache_quant=True)
+    specs = zoo.init_cache_specs(tcfg, 2, 16)
+    jspecs = jax_zoo.init_cache_specs(jcfg, 2, 16)
+    assert set(specs) == set(jspecs)
+    for key in specs:
+        assert {n: (tuple(t.shape), str(t.dtype).split(".")[-1])
+                for n, t in specs[key].items()} == \
+            {n: (tuple(t.shape), str(t.dtype)) for n, t in jspecs[key].items()}
+        assert any(t.dtype == torch.int8 for t in specs[key].values()) \
+            or key == "layers" and tcfg.family == "hybrid"
 
 
 # ------------------------------------------------------------------ layers

@@ -47,7 +47,8 @@ GAP = 1e-5
 
 def _reduced(arch, **kw):
     """The reference's and the port's reduced config of ``arch``; DeepSeek
-    without MLA, which the port does not have yet."""
+    without MLA, so these cases hold the MoE layers alone
+    (``tests/test_torch_mla.py`` runs DeepSeek with MLA)."""
     if arch == DEEPSEEK:
         kw = {"mla": None, **kw}
     return (dataclasses.replace(jax_reduce_config(jax_get_config(arch)), **kw),
