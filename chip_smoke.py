@@ -28,17 +28,26 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (2,8,8,256,128), (8,32,32,512,128)} and, at MLA's widths (q.k 192, v
    128), (B, H, KV, S) in {(8,16,16,512), (2,4,2,256), (3,16,16,100),
    (1,16,16,1)}, causal and not, bf16 and f32, on ``randn`` inputs from
-   the seed; the (D, D) pairs' outputs on inputs from DIGEST_SEED must
-   hash to the digests of the kernel before v's width became a parameter
-   (``FLASH_OLD_DIGESTS``: bit-identical); times it, the plain version
-   and ``scaled_dot_product_attention`` (the library yardstick, which the
-   port never calls) in bf16 at the smollm-135m prefill shape
+   the seed, and at the internvl2-26b prefill shape (8,48,8,512,128)
+   and the pipeline's (4,48,8,1032,128);
+   keys of another length than the queries, not causal, (B, H, KV, S ->
+   Skv, Dqk / Dv) in {(8,16,16, 512->128, 64), (2,4,2, 256->100, 64),
+   (3,8,8, 100->37, 128), (2,4,4, 64->256, 32), (1,16,16, 128->512,
+   192/128)}, bf16 and f32, and a causal call with two lengths refused
+   before any launch; the (D, D) pairs' outputs on inputs from
+   DIGEST_SEED must hash to the digests of the kernel before v's width
+   became a parameter (``FLASH_OLD_DIGESTS``) and the (192, 128) pair's
+   to those of the kernel before the keys' length became one
+   (``FLASH_MLA_OLD_DIGESTS``): bit-identical; times it, the plain
+   version and ``scaled_dot_product_attention`` (the library yardstick,
+   which the port never calls) in bf16 at the smollm-135m prefill shape
    (8,9,3,512,64), at (1,9,3,4096,64), at the qwen3-moe-30b-a3b prefill
    shape (8,32,4,512,128), at the zamba2-1.2b prefill shape
-   (8,32,32,512,128: MHA at D=128) and at the deepseek-v2-lite-16b
-   prefill shape (8,16,16,512, 192 / 128), which the JSON line reports,
-   with the byte and operation bounds, and the wrapper's host cost per
-   call;
+   (8,32,32,512,128: MHA at D=128), at the deepseek-v2-lite-16b prefill
+   shape (8,16,16,512, 192 / 128) and at the internvl2-26b one, causal,
+   and at seamless-m4t-medium's cross-attention (512 queries over 128
+   keys), which the JSON line reports, with the byte and operation
+   bounds, and the wrapper's host cost per call;
 6. sad kernel phase: holds ``sad_search`` against its plain version for
    (b, r) in {(8, 4), (16, 8), (8, 8), (4, 0), (8, 1), (8, 5), (16, 3),
    (5, 2)} (the motion shapes (8, 8) and (16, 8) take the kernel's
@@ -71,11 +80,12 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    serial ones bit for bit, and the decode launch counter must grow;
 10. video server phase: the same store (tuning off, cache off) served
    in-process by ``VideoStoreServer`` on a Unix socket to 4 client threads,
-   each with its own ``RemoteVideoStore`` sending 8 scans (full frames 0-16,
+   each with its own ``RemoteVideoStore`` sending 4 scans (full frames 0-16,
    ``car`` scans), once over the socket transport, where shared memory
    exists once over shm, and where msgpack is the default once more over
-   the socket with JSON; every reply bit-identical to the in-process scan
-   (which is held against the oracle), the decode launch counter growing;
+   the socket with JSON (one request a client); every reply bit-identical
+   to the in-process scan (which is held against the oracle), the decode
+   launch counter growing;
    p50/p95 latency, requests/s, reply bytes and the wire codec printed;
    then ``python -m repro_torch.tasm_serve --device cuda`` as a subprocess
    over a small store root answers ``ping``, ``config()`` (a cuda decode)
@@ -84,10 +94,10 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    cuda`` node processes (disk-backed, tuning and cache off) behind one
    ``python -m repro_torch.tasm_router --replication 2`` process (first
    checks that /dev/shm has twice the five servers' shm pools free);
-   three 1080p, 32-frame cameras ingested through a ``ClusterClient``
+   three 1080p, 16-frame cameras ingested through a ``ClusterClient``
    under the 6x8 layout, each onto 2 nodes; an in-process store on the
-   card from the same frames and its numpy oracle; 4 client threads x 8
-   routed scans (``car`` 0-32 of each camera, ``person`` 8-24, full frames
+   card from the same frames and its numpy oracle; 4 client threads x 4
+   routed scans (``car`` 0-16 of each camera, ``person`` 4-12, full frames
    0-16 of cam1), then the same requests straight to each camera's
    primary, p50/p95 and requests/s of both, with the card's
    ``utilization.gpu`` sampled through the ingest and the waves; a second
@@ -114,14 +124,14 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    beta and encode_per_pixel and a finite, non-negative gamma;
 14. serve phase, ``smollm-135m`` at full width (30 layers, d_model 576,
    ``make_serve_config(cfg, 1)``, bf16 weights from the seed) on the card:
-   (a) ``greedy_generate`` of 8 prompts of 512 tokens, 64 new tokens; the
+   (a) ``greedy_generate`` of 8 prompts of 512 tokens, 32 new tokens; the
    prefill launches ``flash_attention`` 30 times; TTFT of the prefill and
    steady decode tokens/s; (b) the same with the prefill attention
    switched to the plain version (a test-only patch of the attention
    module): last-position prefill logits within 5e-2, greedy-token
    agreement printed; (c) the same in f32 at 4 layers: logits within 1e-3,
    greedy agreement >= 0.99; (d) ``ContinuousBatcher(slots=8,
-   max_len=640)`` over 16 requests of 64-512 prompt tokens and 16-64 new
+   max_len=640)`` over 16 requests of 64-512 prompt tokens and 8-32 new
    tokens: every request finishes, 30 launches per wave, stats printed;
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
@@ -129,7 +139,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    the int8 KV cache on the card and on the CPU (B=2): the first layer's
    codes equal but for at most ``INT8_FLIPS`` of them, one apart, a
    decode step from the same codes within 1e-3, greedy agreement >= 0.99
-   over 32 tokens (``_int8_card_vs_cpu``);
+   over 16 tokens (``_int8_card_vs_cpu``);
 15. MoE serve phase, ``qwen3-moe-30b-a3b`` at its published width and
    depth (48 layers, d_model 2048, 32/4 heads of 128, 128 experts top 8,
    capacity factor 1.25, vocab 151,936; ``make_serve_config(cfg, 1)``;
@@ -137,7 +147,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    of bf16 weights drawn on the card from a CUDA generator seeded with
    the seed), with no earlier model resident (free card memory printed
    before the init, the init time after it): (a) ``greedy_generate`` of
-   8 prompts of 512 tokens, 64 new; the prefill launches
+   8 prompts of 512 tokens, 32 new; the prefill launches
    ``flash_attention`` 48 times; TTFT and decode tokens/s; (b) the same
    weights with the plain prefill attention: the last-position logits'
    largest gap and the greedy agreement; per layer, the share of the
@@ -166,7 +176,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    its published width and depth with ``make_serve_config(cfg, 1)`` and
    bf16 weights drawn on the card from a CUDA generator seeded with the
    seed, the card's free memory printed before each init: (a)
-   ``greedy_generate`` of 8 prompts of 512 tokens, 64 new: TTFT, decode
+   ``greedy_generate`` of 8 prompts of 512 tokens, 32 new: TTFT, decode
    tokens/s, init time, peak memory; zamba2's prefill launches
    ``flash_attention`` 6 times, falcon's 0; (b) zamba2 only: the same
    weights with the plain prefill attention and with SDPA (a control):
@@ -184,12 +194,13 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    by ``torch.profiler`` into ``flash_attention``, the scan (the chunk
    loops of ``ssm._mamba1_scan`` / ``ssm._ssd_chunked``), the other
    matmuls and the rest, with the busy share; (c) f32 at 7 (zamba2: one
-   shared-block site and a trailing layer) or 4 layers, full width
+   shared-block site and a trailing layer) or 2 layers, full width
    otherwise, card against CPU on the same weights (B=2): prefill logits
-   within 1e-3, greedy agreement >= 0.99 over 32 tokens, and a prefill of
+   within 1e-3, greedy agreement >= 0.99 over 16 tokens, and a prefill of
    512 tokens (two 256-token chunks) and one decode step within 1e-3 of a
    prefill of 513 (one chunk); (f) ``python -m repro_torch.launch.serve
-   --arch zamba2-1.2b --device cuda`` exits 0;
+   --arch zamba2-1.2b --device cuda`` exits 0 (started as falcon's (c)
+   starts, which leaves the card mostly idle, and waited for after it);
 17. MLA serve phase, once the SSM weights are freed (free card memory
    printed before the init): ``deepseek-v2-lite-16b`` at its published
    width and depth (27 layers, the first dense at d_ff 10944, d_model
@@ -198,7 +209,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    ``make_serve_config(cfg, 1)``; 15,706,484,224 parameters, equal to
    ``analytic_param_count``, 31.4 GB of bf16 weights drawn on the card
    from a CUDA generator seeded with the seed): (a) ``greedy_generate``
-   of 8 prompts of 512 tokens, 64 new; the prefill launches
+   of 8 prompts of 512 tokens, 32 new; the prefill launches
    ``flash_attention`` 27 times at (8,16,16,512, 192 / 128); TTFT, decode
    tokens/s, init time; (b) the same weights with the plain prefill
    attention and with SDPA (a control): the last-position logits' gaps
@@ -212,16 +223,83 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    27 launches per wave; (f) one prefill's and one decode step's device
    time split by ``torch.profiler`` into ``flash_attention``, the expert
    GEMMs, the other matmuls, the dispatch and the rest, with the busy
-   share, and the peak memory; (c) f32 at 4 layers (the dense layer and
-   3 MoE layers), full width otherwise, card against CPU on the same
+   share, and the peak memory; (c) f32 at 2 layers (the dense layer and
+   a MoE layer), full width otherwise, card against CPU on the same
    weights (B=2): prefill logits within 1e-3, greedy agreement >= 0.99
-   over 32 tokens, and on each a prefill of 512 tokens and one absorbed
+   over 16 tokens, and on each a prefill of 512 tokens and one absorbed
    decode step within 1e-3 of a prefill of 513 (at a capacity factor
    where no expert drops a token); the f32 model on the int8 cache, card
    against CPU, as the serve phase holds it; (g) ``python -m
    repro_torch.launch.serve --arch deepseek-v2-lite-16b --device cuda``
-   exits 0, with and without ``--kv-quant``;
-18. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
+   exits 0, with and without ``--kv-quant`` (both beside (c));
+18. encoder-decoder serve phase, once the MLA weights are freed:
+   ``seamless-m4t-medium`` at its published width and depth (12 encoder
+   and 12 decoder layers, d_model 1024, 16 heads of 64 on 16, d_ff 4096,
+   LayerNorm, vocab 256,206; 977,821,696 parameters, equal to
+   ``analytic_param_count``; bf16 weights drawn on the card): (a) a
+   ``make_prefill_step`` prefill of 8 prompts of 512 tokens over frame
+   embeddings [8, 128, 1024] from the seed (``input_specs``' S // 4): the
+   encoder, then the decoder with its cross-attention, 36
+   ``flash_attention`` launches (12 encoder self-attentions at (8,16,16,
+   128,64) unmasked, 12 causal decoder self-attentions at (8,16,16,512,
+   64), 12 cross-attentions of 512 queries over 128 keys); 63 decode
+   steps through ``make_decode_step`` over ``enc_out``, then
+   ``greedy_generate(enc_out=...)``: TTFT, decode tokens/s, init time;
+   (b) the same weights with the plain prefill attention and with SDPA
+   (a control): the last-position logits' gaps, and each of the 36
+   sites' attention output within 2e-2 of the plain version on the same
+   q, k, v, by kind; (d) ``ContinuousBatcher`` refuses the family, as
+   the reference's passes no ``enc_out``; (e) one prefill's and one
+   decode step's device time split by ``torch.profiler`` into
+   ``flash_attention``, matmuls and the rest, with the busy share, and
+   the peak memory; (c) f32 at 2 encoder and 2 decoder layers, full
+   width otherwise, card against CPU on the same weights (B=2): prefill
+   logits within 1e-3, ``greedy_generate(enc_out=...)`` agreement >= 0.99
+   over 16 tokens, and on each a prefill of 512 tokens and one decode
+   step within 1e-3 of a prefill of 513 over the same ``enc_out``;
+19. VLM serve phase, once those weights are freed: ``internvl2-26b`` at
+   its published width and depth (48 layers, d_model 6144, 48 heads of
+   128 on 8, d_ff 16,384, vocab 92,553, the 3200 -> 6144 -> 6144 patch
+   projector with the tanh GELU; 19,918,682,112 parameters, equal to
+   ``analytic_param_count``; 39.8 GB of bf16 weights drawn on the card):
+   (a) a ``make_prefill_step`` prefill of 8 x 128 patch embeddings of
+   width 3,200 and 384 text tokens (``input_specs`` at S=512), 48
+   ``flash_attention`` launches at (8,48,8,512,128), then 63 decode
+   steps from index 512, then ``greedy_generate`` on the 384 text
+   tokens: TTFT, decode tokens/s, init time; (b) the same
+   weights with the plain prefill attention and with SDPA: the logits'
+   gaps and the greedy agreement printed, each site's attention within
+   2e-2 of the plain version on the same q, k, v; (d)
+   ``ContinuousBatcher(slots=8, max_len=640)`` over 16 text requests
+   drawn as the serve phase draws them: every request finishes, 48
+   launches per wave, stats printed; (e) one patch prefill's and one
+   decode step's device time by kind, the busy share and the peak
+   memory; then the pipeline phase (20) on these weights; once they are
+   freed, (c) f32 at 4 layers, full width otherwise, card against CPU
+   (B=2): a patch prefill's logits within 1e-3, ``greedy_generate`` on
+   text prompts with >= 0.99 of 16 tokens equal, on each that prefill
+   one token short plus one decode step within 1e-3 of it, and the
+   pipeline's logits of 1 of its first batch's crops within 1e-3; (f)
+   ``python -m repro_torch.launch.serve --arch internvl2-26b --device
+   cuda`` exits 0 (beside (c));
+20. pipeline phase, the paper's Fig. 2 loop of
+   ``examples/video_analytics_torch.py`` in this process with the
+   full-width internvl2-26b backbone: the example's store on the card
+   (its cost model calibrated there, ``sparse_spec(seed=4, n_frames=96)``
+   ingested under ``RegretPolicy``), ``tasm_region_batches`` streaming 3
+   batches of 4 crops of ``car`` and ``person`` regions (every scan's
+   regions held against the numpy oracle at atol 1e-3, rtol 1e-5 after
+   the background tuner drains), each batch scored by the example's
+   ``score`` (1,024 patch tokens and 8 text tokens a crop, 48
+   ``flash_attention`` launches, finite logits), then ``drain_tuner``;
+   with the counts set to 0 just before the store is built and read after
+   the drain, ``dct_quant``, ``idct_dequant``, ``decode_gop_blocks`` and
+   ``flash_attention`` must all have launched; held against the plain
+   versions: the first call of each ingest kernel, intra and N (equal
+   outputs), and the first batch's crops scored again (after the counts
+   are read), each of the 48 attention sites at (4,48,8,1032,128) within
+   the larger of 2e-2 and one bf16 ulp; a score's device time by kind;
+21. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
    dk, dv from the forward's o and row logsumexp) against its plain
    version, each element over its row's largest |gradient| (``BWD_TOL``:
    2e-4 in f32, 1e-2 in bf16), at the training shape (8, 9, 3, 2048, 64)
@@ -231,7 +309,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    library yardstick, which the port never calls) against the operation
    bound (five causal-halved S^2 D products over the card's peak for the
    type);
-19. train phase, ``smollm-135m`` at its published width (30 layers,
+22. train phase, ``smollm-135m`` at its published width (30 layers,
    d_model 576, vocab 49,152), bf16 params with an f32 master copy, remat
    on: (a) ``TRAIN_STEPS`` steps of ``make_train_step`` at B=8, S=2048 on
    the structured synthetic stream, with the counts set to 0 just before
@@ -249,14 +327,16 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    restored from the step-2 checkpoint bit for bit (``restarts == 1``);
    (e) ``python -m repro_torch.launch.train --device cuda`` for 3 steps
    with ``--checkpoint-dir``, then ``--resume`` to 5;
-20. prints the times of the kernels redesigned for this card (all six:
+23. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
    one JSON line with the kernels' numbers (each kernel's launches on its
-   latest path: ``flash_attention`` on deepseek-v2-lite-16b's
-   ``greedy_generate``, timed at its prefill shape, with the zamba2 and
-   MoE prefills' launches beside it), then as its last
-   line ``{"ok": true, "device": {...}}``.
+   latest path: ``flash_attention`` on seamless-m4t-medium's prefill,
+   timed at its cross-attention shape, with the internvl2-26b prefill's,
+   the pipeline's and the earlier prefills' launches beside it in
+   ``launches_by_path``, and the pipeline's ``dct_quant``,
+   ``idct_dequant`` and ``decode_gop_blocks`` launches beside theirs),
+   then as its last line ``{"ok": true, "device": {...}}``.
 
 f32 products on the card stay f32 (``allow_tf32`` is set False for
 matmuls and cuDNN) in every comparison.
@@ -269,6 +349,7 @@ checkout.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import hashlib
 import json
@@ -350,13 +431,17 @@ LSE_ATOL = 1e-5
 TRAIN_F32 = (2, 2, 256)
 GRAD_RTOL = 1e-4
 SERVE_B, SERVE_S, SERVE_NEW = 8, 512, 64
+#: new tokens of the earlier serve paths (smollm-135m, MoE, SSM, MLA):
+#: cut from SERVE_NEW to hold the smoke within its time limit; the
+#: encoder-decoder and VLM paths decode SERVE_NEW
+EARLY_NEW = 32
 F32_LAYERS = 4
 FLASH_SHAPES = [(2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
                 (8, 9, 3, 512, 64), (1, 9, 3, 4096, 64), (3, 9, 3, 100, 64),
                 (1, 9, 3, 1, 64), (8, 32, 4, 512, 128), (2, 8, 8, 256, 128),
                 (8, 32, 32, 512, 128)]
 BATCH_SLOTS, BATCH_MAX_LEN, BATCH_REQUESTS = 8, 640, 16
-BATCH_PROMPT, BATCH_NEW = (64, 512), (16, 64)
+BATCH_PROMPT, BATCH_NEW = (64, 512), (8, 32)
 FLASH_MAIN = (8, 9, 3, 512, 64)
 FLASH_LONG = (1, 9, 3, 4096, 64)
 #: the (D, D) pairs' outputs over FLASH_SHAPES, causal and not, from
@@ -382,7 +467,8 @@ AGREE_ROUTING = 0.99
 #: falcon-mamba-7b (64 Mamba-1 layers, no attention), with their
 #: parameter counts and depths; zamba2's prefill attention shape; the f32
 #: card-against-CPU check's depths (zamba2's 7 layers hold one
-#: shared-block site and a trailing layer, where 4 would hold no site),
+#: shared-block site and a trailing layer, where 4 would hold no site;
+#: falcon-mamba-7b's 2 hold the scan across a layer boundary),
 #: batch and new tokens (the CPU side's time)
 SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
 SSM_PUBLISHED = {"zamba2-1.2b": (1_279_529_856, 38),
@@ -397,10 +483,58 @@ FLASH_HYBRID = (SERVE_B, 32, 32, SERVE_S, 128)
 MLA_ARCH = "deepseek-v2-lite-16b"
 MLA_PUBLISHED = (15_706_484_224, 27)
 FLASH_MLA = (SERVE_B, 16, 16, SERVE_S, 192, 128)
+#: the f32 card-against-CPU check's depth: the dense layer and one MoE
+#: layer (cut from 4 to hold the smoke within its time limit)
+MLA_F32_LAYERS = 2
 FLASH_MLA_SHAPES = [FLASH_MLA, (2, 4, 2, 256, 192, 128),
                     (3, 16, 16, 100, 192, 128), (1, 16, 16, 1, 192, 128)]
-SSM_F32_LAYERS = {"zamba2-1.2b": 7, "falcon-mamba-7b": 4}
-SSM_F32_B, SSM_F32_NEW = 2, 32
+#: the (192, 128) pair's outputs over FLASH_MLA_SHAPES, as
+#: FLASH_OLD_DIGESTS: sha256 by dtype of the kernel before the keys'
+#: length became a parameter (its source built beside the current one by
+#: ``scripts/torch_kernel_probe.py --flash-only --baseline`` on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W); the current kernel must give these bits
+FLASH_MLA_OLD_DIGESTS = {"bfloat16": "084fb8a8ecf318668cc893180650ecab",
+                         "float32": "6e967481e1afc94d933dc188a35689ff"}
+#: keys of another length than the queries (not causal), (B, H, KV, S,
+#: Skv, Dqk, Dv): seamless-m4t-medium's cross-attention (512 decoder
+#: queries over 128 encoder frames, 16/16 heads of 64), keys longer than
+#: queries, a ragged last key tile, G > 1, and every pair of PAIRS
+FLASH_CROSS = (SERVE_B, 16, 16, SERVE_S, SERVE_S // 4, 64, 64)
+FLASH_CROSS_SHAPES = [FLASH_CROSS, (2, 4, 2, 256, 100, 64, 64),
+                      (3, 8, 8, 100, 37, 128, 128),
+                      (2, 4, 4, 64, 256, 32, 32),
+                      (1, 16, 16, 128, 512, 192, 128)]
+#: internvl2-26b's prefill attention (48 heads on 8 KV heads of 128)
+FLASH_VLM = (SERVE_B, 48, 8, SERVE_S, 128)
+#: the encoder-decoder serve path: seamless-m4t-medium at its published
+#: width and depth (12 encoder and 12 decoder layers, d_model 1024, 16
+#: heads of 64 on 16, d_ff 4096, LayerNorm, vocab 256,206), its parameter
+#: count and depths, and the f32 card-against-CPU check's depths (encoder
+#: and decoder); frames [B, S // 4, d_model], as ``input_specs`` makes
+#: them for S = SERVE_S
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_PUBLISHED = (977_821_696, 12, 12)
+ENCDEC_F32_LAYERS = 2
+#: the VLM serve path: internvl2-26b at its published width and depth (48
+#: layers, d_model 6144, 48 heads of 128 on 8, d_ff 16,384, vocab 92,553,
+#: the 3200 -> 6144 -> 6144 patch projector), its parameter count and
+#: depth, and the f32 card-against-CPU check's depth (4 layers: their f32
+#: weights with the f32 embedding and lm_head are 10.8 GB, on the card and
+#: again on the host); a prefill takes ``input_specs``' S // 4 = 128 patch
+#: embeddings of width 3,200 and 384 text tokens
+VLM_ARCH = "internvl2-26b"
+VLM_PUBLISHED = (19_918_682_112, 48)
+VLM_F32_LAYERS = 4
+#: the paper's pipeline (``examples/video_analytics_torch.py``) at full
+#: width: batches of crops (each crop a prefill of the backbone's 1,024
+#: patch tokens and PIPE_TEXT text tokens), and the crops of the first
+#: batch the f32 model holds card against CPU
+PIPE_BATCHES, PIPE_CROPS, PIPE_TEXT, PIPE_F32_CROPS = 3, 4, 8, 1
+#: the pipeline's prefill attention: 1,024 patch tokens and PIPE_TEXT text
+#: tokens a crop, a ragged last query and key tile
+FLASH_PIPE = (PIPE_CROPS, 48, 8, 1024 + PIPE_TEXT, 128)
+SSM_F32_LAYERS = {"zamba2-1.2b": 7, "falcon-mamba-7b": 2}
+SSM_F32_B, SSM_F32_NEW = 2, 16
 #: the share of the first layer's int8 KV-cache codes that may differ (by
 #: one) between the card and the CPU from the same input: where x / scale
 #: lies within their f32 error of .5 (about 1e-4 in code units)
@@ -421,16 +555,18 @@ SAD_TOL = 1e-5
 MOTION_PAIRS = [(H, W, 8, 8), (720, 1280, 16, 8)]
 PLANT = (3, -2)
 #: the video server phase: client threads, requests per client, queries;
-#: the extra JSON-codec pass (where msgpack is the default) sends each
-#: query once per client (its 1080p replies take about 4 s each)
-SERVER_CLIENTS, SERVER_REQUESTS = 4, 8
+#: the extra JSON-codec pass (where msgpack is the default) sends one
+#: query a client, client k the k-th, so each query goes at least once
+#: (its 1080p replies take about 4 s each)
+SERVER_CLIENTS, SERVER_REQUESTS = 4, 4
 SERVER_QUERIES = [("frame", (0, 16)), ("car", (0, 64)), ("car", (16, 48))]
-SERVER_REQUESTS_JSON = len(SERVER_QUERIES)
+SERVER_REQUESTS_JSON = 1
 CLI_SPEC = (192, 320, 32)
-#: the cluster phase: 1080p cameras of CLUSTER_FRAMES frames each (a
-#: 265 MB f32 ingest, just under the default 256 MiB frame cap, so nodes,
-#: router and clients take CLUSTER_FRAME_MB), and the retile's layout
-CLUSTER_CAMS, CLUSTER_FRAMES, CLUSTER_FRAME_MB = 3, 32, 1024
+#: the cluster phase: 1080p cameras of CLUSTER_FRAMES frames each (one
+#: GOP: a 133 MB f32 ingest; nodes, router and clients take
+#: CLUSTER_FRAME_MB, past the default 256 MiB frame cap), and the
+#: retile's layout
+CLUSTER_CAMS, CLUSTER_FRAMES, CLUSTER_FRAME_MB = 3, 16, 1024
 CLUSTER_RETILE = (2, 2)
 
 #: device ms of the redesigned kernels before their redesign, at the main
@@ -1106,6 +1242,49 @@ def _port_env() -> dict:
             "PYTHONPATH", "").split(os.pathsep) if p]))
 
 
+class _Launcher:
+    """``python -m module *args`` started in the background, its output
+    sent to temporary files, so that a check that leaves the card mostly
+    idle (an f32 model held against the CPU) runs meanwhile;
+    ``finish()`` waits for it, checks that it exited 0, prints its wall
+    time and output after ``label`` and returns its standard output.  A
+    run that fails before ``finish()`` kills it at exit."""
+
+    def __init__(self, label: str, module: str, *args: str):
+        self.label, self.argv = label, [module, *args]
+        self.out = tempfile.TemporaryFile("w+")
+        self.err = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", *self.argv],
+                                     env=_port_env(), stdout=self.out,
+                                     stderr=self.err, text=True)
+        atexit.register(self._stop)
+
+    def _stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self, timeout: float = 600) -> str:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise
+        wall = time.perf_counter() - self.t0
+        outs = []
+        for f in (self.out, self.err):
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+        what = "python -m " + " ".join(self.argv)
+        check(rc == 0, f"{what} exited {rc}: {outs[1]}")
+        print(f"{self.label} {what}: exit 0 in {wall:.3f} s: " +
+              " | ".join(outs[0].strip().splitlines()), flush=True)
+        return outs[0]
+
+
 def cli_server_phase(seed: int) -> None:
     """``python -m repro_torch.tasm_serve --device cuda`` as a subprocess
     over a small store root: ``ping``, ``config()``, one scan, and a clean
@@ -1286,7 +1465,7 @@ def _router_admin(router_sock: str, *args: str) -> tuple:
 
 def _cluster_wave(opener, route, queries, want, what: str,
                   on_reply=None) -> tuple:
-    """4 client threads, 8 requests each cycling over ``queries``; a
+    """4 client threads, 4 requests each cycling over ``queries``; a
     thread sends a query to ``route(camera)`` over its own client
     ``opener(address)`` and holds every reply bit for bit against
     ``want``; ``on_reply`` sees the count of replies so far.  Returns
@@ -1386,8 +1565,8 @@ def cluster_phase(seed: int) -> None:
              for k, cam in enumerate(cams)}
     gen_s = time.perf_counter() - t0
     queries = ([(cam, "car", (0, n)) for cam in cams]
-               + [(cam, "person", (8, 24)) for cam in cams]
-               + [("cam1", "frame", (0, 16))])
+               + [(cam, "person", (n // 4, 3 * n // 4)) for cam in cams]
+               + [("cam1", "frame", (0, GOP))])
 
     counted, used0 = _contexts()
     check(counted <= 1, f"cluster: {counted} contexts on the card before "
@@ -1713,6 +1892,31 @@ def _qkv(rng, b, h, kv, s, d, dtype, dv=None):
             for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv or d))]
 
 
+def _qkv_cross(rng, shape, dtype):
+    """q [B, H, S, Dqk], k [B, KV, Skv, Dqk] and v [B, KV, Skv, Dv] from
+    ``rng`` on the card, for ``shape`` (B, H, KV, S, Skv, Dqk, Dv)."""
+    b, h, kv, s, skv, d, dv = shape
+    return [torch.from_numpy(rng.standard_normal(x, dtype=np.float32))
+            .to(DEVICE, dtype)
+            for x in ((b, h, s, d), (b, kv, skv, d), (b, kv, skv, dv))]
+
+
+def cross_bound_ms(shape, dtype) -> tuple[float, str]:
+    """Least time for one attention of S queries over Skv keys (not
+    causal), ``shape`` (B, H, KV, S, Skv, Dqk, Dv): q and o ([B, H, S,
+    Dqk] and [B, H, S, Dv]) and k and v ([B, KV, Skv, Dqk] and [B, KV,
+    Skv, Dv]) moved once over the HBM rate, against the QK^T and PV
+    products over all S x Skv pairs over the card's peak for the type."""
+    b, h, kv, s, skv, d, dv = shape
+    elt = torch.finfo(dtype).bits // 8
+    n_bytes = b * (h * s + kv * skv) * (d + dv) * elt
+    flops = 2 * b * h * (d + dv) * s * skv
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def flash_bound_ms(shape, dtype, causal: bool) -> tuple[float, str]:
     """Least time for one attention: q, k, v read and o written once over
     the HBM rate, against the products these inputs need (QK^T over Dqk
@@ -1731,16 +1935,18 @@ def flash_bound_ms(shape, dtype, causal: bool) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_digests(call) -> dict:
+def flash_digests(call, shapes=None) -> dict:
     """{dtype name: sha256 of the outputs of ``call(q, k, v, causal)``
-    over FLASH_SHAPES (the (D, D) pairs), causal and not, on ``randn``
-    inputs from DIGEST_SEED}: the same bits give the same digests."""
+    over ``shapes`` (FLASH_SHAPES, the (D, D) pairs, unless given), causal
+    and not, on ``randn`` inputs from DIGEST_SEED}: the same bits give the
+    same digests."""
     rng = np.random.default_rng(DIGEST_SEED)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         digest = hashlib.sha256()
-        for shape in FLASH_SHAPES:
-            q, k, v = _qkv(rng, *shape, dtype)
+        for shape in shapes or FLASH_SHAPES:
+            q, k, v = _qkv(rng, *shape[:5], dtype,
+                           dv=shape[5] if len(shape) > 5 else None)
             for causal in (True, False):
                 o = call(q, k, v, causal=causal)
                 digest.update(o.contiguous().view(-1).view(torch.uint8)
@@ -1750,14 +1956,14 @@ def flash_digests(call) -> dict:
 
 
 def flash_kernel_phase(seed: int) -> dict:
-    from repro_torch.kernels.flash_attention import (attention_ref,
+    from repro_torch.kernels.flash_attention import (LAUNCHES, attention_ref,
                                                      flash_attention)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(seed + 2)
     worst = 0.0
     timed = {}
-    for shape in FLASH_SHAPES + FLASH_MLA_SHAPES:
+    for shape in FLASH_SHAPES + [FLASH_VLM, FLASH_PIPE] + FLASH_MLA_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv(rng, *shape[:5], dtype,
                            dv=shape[5] if len(shape) > 5 else None)
@@ -1771,7 +1977,8 @@ def flash_kernel_phase(seed: int) -> dict:
                       f"{causal}: max |diff| {err} > {FLASH_TOL[dtype]}")
                 worst = max(worst, err)
             if shape not in (FLASH_MAIN, FLASH_LONG, FLASH_MOE,
-                             FLASH_HYBRID, FLASH_MLA) \
+                             FLASH_HYBRID, FLASH_MLA, FLASH_VLM,
+                             FLASH_PIPE) \
                     or dtype != torch.bfloat16:
                 continue
             k_ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
@@ -1788,19 +1995,65 @@ def flash_kernel_phase(seed: int) -> dict:
                   f"{t_bytes[0]:.6f} ms, {t_bytes[1]})", flush=True)
             timed[shape] = dict(ms=k_ms, plain_ms=r_ms, library_ms=l_ms,
                                 bound_ms=b_ms, bound_by=b_by)
+    # keys of another length than the queries: not causal only
+    for shape in FLASH_CROSS_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv_cross(rng, shape, dtype)
+            got = flash_attention(q, k, v, causal=False)
+            want = attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            check(tuple(got.shape) == (*shape[:2], shape[3], shape[6])
+                  and err <= FLASH_TOL[dtype],
+                  f"flash_attention vs plain {shape} {dtype} (S={shape[3]} "
+                  f"over Skv={shape[4]}): max |diff| {err} > "
+                  f"{FLASH_TOL[dtype]}")
+            worst = max(worst, err)
+            print(f"flash_attention {shape} {str(dtype)[6:]} S={shape[3]} "
+                  f"over Skv={shape[4]}, not causal: max_abs_err={err:.3g}",
+                  flush=True)
+    before = LAUNCHES.count
+    try:
+        flash_attention(q, k, v, causal=True)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and LAUNCHES.count == before,
+          "causal flash_attention with two lengths was not refused")
+    q, k, v = _qkv_cross(rng, FLASH_CROSS, torch.bfloat16)
+    k_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=False), iters=20)
+    r_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=False), iters=3,
+                   warmup=1)
+    l_ms = cuda_ms(lambda: sdpa(q, k, v), iters=20)
+    b_ms, b_by = cross_bound_ms(FLASH_CROSS, torch.bfloat16)
+    print(f"flash_attention {FLASH_CROSS} bf16 cross (S={FLASH_CROSS[3]} "
+          f"over Skv={FLASH_CROSS[4]}): kernel_ms={k_ms:.6f} plain_ms="
+          f"{r_ms:.6f} sdpa_ms={l_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+          f"share_of_bound={b_ms / k_ms:.3f}; causal with two lengths "
+          f"refused", flush=True)
+    cross = dict(ms=k_ms, plain_ms=r_ms, library_ms=l_ms, bound_ms=b_ms,
+                 bound_by=b_by)
     digests = flash_digests(flash_attention)
+    mla_digests = flash_digests(flash_attention, FLASH_MLA_SHAPES)
     print(f"flash_attention (D, D) pairs over {len(FLASH_SHAPES)} shapes, "
           f"causal and not: sha256 {digests}, the kernel before v's width "
-          f"became a parameter {FLASH_OLD_DIGESTS}", flush=True)
+          f"became a parameter {FLASH_OLD_DIGESTS}; (192, 128) over "
+          f"{len(FLASH_MLA_SHAPES)} shapes: {mla_digests}, the kernel "
+          f"before the keys' length became a parameter "
+          f"{FLASH_MLA_OLD_DIGESTS}", flush=True)
     check(digests == FLASH_OLD_DIGESTS,
           "flash_attention's (D, D) pairs are not the earlier kernel's bits")
+    check(mla_digests == FLASH_MLA_OLD_DIGESTS,
+          "flash_attention's (192, 128) pair is not the earlier kernel's "
+          "bits")
     q, k, v = _qkv(rng, 1, 9, 3, 16, 64, torch.bfloat16)
     qm, km, vm = _qkv(rng, 1, 16, 16, 16, 192, torch.bfloat16, dv=128)
-    # the JSON line reports the MLA prefill shape, the latest main path
-    at_main = dict(timed[FLASH_MLA], max_abs_err=worst,
+    # the JSON line reports the cross-attention shape, this slice's case
+    at_main = dict(cross, max_abs_err=worst,
                    host_us=host_us(lambda: flash_attention(qm, km, vm)),
                    smollm_ms=timed[FLASH_MAIN]["ms"],
-                   long_ms=timed[FLASH_LONG]["ms"])
+                   long_ms=timed[FLASH_LONG]["ms"],
+                   mla_ms=timed[FLASH_MLA]["ms"])
     print(f"flash_attention max_abs_err={worst:.3g} wrapper host cost: "
           f"{host_us(lambda: flash_attention(q, k, v)):.3f} us/call at "
           f"(1, 9, 3, 16, 64), {at_main['host_us']:.3f} us/call at (1, 16, "
@@ -2080,43 +2333,56 @@ def _device_split(what: str, fn, *, bwd: bool = False) -> dict:
     return split
 
 
-def _generate(model, cfg, prompts) -> tuple:
-    """(prefill logits, greedy tokens [B, SERVE_NEW], TTFT s, decode tok/s,
-    generate wall s, launches of ``greedy_generate``): one timed prefill
-    and decode loop, then ``greedy_generate`` itself with the counts set
-    to 0 just before it and read just after."""
+def _generate(model, cfg, prompts, *, prefill_extra=None, decode_extra=None,
+              start=None, new=SERVE_NEW, timed=True) -> tuple:
+    """(prefill logits, greedy tokens [B, new], TTFT s, decode tok/s,
+    generate wall s, launches of the prefill): one prefill of ``prompts``
+    and ``prefill_extra`` (an encoder-decoder's frames, a VLM's patch
+    embeddings) through ``make_prefill_step``, timed, with the counts set
+    to 0 just before it and read just after; if ``timed``, ``new`` - 1
+    decode steps from ``start`` (the prompts' length unless given) with
+    ``decode_extra`` (``enc_out``), timed (else decode tok/s is None);
+    then ``greedy_generate`` of ``new`` tokens on the prompts with
+    ``decode_extra``."""
     from repro_torch.serve import (greedy_generate, make_decode_step,
                                    make_prefill_step)
 
     prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
     decode = make_decode_step(cfg, device=DEVICE)
+    extra = decode_extra or {}
+    start = prompts.shape[1] if start is None else start
+    tok_s = None
     with torch.no_grad():
         torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
-        logits, caches = prefill(model, {"tokens": prompts})
+        logits, caches = prefill(model, {"tokens": prompts,
+                                         **(prefill_extra or {})})
         torch.cuda.synchronize()
         ttft = time.perf_counter() - t0
+        launches = read_counts()
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        if timed:
+            t0 = time.perf_counter()
+            for i in range(new - 1):
+                step, caches = decode(model, caches,
+                                      {"tokens": tok, **extra}, start + i)
+                tok = torch.argmax(step[:, -1], dim=-1)[:, None]
+            torch.cuda.synchronize()
+            tok_s = prompts.shape[0] * (new - 1) / (time.perf_counter()
+                                                    - t0)
         t0 = time.perf_counter()
-        for i in range(SERVE_NEW - 1):
-            step, caches = decode(model, caches, {"tokens": tok},
-                                  SERVE_S + i)
-            tok = torch.argmax(step[:, -1], dim=-1)[:, None]
+        out = greedy_generate(model, cfg, prompts, max_new=new,
+                              device=DEVICE, **extra)
         torch.cuda.synchronize()
-        tok_s = SERVE_B * (SERVE_NEW - 1) / (time.perf_counter() - t0)
-    reset_counts()
-    t0 = time.perf_counter()
-    out = greedy_generate(model, cfg, prompts, max_new=SERVE_NEW,
-                          device=DEVICE)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return logits, out, ttft, tok_s, wall, read_counts()
+        wall = time.perf_counter() - t0
+    return logits, out, ttft, tok_s, wall, launches
 
 
 def _batcher_run(what: str, cfg, model, rng, *, per_wave=None,
                  repeat: bool = False) -> dict:
     """``ContinuousBatcher(slots=8, max_len=640)`` over 16 requests of
-    64-512 prompt tokens and 16-64 new tokens drawn from ``rng``: every
+    64-512 prompt tokens and 8-32 new tokens drawn from ``rng``: every
     request finishes with its tokens, ``per_wave`` ``flash_attention``
     launches per wave (one per layer unless given; counts set to 0 just
     before the run, read just after); returns the stats.  With
@@ -2187,23 +2453,24 @@ def serve_phase(seed: int) -> dict:
     greedy_generate(model, cfg, prompts[:, :64], max_new=2, device=DEVICE)
 
     # (a) the main path through the kernel
-    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts)
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts,
+                                                         new=EARLY_NEW)
     check(launches["flash_attention"] == cfg.n_layers,
-          f"greedy_generate launched flash_attention "
+          f"the prefill launched flash_attention "
           f"{launches['flash_attention']} times, want {cfg.n_layers} (one "
           f"prefill)")
-    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+    check(tuple(out.shape) == (SERVE_B, EARLY_NEW)
           and bool(torch.isfinite(logits).all()),
           f"greedy_generate gave {tuple(out.shape)}")
-    print(f"serve (a) B={SERVE_B} S={SERVE_S} new={SERVE_NEW}: "
+    print(f"serve (a) B={SERVE_B} S={SERVE_S} new={EARLY_NEW}: "
           f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
           f"greedy_generate_wall_s={wall:.6f} launches={launches}",
           flush=True)
 
     # (b) the same model with the plain prefill attention
     with _plain_prefill_attention():
-        p_logits, p_out, p_ttft, _, _, p_launches = _generate(model, cfg,
-                                                              prompts)
+        p_logits, p_out, p_ttft, _, _, p_launches = _generate(
+            model, cfg, prompts, new=EARLY_NEW, timed=False)
     check(p_launches["flash_attention"] == 0,
           "the plain prefill launched the kernel")
     err = float((logits - p_logits).abs().max())
@@ -2218,11 +2485,13 @@ def serve_phase(seed: int) -> dict:
     cfg32 = _serve_config(param_dtype="float32", compute_dtype="float32",
                           n_layers=F32_LAYERS)
     m32 = init_model(cfg32, seed, device=DEVICE)
-    l32, o32, _, _, _, k32 = _generate(m32, cfg32, prompts)
+    l32, o32, _, _, _, k32 = _generate(m32, cfg32, prompts, new=EARLY_NEW,
+                                       timed=False)
     check(k32["flash_attention"] == F32_LAYERS,
-          f"f32 greedy_generate launched {k32}")
+          f"f32 prefill launched {k32}")
     with _plain_prefill_attention():
-        pl32, po32, _, _, _, _ = _generate(m32, cfg32, prompts)
+        pl32, po32, _, _, _, _ = _generate(m32, cfg32, prompts,
+                                           new=EARLY_NEW, timed=False)
     err32 = float((l32 - pl32).abs().max())
     agree32 = float((o32 == po32).float().mean())
     print(f"serve (c) f32, {F32_LAYERS} layers, kernel vs plain: logits "
@@ -2611,23 +2880,24 @@ def moe_serve_phase(seed: int) -> int:
     greedy_generate(model, cfg, prompts[:, :64], max_new=2, device=DEVICE)
 
     # (a) the main path through the kernel
-    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts)
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts,
+                                                         new=EARLY_NEW)
     check(launches["flash_attention"] == cfg.n_layers,
-          f"moe greedy_generate launched flash_attention "
+          f"moe prefill launched flash_attention "
           f"{launches['flash_attention']} times, want {cfg.n_layers} (one "
           f"prefill)")
-    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+    check(tuple(out.shape) == (SERVE_B, EARLY_NEW)
           and bool(torch.isfinite(logits).all()),
           f"moe greedy_generate gave {tuple(out.shape)}")
-    print(f"moe serve (a) B={SERVE_B} S={SERVE_S} new={SERVE_NEW}: "
+    print(f"moe serve (a) B={SERVE_B} S={SERVE_S} new={EARLY_NEW}: "
           f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
           f"greedy_generate_wall_s={wall:.6f} launches={launches}",
           flush=True)
 
     # (b) the same weights with the plain prefill attention
     with _plain_prefill_attention():
-        p_logits, p_out, p_ttft, _, _, p_launches = _generate(model, cfg,
-                                                              prompts)
+        p_logits, p_out, p_ttft, _, _, p_launches = _generate(
+            model, cfg, prompts, new=EARLY_NEW, timed=False)
     check(p_launches["flash_attention"] == 0,
           "the plain prefill launched the kernel")
     prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
@@ -2703,11 +2973,13 @@ def moe_serve_phase(seed: int) -> int:
     cfg32 = _moe_config(param_dtype="float32", compute_dtype="float32",
                         n_layers=F32_LAYERS)
     m32 = _init_on_card(cfg32, seed)
-    l32, o32, _, _, _, k32 = _generate(m32, cfg32, prompts)
+    l32, o32, _, _, _, k32 = _generate(m32, cfg32, prompts, new=EARLY_NEW,
+                                       timed=False)
     check(k32["flash_attention"] == F32_LAYERS,
-          f"f32 moe greedy_generate launched {k32}")
+          f"f32 moe prefill launched {k32}")
     with _plain_prefill_attention():
-        pl32, po32, _, _, _, _ = _generate(m32, cfg32, prompts)
+        pl32, po32, _, _, _, _ = _generate(m32, cfg32, prompts,
+                                           new=EARLY_NEW, timed=False)
     err32 = float((l32 - pl32).abs().max())
     agree32 = float((o32 == po32).float().mean())
     print(f"moe serve (c) f32, {F32_LAYERS} layers, kernel vs plain: logits "
@@ -2727,9 +2999,15 @@ def moe_serve_phase(seed: int) -> int:
 # ------------------------------------------------ SSM and hybrid serving
 class _AttentionBesidePlain:
     """A test-only patch: every full-sequence attention of the model runs
-    the kernel and, on the same q, k and v, the plain version; the
-    largest |difference| of each call is kept, and the kernel's output
-    goes on."""
+    the kernel and, on the same q, k and v, the plain version and SDPA (a
+    control); kept for each call: the largest |kernel - plain| (``errs``)
+    and |SDPA - plain| (``sdpa_errs``), the plain output's largest |o|
+    (``mags``), the largest |kernel - plain| over the larger of the
+    dtype's FLASH_TOL and one ulp of the plain output at that element
+    (``over``: at most 1 where every element is within the tolerance, or
+    within one rounding step of the plain value where that step is
+    coarser), and the call's (causal, S, Skv); the kernel's output goes
+    on."""
 
     def __enter__(self):
         from unittest import mock
@@ -2737,13 +3015,23 @@ class _AttentionBesidePlain:
         from repro_torch.kernels.flash_attention import attention_ref
         from repro_torch.models import attention
 
-        self.errs, real = [], attention.flash_attention_op
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        self.errs, self.calls, self.sdpa_errs = [], [], []
+        self.mags, self.over = [], []
+        real = attention.flash_attention_op
 
         def op(q, k, v, causal=True):
             got = real(q, k, v, causal=causal)
-            want = attention_ref(q, k, v, causal=causal)
-            self.errs.append(float((got.float() - want.float())
-                                   .abs().max()))
+            want = attention_ref(q, k, v, causal=causal).float()
+            err = (got.float() - want).abs()
+            self.errs.append(float(err.max()))
+            self.sdpa_errs.append(float((sdpa(
+                q, k, v, is_causal=causal, enable_gqa=True).float()
+                - want).abs().max()))
+            self.mags.append(float(want.abs().max()))
+            self.over.append(float((err / torch.clamp(
+                _ulp(want, got.dtype), min=FLASH_TOL[got.dtype])).max()))
+            self.calls.append((bool(causal), q.shape[2], k.shape[2]))
             return got
 
         self._patch = mock.patch.object(attention, "flash_attention_op", op)
@@ -2752,6 +3040,49 @@ class _AttentionBesidePlain:
 
     def __exit__(self, *exc):
         self._patch.stop()
+
+
+class _CodecBesidePlain:
+    """A test-only patch of the encoder's ``dct_quant_op`` and
+    ``idct_dequant_op``: the first call of each (kernel, intra, N) also
+    runs the kernel's plain version on the same input; kept: the outputs
+    that differ from it (``diffs``, by that key; both round as their plain
+    versions do, so none may); the kernel's output goes on."""
+
+    def __enter__(self):
+        from unittest import mock
+
+        from repro_torch.kernels.dct import dct_quant_ref
+        from repro_torch.kernels.dct import ops as dct_ops
+        from repro_torch.kernels.idct import idct_dequant_ref
+        from repro_torch.kernels.idct import ops as idct_ops
+
+        self.diffs, self._patches = {}, []
+        for mod, name, plain in ((dct_ops, "dct_quant_op", dct_quant_ref),
+                                 (idct_ops, "idct_dequant_op",
+                                  idct_dequant_ref)):
+            def op(x, *, qp, intra, real=getattr(mod, name), plain=plain,
+                   name=name):
+                got = real(x, qp=qp, intra=intra)
+                key = (name, bool(intra), x.shape[0])
+                if key not in self.diffs:
+                    self.diffs[key] = int((got != plain(x, qp, intra)).sum())
+                return got
+
+            self._patches.append(mock.patch.object(mod, name, op))
+            self._patches[-1].start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self._patches:
+            patch.stop()
+
+
+def _ulp(x: torch.Tensor, dtype) -> torch.Tensor:
+    """One ulp of ``dtype`` at each |x| (x in f32): 2^(e - 1) eps for
+    |x| in [2^(e - 1), 2^e)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.full_like(x, torch.finfo(dtype).eps), e - 1)
 
 
 def _ssm_device_split(what: str, fn) -> dict:
@@ -2829,9 +3160,10 @@ def _ssm_f32_card_vs_cpu(arch: str, seed: int, rng) -> None:
           f"{chunk_err}")
 
 
-def _ssm_serve_one(arch: str, seed: int) -> int:
+def _ssm_serve_one(arch: str, seed: int, beside_c=()) -> int:
     """One SSM or hybrid model served at full width; returns the
-    ``flash_attention`` launches of its ``greedy_generate``."""
+    ``flash_attention`` launches of its prefill.  The ``_Launcher``
+    arguments of ``beside_c`` run beside its f32 check (c)."""
     from repro_torch.models import zoo
     from repro_torch.serve import (greedy_generate, make_decode_step,
                                    make_prefill_step)
@@ -2866,14 +3198,15 @@ def _ssm_serve_one(arch: str, seed: int) -> int:
     greedy_generate(model, cfg, prompts[:, :64], max_new=2, device=DEVICE)
 
     # (a) the main path
-    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts)
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts,
+                                                         new=EARLY_NEW)
     check(launches["flash_attention"] == sites,
-          f"{arch} greedy_generate launched flash_attention "
+          f"{arch} prefill launched flash_attention "
           f"{launches['flash_attention']} times, want {sites} (one prefill)")
-    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+    check(tuple(out.shape) == (SERVE_B, EARLY_NEW)
           and bool(torch.isfinite(logits).all()),
           f"{arch} greedy_generate gave {tuple(out.shape)}")
-    print(f"{label} (a) B={SERVE_B} S={SERVE_S} new={SERVE_NEW}: "
+    print(f"{label} (a) B={SERVE_B} S={SERVE_S} new={EARLY_NEW}: "
           f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
           f"greedy_generate_wall_s={wall:.6f} launches={launches}",
           flush=True)
@@ -2885,7 +3218,7 @@ def _ssm_serve_one(arch: str, seed: int) -> int:
     if sites:
         with _plain_prefill_attention():
             p_logits, p_out, p_ttft, _, _, p_launches = _generate(
-                model, cfg, prompts)
+                model, cfg, prompts, new=EARLY_NEW, timed=False)
         with torch.no_grad():
             with _sdpa_prefill_attention():
                 s_logits, _ = prefill(model, {"tokens": prompts})
@@ -2944,38 +3277,31 @@ def _ssm_serve_one(arch: str, seed: int) -> int:
           f"through (e))={torch.cuda.max_memory_allocated()}", flush=True)
     del model, state, prefill, decode, emb
     _free_card(f"{label} (c)")
+    launchers = [_Launcher(*a) for a in beside_c]
     _ssm_f32_card_vs_cpu(arch, seed, rng)
+    for launcher in launchers:
+        launcher.finish()
     return launches["flash_attention"]
-
-
-def _ssm_launcher() -> None:
-    """(f): ``python -m repro_torch.launch.serve --arch zamba2-1.2b
-    --device cuda`` exits 0."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         SSM_ARCHS[0], "--device", DEVICE], env=_port_env(),
-        capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0,
-          f"launch.serve exited {proc.returncode}: {proc.stderr}")
-    print(f"ssm serve (f) launch.serve --arch {SSM_ARCHS[0]}: exit 0 in "
-          f"{time.perf_counter() - t0:.3f} s: " +
-          " | ".join(proc.stdout.strip().splitlines()), flush=True)
 
 
 def ssm_serve_phase(seed: int) -> int:
     """The SSM and hybrid families served at full width and depth, after
     the MoE weights are freed; returns zamba2's ``greedy_generate``
     launches of ``flash_attention``."""
-    launches = {arch: _ssm_serve_one(arch, seed) for arch in SSM_ARCHS}
-    _ssm_launcher()
-    return launches[SSM_ARCHS[0]]
+    zamba2, falcon = SSM_ARCHS
+    first = _ssm_serve_one(zamba2, seed)
+    # (f) python -m repro_torch.launch.serve --arch zamba2-1.2b --device
+    # cuda exits 0, beside falcon's f32 check
+    _ssm_serve_one(falcon, seed, beside_c=[(
+        "ssm serve (f)", "repro_torch.launch.serve", "--arch", zamba2,
+        "--device", DEVICE)])
+    return first
 
 
 # ---------------------------------------------------------------- MLA serving
 def _mla_f32_card_vs_cpu(seed: int, rng) -> None:
-    """(c) and the f32 half of (d): f32 at F32_LAYERS layers (the dense
-    layer and 3 MoE layers), full width otherwise, the same weights on
+    """(c) and the f32 half of (d): f32 at MLA_F32_LAYERS layers (the
+    dense layer and a MoE layer), full width otherwise, the same weights on
     the card and on the CPU (B=SSM_F32_B): prefill logits within 1e-3,
     greedy agreement over SSM_F32_NEW tokens at least 0.99; on each
     device a prefill of 512 tokens and one absorbed decode step against
@@ -2990,7 +3316,7 @@ def _mla_f32_card_vs_cpu(seed: int, rng) -> None:
     from repro_torch.serve import greedy_generate, make_prefill_step
 
     cfg = _arch_config(MLA_ARCH, param_dtype="float32",
-                       compute_dtype="float32", n_layers=F32_LAYERS)
+                       compute_dtype="float32", n_layers=MLA_F32_LAYERS)
     model = _init_on_card(cfg, seed)
     cpu = _on_cpu(model, cfg)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
@@ -3046,25 +3372,6 @@ def _mla_f32_card_vs_cpu(seed: int, rng) -> None:
     _int8_card_vs_cpu("mla serve (d)", model, cfg, head)
 
 
-def _mla_launcher() -> None:
-    """(g): ``python -m repro_torch.launch.serve --arch
-    deepseek-v2-lite-16b --device cuda`` exits 0, with and without
-    ``--kv-quant``."""
-    for quant in ((), ("--kv-quant",)):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             MLA_ARCH, "--device", DEVICE, *quant], env=_port_env(),
-            capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0,
-              f"launch.serve {quant} exited {proc.returncode}: "
-              f"{proc.stderr}")
-        print(f"mla serve (g) launch.serve --arch {MLA_ARCH} "
-              f"{' '.join(quant)}: exit 0 in {time.perf_counter() - t0:.3f} "
-              f"s: " + " | ".join(proc.stdout.strip().splitlines()),
-              flush=True)
-
-
 def mla_serve_phase(seed: int) -> int:
     """The MLA family served at full width and depth, after the SSM
     weights are freed; returns the launches of the main path's
@@ -3112,15 +3419,16 @@ def mla_serve_phase(seed: int) -> int:
     greedy_generate(model, cfg, prompts[:, :64], max_new=2, device=DEVICE)
 
     # (a) the main path through the kernel
-    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts)
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts,
+                                                         new=EARLY_NEW)
     check(launches["flash_attention"] == cfg.n_layers,
-          f"mla greedy_generate launched flash_attention "
+          f"mla prefill launched flash_attention "
           f"{launches['flash_attention']} times, want {cfg.n_layers} (one "
           f"prefill)")
-    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+    check(tuple(out.shape) == (SERVE_B, EARLY_NEW)
           and bool(torch.isfinite(logits).all()),
           f"mla greedy_generate gave {tuple(out.shape)}")
-    print(f"{label} (a) B={SERVE_B} S={SERVE_S} new={SERVE_NEW}: "
+    print(f"{label} (a) B={SERVE_B} S={SERVE_S} new={EARLY_NEW}: "
           f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
           f"greedy_generate_wall_s={wall:.6f} launches={launches}",
           flush=True)
@@ -3129,8 +3437,8 @@ def mla_serve_phase(seed: int) -> int:
     # control, each site's attention against the plain version on the
     # same q, k, v, and the routing of each layer from the same input
     with _plain_prefill_attention():
-        p_logits, p_out, p_ttft, _, _, p_launches = _generate(model, cfg,
-                                                              prompts)
+        p_logits, p_out, p_ttft, _, _, p_launches = _generate(
+            model, cfg, prompts, new=EARLY_NEW, timed=False)
     check(p_launches["flash_attention"] == 0,
           "the plain prefill launched the kernel")
     prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
@@ -3167,10 +3475,10 @@ def mla_serve_phase(seed: int) -> int:
     # (d) the int8 latent cache on the same weights
     qcfg = dataclasses.replace(cfg, kv_cache_quant=True)
     q_logits, q_out, q_ttft, q_tok_s, _, q_launches = _generate(
-        model, qcfg, prompts)
+        model, qcfg, prompts, new=EARLY_NEW)
     check(q_launches["flash_attention"] == cfg.n_layers
           and bool(torch.isfinite(q_logits).all()),
-          f"int8 mla greedy_generate: launches {q_launches}, finite "
+          f"int8 mla prefill: launches {q_launches}, finite "
           f"{bool(torch.isfinite(q_logits).all())}")
     print(f"{label} (d) bf16 on the int8 latent cache: ttft_s={q_ttft:.6f} "
           f"decode_tok_per_s={q_tok_s:.3f}; vs the float cache: "
@@ -3213,11 +3521,613 @@ def mla_serve_phase(seed: int) -> int:
     del model, state, prefill, decode, attn
     gc.collect()
     _free_card(f"{label} (c)")
+    # (g) python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    # --device cuda exits 0, with and without --kv-quant, beside (c)
+    launchers = [_Launcher(f"{label} (g)", "repro_torch.launch.serve",
+                           "--arch", MLA_ARCH, "--device", DEVICE, *quant)
+                 for quant in ((), ("--kv-quant",))]
     _mla_f32_card_vs_cpu(seed, rng)
+    for launcher in launchers:
+        launcher.finish()
+    return launches["flash_attention"]
+
+
+# --------------------------------------- encoder-decoder and VLM serving
+def _split_line(label: str, what: str, fn, wall_s: float) -> None:
+    """Print the device time of ``fn()`` split into ``flash_attention``,
+    the matmuls and the rest (``torch.profiler``), and the device's busy
+    share of ``wall_s``, the call's unprofiled wall time."""
+    split = _device_split(f"{label} {what}", fn)
+    busy = (None if split["other_ms"] is None
+            else sum(split.values()) / 1e3 / wall_s)
+    print(f"{label} one {what}, device time (torch.profiler): " +
+          " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
+                   for k, v in split.items()) +
+          f"; device busy share of its wall time ({wall_s:.6f} s, "
+          f"unprofiled): {'not measured' if busy is None else f'{busy:.4f}'}",
+          flush=True)
+
+
+def _site_line(sites) -> str:
+    """A prefill's attention calls by kind, (causal, S, Skv): the calls,
+    the largest |kernel - plain|, the largest |SDPA - plain| (control),
+    the largest plain |o|, and the largest error over the larger of 2e-2
+    and one ulp of the plain output (the gate: at most 1)."""
+    kinds = {}
+    for i, call in enumerate(sites.calls):
+        n, *worst = kinds.get(call, (0, 0.0, 0.0, 0.0, 0.0))
+        kinds[call] = (n + 1, *(max(a, b) for a, b in zip(worst, (
+            sites.errs[i], sites.sdpa_errs[i], sites.mags[i],
+            sites.over[i]))))
+    return "; ".join(
+        f"causal={c} S={s} Skv={kv}: {n} calls, max {e:.6g} (SDPA {se:.6g})"
+        f", max |o| {m:.4g}, over max(2e-2, ulp) {o:.4f}"
+        for (c, s, kv), (n, e, se, m, o) in kinds.items())
+
+
+def _prefill_specs(cfg) -> dict:
+    """``input_specs`` of a B=SERVE_B, S=SERVE_S prefill (meta tensors)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import input_specs
+
+    return input_specs(cfg, ShapeSpec("serve", "prefill", SERVE_S, SERVE_B))
+
+
+def _randn(rng, shape, device=None) -> torch.Tensor:
+    """f32 ``randn`` of ``shape`` from ``rng`` on ``device`` (the card
+    unless given)."""
+    return torch.from_numpy(rng.standard_normal(
+        tuple(shape), dtype=np.float32)).to(device or DEVICE)
+
+
+def _encdec_f32_card_vs_cpu(seed: int, rng) -> None:
+    """(c): f32 at ENCDEC_F32_LAYERS encoder and decoder layers, full width
+    otherwise, the same weights on the card and on the CPU (B=SSM_F32_B):
+    prefill logits (the frames encoded, then the decoder) within 1e-3,
+    ``greedy_generate(enc_out=...)`` agreement over SSM_F32_NEW tokens at
+    least 0.99, and on each device a prefill of SERVE_S tokens and one
+    decode step within 1e-3 of a prefill of SERVE_S + 1 over the same
+    ``enc_out``."""
+    from repro_torch.models import decode_step, encode_frames, init_cache
+    from repro_torch.serve import greedy_generate, make_prefill_step
+
+    cfg = _arch_config(ENCDEC_ARCH, param_dtype="float32",
+                       compute_dtype="float32", n_layers=ENCDEC_F32_LAYERS,
+                       enc_layers=ENCDEC_F32_LAYERS)
+    model = _init_on_card(cfg, seed)
+    cpu = _on_cpu(model, cfg)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SSM_F32_B, SERVE_S + 1)))
+    frames = _randn(rng, (SSM_F32_B, SERVE_S // 4, cfg.d_model), "cpu")
+    head = prompts[:, :SERVE_S]
+    max_len = SERVE_S + SSM_F32_NEW
+    t0 = time.perf_counter()
+    stepped = {}
+    with torch.no_grad():
+        reset_counts()
+        card, _ = make_prefill_step(cfg, max_len, device=DEVICE)(
+            model, {"tokens": head.to(DEVICE), "frames": frames.to(DEVICE)})
+        torch.cuda.synchronize()
+        launches = read_counts()["flash_attention"]
+        want, _ = make_prefill_step(cfg, max_len, device="cpu")(
+            cpu, {"tokens": head, "frames": frames})
+        outs = {}
+        for dev, m in ((DEVICE, model), ("cpu", cpu)):
+            p = prompts.to(dev)
+            enc = encode_frames(m, cfg, frames.to(dev))
+            outs[dev] = greedy_generate(m, cfg, p[:, :SERVE_S],
+                                        max_new=SSM_F32_NEW, enc_out=enc,
+                                        device=dev).cpu()
+            caches = init_cache(cfg, SSM_F32_B, SERVE_S + 8, device=dev)
+            decode_step(m, cfg, {"tokens": p[:, :SERVE_S]}, caches,
+                        cache_index=0, enc_out=enc)
+            one, _ = decode_step(m, cfg, {"tokens": p[:, SERVE_S:]}, caches,
+                                 cache_index=SERVE_S, enc_out=enc)
+            whole, _ = decode_step(m, cfg, {"tokens": p},
+                                   init_cache(cfg, SSM_F32_B, SERVE_S + 8,
+                                              device=dev),
+                                   cache_index=0, enc_out=enc)
+            stepped[str(dev)] = float((one - whole).abs().max())
+    err = float((card.cpu() - want).abs().max())
+    agree = float((outs[DEVICE] == outs["cpu"]).float().mean())
+    print(f"encdec serve (c) f32, {cfg.enc_layers} + {cfg.n_layers} layers, "
+          f"B={SSM_F32_B}: card vs CPU prefill logits max_abs_err={err:.6g}"
+          f", greedy_agreement={agree:.6f} over {SSM_F32_NEW} tokens, "
+          f"prefill launches={launches}; prefill({SERVE_S}) + one decode "
+          f"step vs prefill({SERVE_S + 1}) over the same enc_out, logits "
+          f"max_abs_err: card {stepped[str(DEVICE)]:.6g}, CPU "
+          f"{stepped['cpu']:.6g} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(launches == cfg.enc_layers + 2 * cfg.n_layers,
+          f"f32 encdec prefill launched flash_attention {launches} times")
+    check(err <= LOGITS_ATOL[torch.float32] and agree >= AGREE_F32,
+          f"f32 encdec card vs CPU: logits differ by {err}, agreement "
+          f"{agree}")
+    check(max(stepped.values()) <= LOGITS_ATOL[torch.float32],
+          f"f32 encdec: prefill + decode vs the longer prefill differ by "
+          f"{stepped}")
+
+
+def encdec_serve_phase(seed: int) -> int:
+    """The encoder-decoder family served at full width and depth, after
+    the MLA weights are freed; returns the launches of the main path's
+    prefill."""
+    import gc
+
+    from repro_torch.models import encode_frames, zoo
+    from repro_torch.serve import (ContinuousBatcher, make_decode_step,
+                                   make_prefill_step)
+
+    label = "encdec serve"
+    _free_card(label)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 3)
+    cfg = _arch_config(ENCDEC_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _init_on_card(cfg, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    want_params, n_enc, n_dec = ENCDEC_PUBLISHED
+    check(len(model.enc_layers) == cfg.enc_layers == n_enc
+          and len(model.dec_layers) == cfg.n_layers == n_dec
+          and cfg.d_model == 1024 and cfg.head_dim == 64
+          and n_params == zoo.analytic_param_count(cfg) == want_params
+          and model.dec_layers[0].cross.wq.w.dtype == torch.bfloat16,
+          f"serving {cfg.name}: {n_params} parameters")
+    print(f"{label} {cfg.name}: {n_params} parameters (analytic_param_count"
+          f" {want_params}), {cfg.enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, {cfg.param_dtype} weights drawn on the card in "
+          f"init_s={init_s:.3f}; allocated_bytes="
+          f"{torch.cuda.memory_allocated()}", flush=True)
+    specs = _prefill_specs(cfg)
+    frames = _randn(rng, specs["frames"].shape)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, tuple(specs["tokens"].shape))).to(DEVICE)
+    with torch.no_grad():
+        warm = encode_frames(model, cfg, frames[:, :16])
+        enc_out = encode_frames(model, cfg, frames)
+    _generate(model, cfg, prompts[:, :64], prefill_extra={
+        "frames": frames[:, :16]}, decode_extra={"enc_out": warm}, new=2,
+        timed=False)  # warm
+
+    # (a) the main path through the kernel
+    n_sites = cfg.enc_layers + 2 * cfg.n_layers
+    logits, out, ttft, tok_s, wall, launches = _generate(
+        model, cfg, prompts, prefill_extra={"frames": frames},
+        decode_extra={"enc_out": enc_out})
+    check(launches["flash_attention"] == n_sites,
+          f"encdec prefill launched flash_attention "
+          f"{launches['flash_attention']} times, want {n_sites} (encoder "
+          f"self-attention, decoder self- and cross-attention)")
+    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+          and bool(torch.isfinite(logits).all()),
+          f"encdec greedy_generate gave {tuple(out.shape)}")
+    print(f"{label} (a) B={SERVE_B} frames={tuple(frames.shape)} "
+          f"S={SERVE_S} new={SERVE_NEW}: ttft_s={ttft:.6f} (encoder and "
+          f"decoder prefill) decode_tok_per_s={tok_s:.3f} "
+          f"greedy_generate_wall_s={wall:.6f} launches={launches}",
+          flush=True)
+
+    # (b) the same weights with the plain prefill attention, SDPA's as a
+    # control, and each site's attention against the plain version
+    prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
+    batch = {"tokens": prompts, "frames": frames}
+    with torch.no_grad():
+        with _plain_prefill_attention():
+            reset_counts()
+            p_logits, _ = prefill(model, batch)
+            p_launches = read_counts()["flash_attention"]
+        with _sdpa_prefill_attention():
+            s_logits, _ = prefill(model, batch)
+        with _AttentionBesidePlain() as sites:
+            prefill(model, batch)
+    check(p_launches == 0, "the plain prefill launched the kernel")
+    err = float((logits - p_logits).abs().max())
+    s_err = float((s_logits - p_logits).abs().max())
+    print(f"{label} (b) bf16 kernel vs plain prefill attention, same "
+          f"weights: last-position logits max_abs_err={err:.6g}; SDPA vs "
+          f"plain (control): max_abs_err={s_err:.6g}; each site's "
+          f"attention output vs plain on the same q, k, v: "
+          f"{_site_line(sites)}", flush=True)
+    check(len(sites.errs) == n_sites
+          and sum(s != kv for _, s, kv in sites.calls) == cfg.n_layers
+          and max(sites.over) <= 1.0,
+          f"encdec prefill attention vs plain at the sites: "
+          f"{list(zip(sites.calls, sites.errs, sites.mags))}")
+    check(bool(torch.isfinite(p_logits).all())
+          and bool(torch.isfinite(s_logits).all()),
+          "plain or SDPA logits not finite")
+
+    # (d) the batcher refuses the family, as the reference's cannot serve
+    # it (it passes no enc_out)
+    try:
+        ContinuousBatcher(cfg, model, slots=2, max_len=64, device=DEVICE)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "the batcher took the encoder-decoder family")
+
+    # (e) where a prefill's and a decode step's device time goes
+    decode_fn = make_decode_step(cfg, device=DEVICE)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(model, batch)
+
+    def run_decode():
+        tok = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        decode_fn(model, state["caches"], {"tokens": tok,
+                                           "enc_out": enc_out}, SERVE_S)
+
+    with torch.no_grad():
+        _split_line(f"{label} (e)", f"B={SERVE_B} S={SERVE_S} prefill",
+                    run_prefill, ttft)
+        _split_line(f"{label} (e)", f"B={SERVE_B} decode step", run_decode,
+                    SERVE_B / tok_s)
+    print(f"{label}: peak_memory_bytes (max_memory_allocated, bf16 model "
+          f"through (e))={torch.cuda.max_memory_allocated()}", flush=True)
+    del model, state, prefill, enc_out
+    gc.collect()
+    _free_card(f"{label} (c)")
+    _encdec_f32_card_vs_cpu(seed, rng)
     gc.collect()
     torch.cuda.empty_cache()
-    _mla_launcher()
     return launches["flash_attention"]
+
+
+def _analytics_example():
+    """``examples/video_analytics_torch.py`` as a module."""
+    import importlib.util
+
+    path = ROOT / "examples" / "video_analytics_torch.py"
+    spec = importlib.util.spec_from_file_location("video_analytics_torch",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _OracleScans:
+    """A test-only view of a VideoStore for ``tasm_region_batches``: each
+    scan first waits for the background tuner to drain (so the scan reads
+    the layout in place), then holds every region it returns against the
+    numpy ``decode_tile`` oracle of that layout's tiles (cached by the
+    SOTs' epochs)."""
+
+    def __init__(self, store):
+        self.store, self.regions, self.worst = store, 0, 0.0
+        self._oracle = {}
+
+    def __getattr__(self, name):
+        return getattr(self.store, name)
+
+    def scan(self, name: str):
+        return _OracleQuery(self, name, self.store.scan(name))
+
+    def check(self, name: str, query):
+        self.store.drain_tuner()
+        key = (name, tuple(sorted(self.store.epochs(name).items())))
+        if key not in self._oracle:
+            self._oracle = {key: _oracle_frames(self.store.video(name)
+                                                .store)}
+        res = query.execute()
+        if res.regions:
+            self.worst = max(self.worst, _check_regions(
+                res.regions, self._oracle[key], "pipeline scan"))
+            self.regions += len(res.regions)
+        return res
+
+
+class _OracleQuery:
+    def __init__(self, owner, name, query):
+        self.owner, self.name, self.query = owner, name, query
+
+    def labels(self, *a, **kw):
+        return _OracleQuery(self.owner, self.name,
+                            self.query.labels(*a, **kw))
+
+    def frames(self, *a, **kw):
+        return _OracleQuery(self.owner, self.name,
+                            self.query.frames(*a, **kw))
+
+    def execute(self):
+        return self.owner.check(self.name, self.query)
+
+
+def pipeline_phase(model, cfg) -> tuple:
+    """The paper's store-to-VLM loop of ``examples/video_analytics_torch.py``
+    on the card, at full width, in this process: the store is built (cost
+    model calibrated, ``sparse_spec(seed=4, n_frames=96)`` ingested, on the
+    card), ``tasm_region_batches`` streams PIPE_BATCHES batches of
+    PIPE_CROPS crops (every scan's regions held against the numpy oracle
+    at atol 1e-3, rtol 1e-5), each scored by the example's ``score`` on
+    ``model`` (1,024 patch tokens and PIPE_TEXT text tokens a crop, one
+    ``flash_attention`` launch a layer), then the tuner drains.  The counts
+    are set to 0 just before the store is built and read after the drain:
+    the ingest's ``dct_quant`` and ``idct_dequant``, the scans'
+    ``decode_gop_blocks`` and the backbone's ``flash_attention`` must all
+    have launched.  Held against the plain versions: the first call of
+    each ingest kernel, intra and N (equal outputs), and each attention
+    site of the first batch's crops scored again after the counts are
+    read (within the larger of 2e-2 and one bf16 ulp).  Returns (the
+    counts, the first batch's crops)."""
+    from repro_torch.train.data import tasm_region_batches
+
+    ex = _analytics_example()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with _CodecBesidePlain() as codec:
+        store = ex.build_store(DEVICE)
+    build_s = time.perf_counter() - t0
+    built = read_counts()
+    scans = _OracleScans(store)
+    batches = tasm_region_batches(scans, ex.LABELS, batch=PIPE_CROPS,
+                                  crop=16, video="cam0")
+    first, times, flash = None, [], []
+    for i in range(PIPE_BATCHES):
+        b = next(batches)
+        pixels = torch.from_numpy(b["pixels"]).to(DEVICE)
+        tokens = torch.zeros((pixels.shape[0], PIPE_TEXT), dtype=torch.long,
+                             device=DEVICE)
+        before = read_counts()["flash_attention"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = ex.score(model, cfg, pixels, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        flash.append(read_counts()["flash_attention"] - before)
+        check(tuple(logits.shape) == (PIPE_CROPS, 1, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"pipeline batch {i}: logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        if first is None:
+            first = b["pixels"]
+    store.drain_tuner()
+    counts = read_counts()
+    entry = store.video("cam0")
+    layouts = [r.layout.describe() for r in entry.store.sots]
+    print(f"pipeline: store built (calibration, ingest of 96 frames) in "
+          f"build_s={build_s:.3f} (the plain checks below included) with "
+          f"launches {built}; "
+          f"{PIPE_BATCHES} batches of {PIPE_CROPS} crops, each a prefill of "
+          f"{cfg.frontend_tokens} patch tokens + {PIPE_TEXT} text tokens: "
+          f"score_s={[round(x, 6) for x in times]} (TTFT of a batch), "
+          f"flash_attention launches per batch {flash}; {scans.regions} "
+          f"scanned regions vs the numpy oracle max_abs_err="
+          f"{scans.worst:.3g}; layouts after the drain {layouts}; launches "
+          f"through the drain {counts}; peak_memory_bytes="
+          f"{torch.cuda.max_memory_allocated()}; decode: none (the "
+          f"pipeline scores crops)", flush=True)
+    check(scans.regions > 0, "the pipeline's scans returned no region")
+    check(flash == [cfg.n_layers] * PIPE_BATCHES,
+          f"pipeline flash_attention launches per batch {flash}")
+    for name in ("dct_quant", "idct_dequant", "decode_gop_blocks",
+                 "flash_attention"):
+        check(counts[name] > 0, f"pipeline launched no {name}")
+    pixels = torch.from_numpy(first).to(DEVICE)
+    tokens = torch.zeros((pixels.shape[0], PIPE_TEXT), dtype=torch.long,
+                         device=DEVICE)
+    with _AttentionBesidePlain() as sites:
+        ex.score(model, cfg, pixels, tokens)
+    print(f"pipeline: ingest kernels vs plain, first call of each (kernel, "
+          f"intra, N): outputs that differ {codec.diffs}; the first batch "
+          f"scored again, each site's attention output vs plain on the same "
+          f"q, k, v: {_site_line(sites)}", flush=True)
+    check(sorted({k[:2] for k in codec.diffs}) == [
+        ("dct_quant_op", False), ("dct_quant_op", True),
+        ("idct_dequant_op", False), ("idct_dequant_op", True)]
+          and not any(codec.diffs.values()),
+          f"pipeline ingest kernels vs plain: {codec.diffs}")
+    n_seq = cfg.frontend_tokens + PIPE_TEXT
+    check(sites.calls == [(True, n_seq, n_seq)] * cfg.n_layers
+          and max(sites.over) <= 1.0,
+          f"pipeline attention vs plain at the sites: "
+          f"{list(zip(sites.calls, sites.errs, sites.mags))}")
+    with torch.no_grad():
+        _split_line("pipeline", f"score of {PIPE_CROPS} crops",
+                    lambda: ex.score(model, cfg, pixels, tokens), times[-1])
+    store.close()
+    return counts, first
+
+
+def _vlm_f32_card_vs_cpu(seed: int, rng, crops) -> None:
+    """(c): f32 at VLM_F32_LAYERS layers, full width otherwise, the same
+    weights on the card and on the CPU (B=SSM_F32_B): the logits of a
+    patch prefill (SERVE_S // 4 patches and the rest text) within 1e-3,
+    ``greedy_generate`` on text prompts with at least 0.99 of its
+    SSM_F32_NEW tokens equal, on each device that prefill one text token
+    short plus one decode step within 1e-3 of it, and the pipeline's
+    ``score`` of the first PIPE_F32_CROPS crops of its first batch within
+    1e-3."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.serve import greedy_generate, make_prefill_step
+
+    ex = _analytics_example()
+    cfg = _arch_config(VLM_ARCH, param_dtype="float32",
+                       compute_dtype="float32", n_layers=VLM_F32_LAYERS)
+    model = _init_on_card(cfg, seed)
+    cpu = _on_cpu(model, cfg)
+    n_img = SERVE_S // 4
+    patches = _randn(rng, (SSM_F32_B, n_img, cfg.frontend_dim), "cpu")
+    text = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (SSM_F32_B, SERVE_S - n_img)))
+    t0 = time.perf_counter()
+    logits, stepped, outs, scored = {}, {}, {}, {}
+    with torch.no_grad():
+        for dev, m in ((DEVICE, model), ("cpu", cpu)):
+            pe, tx = patches.to(dev), text.to(dev)
+            if dev == DEVICE:
+                reset_counts()
+            logits[dev], _ = make_prefill_step(cfg, SERVE_S + 8, device=dev)(
+                m, {"patch_embeds": pe, "tokens": tx})
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                launches = read_counts()["flash_attention"]
+            caches = init_cache(cfg, SSM_F32_B, SERVE_S + 8, device=dev)
+            decode_step(m, cfg, {"patch_embeds": pe, "tokens": tx[:, :-1]},
+                        caches, cache_index=0)
+            one, _ = decode_step(m, cfg, {"tokens": tx[:, -1:]}, caches,
+                                 cache_index=SERVE_S - 1)
+            stepped[dev] = float((one - logits[dev]).abs().max())
+            outs[dev] = greedy_generate(m, cfg, tx, max_new=SSM_F32_NEW,
+                                        device=dev).cpu()
+            px = torch.from_numpy(crops[:PIPE_F32_CROPS]).to(dev)
+            scored[dev] = ex.score(m, cfg, px, torch.zeros(
+                (px.shape[0], PIPE_TEXT), dtype=torch.long, device=dev)).cpu()
+    err = float((logits[DEVICE].cpu() - logits["cpu"]).abs().max())
+    agree = float((outs[DEVICE] == outs["cpu"]).float().mean())
+    p_err = float((scored[DEVICE] - scored["cpu"]).abs().max())
+    print(f"vlm serve (c) f32, {cfg.n_layers} layers, B={SSM_F32_B}: card "
+          f"vs CPU patch-prefill logits ({n_img} patches + "
+          f"{SERVE_S - n_img} tokens) max_abs_err={err:.6g}, prefill "
+          f"launches={launches}, greedy_agreement={agree:.6f} over "
+          f"{SSM_F32_NEW} tokens of text prompts; prefill one token short "
+          f"+ one decode step vs the prefill, logits max_abs_err: card "
+          f"{stepped[DEVICE]:.6g}, CPU {stepped['cpu']:.6g}; pipeline score "
+          f"of {PIPE_F32_CROPS} crops ({cfg.frontend_tokens} patch tokens "
+          f"each) card vs CPU max_abs_err={p_err:.6g} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(launches == cfg.n_layers,
+          f"f32 vlm prefill launched flash_attention {launches} times")
+    check(err <= LOGITS_ATOL[torch.float32] and agree >= AGREE_F32,
+          f"f32 vlm card vs CPU: logits differ by {err}, agreement {agree}")
+    check(max(stepped.values()) <= LOGITS_ATOL[torch.float32],
+          f"f32 vlm: patch prefill + decode vs the longer prefill differ by "
+          f"{stepped}")
+    check(p_err <= LOGITS_ATOL[torch.float32],
+          f"f32 vlm: the pipeline's logits differ by {p_err} card vs CPU")
+
+
+def vlm_serve_phase(seed: int) -> tuple:
+    """The VLM family served at full width and depth, after the
+    encoder-decoder's weights are freed, then the pipeline on the same
+    weights; returns (the launches of the main path's prefill, the
+    pipeline's counts)."""
+    import gc
+
+    from repro_torch.models import zoo
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    label = "vlm serve"
+    _free_card(label)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 3)
+    cfg = _arch_config(VLM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _init_on_card(cfg, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    want_params, depth = VLM_PUBLISHED
+    check(len(model.layers) == cfg.n_layers == depth and cfg.d_model == 6144
+          and (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (48, 8, 128)
+          and tuple(model.projector.fc1.w.shape) == (3200, 6144)
+          and n_params == zoo.analytic_param_count(cfg) == want_params
+          and model.projector.fc1.w.dtype == torch.bfloat16,
+          f"serving {cfg.name}: {n_params} parameters")
+    print(f"{label} {cfg.name}: {n_params} parameters (analytic_param_count"
+          f" {want_params}), {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim} on {cfg.n_kv_heads}, "
+          f"projector {cfg.frontend_dim} -> {cfg.d_model} -> {cfg.d_model}, "
+          f"{cfg.param_dtype} weights drawn on the card in init_s="
+          f"{init_s:.3f}; allocated_bytes={torch.cuda.memory_allocated()}",
+          flush=True)
+    specs = _prefill_specs(cfg)
+    patches = _randn(rng, specs["patch_embeds"].shape)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, tuple(specs["tokens"].shape))).to(DEVICE)
+    _generate(model, cfg, prompts[:, :8],
+              prefill_extra={"patch_embeds": patches[:, :8]}, start=16,
+              new=2, timed=False)  # warm
+
+    # (a) the main path through the kernel: the patch prefill, then the
+    # decode steps from its full length
+    n = patches.shape[1] + prompts.shape[1]
+    logits, out, ttft, tok_s, wall, launches = _generate(
+        model, cfg, prompts, prefill_extra={"patch_embeds": patches},
+        start=n)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"vlm prefill launched flash_attention "
+          f"{launches['flash_attention']} times, want {cfg.n_layers}")
+    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+          and bool(torch.isfinite(logits).all()),
+          f"vlm generation gave {tuple(out.shape)}")
+    print(f"{label} (a) B={SERVE_B} patches={tuple(patches.shape)} + "
+          f"{prompts.shape[1]} tokens, new={SERVE_NEW}: ttft_s={ttft:.6f} "
+          f"decode_tok_per_s={tok_s:.3f} greedy_generate_wall_s={wall:.6f} "
+          f"(the text prompts alone) launches={launches}", flush=True)
+
+    # (b) the same weights with the plain prefill attention, SDPA's as a
+    # control, and each site's attention against the plain version
+    with _plain_prefill_attention():
+        p_logits, p_out, p_ttft, _, _, p_launches = _generate(
+            model, cfg, prompts, prefill_extra={"patch_embeds": patches},
+            start=n, timed=False)
+    check(p_launches["flash_attention"] == 0,
+          "the plain prefill launched the kernel")
+    prefill = make_prefill_step(cfg, BATCH_MAX_LEN, device=DEVICE)
+    batch = {"patch_embeds": patches, "tokens": prompts}
+    with torch.no_grad():
+        with _sdpa_prefill_attention():
+            s_logits, _ = prefill(model, batch)
+        with _AttentionBesidePlain() as sites:
+            prefill(model, batch)
+    err = float((logits - p_logits).abs().max())
+    s_err = float((s_logits - p_logits).abs().max())
+    agree = float((out == p_out).float().mean())
+    print(f"{label} (b) bf16 kernel vs plain prefill attention, same "
+          f"weights: last-position logits max_abs_err={err:.6g} "
+          f"greedy_agreement={agree:.6f} (greedy_generate on the text "
+          f"prompts) plain ttft_s={p_ttft:.6f}; SDPA vs "
+          f"plain (control): max_abs_err={s_err:.6g}; each site's "
+          f"attention output vs plain on the same q, k, v: "
+          f"{_site_line(sites)}", flush=True)
+    check(len(sites.errs) == cfg.n_layers and max(sites.over) <= 1.0,
+          f"vlm prefill attention vs plain at the sites: "
+          f"{list(zip(sites.errs, sites.mags))}")
+    check(bool(torch.isfinite(p_logits).all())
+          and bool(torch.isfinite(s_logits).all()),
+          "plain or SDPA logits not finite")
+
+    # (d) the continuous batcher on text prompts, as the reference's
+    stats = _batcher_run(f"{label} (d)", cfg, model, rng)
+
+    # (e) where a prefill's and a decode step's device time goes
+    decode_fn = make_decode_step(cfg, device=DEVICE)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(model, batch)
+
+    def run_decode():
+        tok = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        decode_fn(model, state["caches"], {"tokens": tok}, n)
+
+    with torch.no_grad():
+        _split_line(f"{label} (e)", f"B={SERVE_B} S={n} patch prefill",
+                    run_prefill, ttft)
+        _split_line(f"{label} (e)", f"B={SERVE_B} decode step", run_decode,
+                    SERVE_B / tok_s)
+    print(f"{label}: peak_memory_bytes (max_memory_allocated, bf16 model "
+          f"through (e))={torch.cuda.max_memory_allocated()}; batcher "
+          f"stats {json.dumps(stats)}", flush=True)
+    del state
+    pipe, crops = _phase("pipeline", pipeline_phase, model, cfg)
+    del model, prefill, batch, patches
+    gc.collect()
+    _free_card(f"{label} (c)")
+    # (f) python -m repro_torch.launch.serve --arch internvl2-26b --device
+    # cuda exits 0 (text prompts, as the reference's), beside (c)
+    launcher = _Launcher(f"{label} (f)", "repro_torch.launch.serve",
+                         "--arch", VLM_ARCH, "--device", DEVICE)
+    _vlm_f32_card_vs_cpu(seed, rng, crops)
+    launcher.finish()
+    return launches["flash_attention"], pipe
 
 
 # ---------------------------------------------------------------- training
@@ -3453,30 +4363,13 @@ def _recovery(seed: int) -> None:
           f"wall_s={wall:.3f}", flush=True)
 
 
-def _launcher(seed: int) -> None:
-    """(e): ``python -m repro_torch.launch.train --device cuda``, then
-    ``--resume``."""
-    with tempfile.TemporaryDirectory() as ckdir:
-        outs = []
-        for steps, extra in ((3, []), (5, ["--resume"])):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.train",
-                 "--device", DEVICE, "--steps", str(steps),
-                 "--checkpoint-dir", ckdir, "--checkpoint-every", "3",
-                 *extra], env=_port_env(), capture_output=True, text=True,
-                timeout=600)
-            wall = time.perf_counter() - t0
-            check(proc.returncode == 0,
-                  f"launch.train exited {proc.returncode}: {proc.stderr}")
-            outs.append(proc.stdout)
-            print(f"train (e) launch.train --steps {steps} {extra}: exit 0 "
-                  f"in {wall:.3f} s: " +
-                  " | ".join(proc.stdout.strip().splitlines()), flush=True)
-    check(f"device={DEVICE}" in outs[0] and "done: 3 steps" in outs[0],
-          f"launch.train: {outs[0]}")
-    check("resumed from step 3" in outs[1] and "done: 5 steps" in outs[1],
-          f"launch.train --resume: {outs[1]}")
+def _train_launcher(ckdir: str, steps: int, *extra: str) -> _Launcher:
+    """(e): ``python -m repro_torch.launch.train --device cuda`` for
+    ``steps`` steps, checkpointing into ``ckdir`` every 3."""
+    return _Launcher("train (e)", "repro_torch.launch.train",
+                     "--device", DEVICE, "--steps", str(steps),
+                     "--checkpoint-dir", ckdir, "--checkpoint-every", "3",
+                     *extra)
 
 
 def train_phase(seed: int) -> int:
@@ -3548,9 +4441,16 @@ def train_phase(seed: int) -> int:
     del model, opt, batches
     torch.cuda.empty_cache()
 
-    _f32_step_card_vs_cpu(seed)
-    _recovery(seed)
-    _launcher(seed)
+    # (e) launch.train for 3 steps, beside (c) and (d), then --resume to 5
+    with tempfile.TemporaryDirectory() as ckdir:
+        first = _train_launcher(ckdir, 3)
+        _f32_step_card_vs_cpu(seed)
+        _recovery(seed)
+        outs = [first.finish(), _train_launcher(ckdir, 5, "--resume").finish()]
+    check(f"device={DEVICE}" in outs[0] and "done: 3 steps" in outs[0],
+          f"launch.train: {outs[0]}")
+    check("resumed from step 3" in outs[1] and "done: 5 steps" in outs[1],
+          f"launch.train --resume: {outs[1]}")
     return launches["flash_attention_bwd"]
 
 
@@ -3606,6 +4506,8 @@ def main() -> int:
     moe = _phase("moe serve", moe_serve_phase, args.seed)
     hybrid = _phase("ssm serve", ssm_serve_phase, args.seed)
     mla = _phase("mla serve", mla_serve_phase, args.seed)
+    encdec = _phase("encdec serve", encdec_serve_phase, args.seed)
+    vlm, pipe = _phase("vlm serve", vlm_serve_phase, args.seed)
     numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
     train = _phase("train", train_phase, args.seed)
 
@@ -3630,11 +4532,17 @@ def main() -> int:
     launches = {"decode_gop_blocks": scan["decode_gop_blocks"],
                 "dct_quant": ingest["dct_quant"],
                 "idct_dequant": ingest["idct_dequant"],
-                "flash_attention": mla,
+                "flash_attention": encdec,
                 "sad_search": motion, "flash_attention_bwd": train}
-    by_path = {"flash_attention": {"mla_prefill": mla,
+    by_path = {"flash_attention": {"seamless_prefill": encdec,
+                                   "internvl2_prefill": vlm,
+                                   "pipeline": pipe["flash_attention"],
+                                   "mla_prefill": mla,
                                    "zamba2_prefill": hybrid,
-                                   "moe_prefill": moe}}
+                                   "moe_prefill": moe},
+               "decode_gop_blocks": {"pipeline": pipe["decode_gop_blocks"]},
+               "dct_quant": {"pipeline": pipe["dct_quant"]},
+               "idct_dequant": {"pipeline": pipe["idct_dequant"]}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", **KERNELS[name],
         "launches": launches[name],

@@ -36,8 +36,9 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (over the smoke's shapes, bf16 and f32, causal and not, and with the
    current kernel also writing its row logsumexp; the baseline's entry
    must take the ``lse`` pointer too; one whose entry takes a single head
-   width, from before v's width was a parameter, is called through the
-   current one) give bit-identical
+   width, from before v's width was a parameter, or a single length,
+   from before the keys' length was one, is called through the current
+   one) give bit-identical
    output at ragged and full shapes (the encode kernels for intra and
    inter at qp 4, 8 and 16; the search at both motion shapes, N in {1, 7,
    33, 500, 32400}, on float and integer pixels; ``flash_attention_bwd``'s
@@ -67,11 +68,15 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 ``--bwd-only`` prints the two attention sources' ptxas reports and runs
 5 and the backward's part of 3 alone (about a minute).  ``--flash-only``
 prints the forward's ptxas report (and the baseline's), runs the
-forward's part of 3, prints the sha256 digests of the (D, D) pairs'
-outputs that ``chip_smoke.py`` holds the kernel to
-(``chip_smoke.flash_digests``), from the current kernel and from the
-baseline's, and times the kernel at MLA's prefill shape (8, 16, 16, 512,
-192 / 128) beside the plain version and SDPA.
+forward's part of 3 (the (D, D) pairs and the (192, 128) pair),
+prints the sha256 digests of both groups' outputs that ``chip_smoke.py``
+holds the kernel to (``chip_smoke.flash_digests``), from the current
+kernel and from the baseline's, times the kernel at MLA's prefill shape
+(8, 16, 16, 512, 192 / 128) beside the plain version and SDPA, and holds
+it against the plain version with keys of another length than the
+queries (``chip_smoke.FLASH_CROSS_SHAPES``, not causal), timed at
+seamless-m4t-medium's cross-attention shape beside the plain version,
+SDPA and the byte bound (about 2.5 minutes of command time).
 
 Imports neither JAX nor the reference package.  Exits non-zero without a
 CUDA device.
@@ -150,29 +155,42 @@ def _bind_one_width(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
-class OneWidthFlash:
-    """A baseline forward library with the one-width entry, called
-    through the current signature (``dqk != dv`` is refused, as the
-    kernel would refuse an unknown width), so it can stand in for
-    ``flash.LIBRARY``."""
+def _bind_one_length(lib: ctypes.CDLL) -> None:
+    """The forward's entry before the keys' length was a parameter: one
+    length ``s`` where the current entry takes ``s, skv``."""
+    fn = lib.flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
+                   [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+class OlderFlash:
+    """A baseline forward library with an older entry (one head width,
+    or one length), called through the current signature (``dqk != dv``
+    or ``skv != s`` is refused, as the kernel would refuse an unknown
+    width), so it can stand in for ``flash.LIBRARY``."""
 
     def __init__(self, source: pathlib.Path):
-        self.lib = kbuild.CudaLibrary(source, _bind_one_width)
+        self.one_width = "int dqk, int dv" not in source.read_text()
+        self.lib = kbuild.CudaLibrary(
+            source, _bind_one_width if self.one_width else _bind_one_length)
 
     def build(self):
         return self.lib.build()
 
     def load(self):
-        raw = self.lib.load()
+        raw, one_width = self.lib.load(), self.one_width
 
         class Entry:
             @staticmethod
-            def flash_attention(q, k, v, o, lse, b, h, kvh, s, dqk, dv, dtype,
-                                causal, scale, stream):
-                if dqk != dv:
+            def flash_attention(q, k, v, o, lse, b, h, kvh, s, skv, dqk, dv,
+                                dtype, causal, scale, stream):
+                if skv != s or (one_width and dqk != dv):
                     return 1  # cudaErrorInvalidValue
+                widths = (dqk,) if one_width else (dqk, dv)
                 return raw.flash_attention(q, k, v, o, lse, b, h, kvh, s,
-                                           dqk, dtype, causal, scale, stream)
+                                           *widths, dtype, causal, scale,
+                                           stream)
         return Entry
 
 
@@ -184,8 +202,8 @@ def baseline_libraries(tree: pathlib.Path, only=None) -> dict:
         "decode": kbuild.CudaLibrary(
             kernels / "decode" / "csrc" / dbuild.SOURCE.name, dbuild._bind),
         "flash": (kbuild.CudaLibrary(flash_src, fmod._bind)
-                  if "int dqk, int dv" in flash_src.read_text()
-                  else OneWidthFlash(flash_src)),
+                  if "int s, int skv" in flash_src.read_text()
+                  else OlderFlash(flash_src)),
         "dct": kbuild.CudaLibrary(
             kernels / "dct" / "csrc" / dct_mod.SOURCE.name, dct_mod._bind),
         "idct": kbuild.CudaLibrary(
@@ -536,9 +554,10 @@ def flash_versions(base) -> None:
     # the serving call (no lse) gives the baseline's bits, and asking for
     # the lse changes no bit of o
     n = 0
-    for shape in cs.FLASH_SHAPES:
+    for shape in cs.FLASH_SHAPES + cs.FLASH_MLA_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = cs._qkv(rng, *shape, dtype)
+            q, k, v = cs._qkv(rng, *shape[:5], dtype,
+                              dv=shape[5] if len(shape) > 5 else None)
             for causal in (True, False):
                 cur = fmod.flash_attention(q, k, v, causal=causal)
                 with_lse, _ = fmod.flash_attention(q, k, v, causal=causal,
@@ -558,8 +577,16 @@ def flash_versions(base) -> None:
           f"baseline {old}; current {cur}; recorded in chip_smoke "
           f"{cs.FLASH_OLD_DIGESTS}", flush=True)
     cs.check(old == cur, "the digests differ from the baseline's")
+    with patched(base):
+        old = cs.flash_digests(fmod.flash_attention, cs.FLASH_MLA_SHAPES)
+    cur = cs.flash_digests(fmod.flash_attention, cs.FLASH_MLA_SHAPES)
+    print(f"flash_attention (192, 128) digests (chip_smoke.flash_digests "
+          f"over FLASH_MLA_SHAPES): baseline {old}; current {cur}; recorded "
+          f"in chip_smoke {cs.FLASH_MLA_OLD_DIGESTS}", flush=True)
+    cs.check(old == cur, "the (192, 128) digests differ from the "
+                         "baseline's")
     for shape in (cs.FLASH_MAIN, cs.FLASH_LONG, cs.FLASH_MOE,
-                  cs.FLASH_HYBRID):
+                  cs.FLASH_HYBRID, cs.FLASH_VLM):
         q, k, v = cs._qkv(rng, *shape, torch.bfloat16)
         b_ms, b_by = cs.flash_bound_ms(shape, torch.bfloat16, True)
         in_turns(f"flash_attention {shape} bf16 causal (bound {b_ms:.6f} ms, "
@@ -589,6 +616,42 @@ def flash_mla() -> None:
           f"{' / '.join(f'{t:.6f}' for t in times)} ms, plain {r_ms:.6f} "
           f"ms, sdpa {l_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), max |diff| "
           f"from plain {err:.3g}", flush=True)
+
+
+def flash_cross() -> None:
+    """Keys of another length than the queries (not causal): the kernel
+    against the plain version over the smoke's cases, f32 and bf16, the
+    refusal of causal with two lengths, and the kernel, the plain version
+    and SDPA timed at seamless-m4t-medium's cross-attention shape beside
+    the byte bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(6)
+    for shape in cs.FLASH_CROSS_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = cs._qkv_cross(rng, shape, dtype)
+            err = float((fmod.flash_attention(q, k, v, causal=False).float()
+                         - attention_ref(q, k, v, causal=False).float())
+                        .abs().max())
+            print(f"flash_attention cross {shape} {dtype}: max |diff| from "
+                  f"plain {err:.3g}", flush=True)
+            cs.check(err <= cs.FLASH_TOL[dtype], f"cross {shape} {dtype}")
+    try:
+        fmod.flash_attention(q, k, v, causal=True)
+        cs.check(False, "causal with two lengths was launched")
+    except ValueError:
+        pass
+    shape = cs.FLASH_CROSS
+    q, k, v = cs._qkv_cross(rng, shape, torch.bfloat16)
+    b_ms, b_by = cs.cross_bound_ms(shape, torch.bfloat16)
+    times = [cs.cuda_ms(lambda: fmod.flash_attention(q, k, v, causal=False),
+                        iters=20) for _ in range(3)]
+    r_ms = cs.cuda_ms(lambda: attention_ref(q, k, v, causal=False), iters=3,
+                      warmup=1)
+    l_ms = cs.cuda_ms(lambda: sdpa(q, k, v), iters=20)
+    print(f"flash_attention cross {shape} bf16: kernel "
+          f"{' / '.join(f'{t:.6f}' for t in times)} ms, plain {r_ms:.6f} "
+          f"ms, sdpa {l_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})",
+          flush=True)
 
 
 def bwd_versions(base) -> None:
@@ -771,6 +834,7 @@ def main() -> int:
         if base is not None:
             flash_versions(base)
         flash_mla()
+        flash_cross()
         return 0
     for source in (fmod.SOURCE, bwd_mod.SOURCE, dbuild.SOURCE,
                    dct_mod.SOURCE, idct_mod.SOURCE, sad_mod.SOURCE):

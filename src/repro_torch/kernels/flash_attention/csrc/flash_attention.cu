@@ -4,19 +4,26 @@
 // Replaces the Pallas TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention/flash.py).  Same contract, with v's
 // width apart from q's and k's as the reference's chunked attention
-// allows it (MLA: q.k over 192 dims, v over 128):
-//   q [B, H, S, DQK], k [B, KV, S, DQK], v [B, KV, S, DV], H % KV == 0,
-//   f32 or bf16; o [B, H, S, DV] in q's type,
+// allows it (MLA: q.k over 192 dims, v over 128), and keys of a length
+// apart from the queries' (cross-attention: a decoder's queries over an
+// encoder's keys):
+//   q [B, H, S, DQK], k [B, KV, SKV, DQK], v [B, KV, SKV, DV],
+//   H % KV == 0, f32 or bf16; o [B, H, S, DV] in q's type,
 //   o = softmax(q k^T / sqrt(DQK)) v per head,
 // query head bh reading KV head bh / (H / KV) (K and V are never
-// replicated), keys after the query masked with -1e30 when causal, the
-// softmax sum clamped to 1e-30 before the divide.  (DQK, DV) is one of
-// (32, 32), (64, 64), (128, 128) and (192, 128); every (D, D) pair is the
-// same code, and so the same bits, as before DV was a parameter.
+// replicated), keys after the query masked with -1e30 when causal (which
+// needs SKV == S: the entry refuses causal with two lengths rather than
+// guess how they align), the softmax sum clamped to 1e-30 before the
+// divide.  (DQK, DV) is one of (32, 32), (64, 64), (128, 128) and
+// (192, 128); every (D, D) pair is the same code, and so the same bits,
+// as before DV was a parameter, and every call with SKV == S the same
+// bits as before SKV was one.
 //
 // Bound: at the serving shapes it is bytes (q, k, v read once and o written
 // once: 12.6 MB at B=8, S=512 and smollm's 9/3 heads, 3.8 us at 3.35 TB/s;
-// 83.9 MB at deepseek-v2-lite's 16/16 heads at 192/128, 25 us) or, for long
+// 83.9 MB at deepseek-v2-lite's 16/16 heads at 192/128, 25 us; 21.0 MB
+// at seamless-m4t-medium's cross-attention, 512 queries over 128 keys at
+// 16/16 heads of 64, 6.3 us) or, for long
 // prompts, the causal S^2 D products (19 GFLOP at S=4096, 20 us at the
 // bf16 tensor-core rate).
 //
@@ -26,9 +33,10 @@
 // in a loop with every running statistic in registers.  Under `causal`,
 // tiles wholly after the tile's last query row are never loaded (the loop
 // ends at the diagonal tile, whose later keys are masked by index), and the
-// heaviest query tiles are scheduled first.  Any S: rows of a ragged last
-// tile are zero-filled and masked as keys, and not written as queries.  The
-// two dtypes take two kernels.
+// heaviest query tiles are scheduled first.  The grid covers the query
+// tiles of S, and the loop the ceil(SKV / 64) key tiles.  Any S and SKV:
+// key rows of a ragged last tile are zero-filled and masked, and query
+// rows of one are not written.  The two dtypes take two kernels.
 //
 // bf16 (the serving path): tensor cores.  A block is 4 warps; each warp
 // owns 16 query rows and issues mma.sync.m16n8k16 on bf16 with f32
@@ -146,12 +154,12 @@ __device__ __forceinline__ void stage_f32(float* dst, const T* src, int j0,
   }
 }
 
+// the body of both f32 entries below
 template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(Shape<DQK, DV>::kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       float* __restrict__ lse, int h, int kvh, int s,
-                       float scale, int causal) {
+__device__ __forceinline__ void flash_attention_rows(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int h, int kvh, int s,
+    int skv, float scale, int causal) {
   using Sh = Shape<DQK, DV>;
   constexpr int kTPR = Sh::kTPR;
   constexpr int kRows = Sh::kRows;
@@ -166,7 +174,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int b = bh / h;
   const int kv_head = (bh % h) / (h / kvh);
-  const long long kv_row0 = ((long long)b * kvh + kv_head) * s;
+  const long long kv_row0 = ((long long)b * kvh + kv_head) * skv;
 
   const int tid = threadIdx.x;
   const int r = tid / kTPR;  // query row within the tile
@@ -193,12 +201,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float l = 0.f;
 
   const int q_last = min(qt * kRows + kRows, s) - 1;
-  const int n_kt = causal ? q_last / kBKV + 1 : (s + kBKV - 1) / kBKV;
+  const int n_kt = causal ? q_last / kBKV + 1 : (skv + kBKV - 1) / kBKV;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int j0 = kt * kBKV;
     __syncthreads();  // every thread is done with the previous tile
-    stage_f32<T, DQK, kThreads>(ks, k + kv_row0 * DQK, j0, s);
-    stage_f32<T, DV, kThreads>(vs, v + kv_row0 * DV, j0, s);
+    stage_f32<T, DQK, kThreads>(ks, k + kv_row0 * DQK, j0, skv);
+    stage_f32<T, DV, kThreads>(vs, v + kv_row0 * DV, j0, skv);
     __syncthreads();
 
     // scores of this tile: sc[j] = q . k_j * scale, masked to -1e30
@@ -222,7 +230,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
       float sv = dot * scale;
       const int kpos = j0 + j;
-      if (kpos >= s || (causal && kpos > qpos)) sv = kNegInf;
+      if (kpos >= skv || (causal && kpos > qpos)) sv = kNegInf;
       sc[j] = sv;
       mx = fmaxf(mx, sv);
     }
@@ -268,11 +276,39 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// (D, D) pairs: ptxas picks the registers for kThreads alone
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(Shape<DQK, DV>::kThreads)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int h, int kvh, int s,
+                       int skv, float scale, int causal) {
+  flash_attention_rows<T, DQK, DV>(q, k, v, o, lse, h, kvh, s, skv, scale,
+                                   causal);
+}
+
+// 192/128: one block an SM is enough for its register budget; without the
+// minimum ptxas held it to 128 registers and spilled
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(Shape<DQK, DV>::kThreads, 1)
+flash_attention_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o,
+                            float* __restrict__ lse, int h, int kvh, int s,
+                            int skv, float scale, int causal) {
+  flash_attention_rows<T, DQK, DV>(q, k, v, o, lse, h, kvh, s, skv, scale,
+                                   causal);
+}
+
 template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int b, int h, int kvh, int s, float scale, int causal,
+           int b, int h, int kvh, int s, int skv, float scale, int causal,
            cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, DQK, DV>;
+  void (*kernel)(const T*, const T*, const T*, T*, float*, int, int, int,
+                 int, float, int);
+  if constexpr (DQK == DV)
+    kernel = flash_attention_kernel<T, DQK, DV>;
+  else
+    kernel = flash_attention_kernel_wide<T, DQK, DV>;
   using Sh = Shape<DQK, DV>;
   constexpr size_t smem = Sh::kSmem;
   if (smem > 48 * 1024) {
@@ -285,27 +321,27 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((unsigned int)(b * h), (unsigned int)((s + rows - 1) / rows));
   kernel<<<grid, Sh::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, h, kvh, s, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, h, kvh, s, skv,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o,
-               float* lse, int b, int h, int kvh, int s, int dqk, int dv,
-               float scale, int causal, cudaStream_t stream) {
+               float* lse, int b, int h, int kvh, int s, int skv, int dqk,
+               int dv, float scale, int causal, cudaStream_t stream) {
   if (dqk == 32 && dv == 32)
-    return launch<T, 32, 32>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                             stream);
+    return launch<T, 32, 32>(q, k, v, o, lse, b, h, kvh, s, skv,
+                             scale, causal, stream);
   if (dqk == 64 && dv == 64)
-    return launch<T, 64, 64>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                             stream);
+    return launch<T, 64, 64>(q, k, v, o, lse, b, h, kvh, s, skv,
+                             scale, causal, stream);
   if (dqk == 128 && dv == 128)
-    return launch<T, 128, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                               stream);
+    return launch<T, 128, 128>(q, k, v, o, lse, b, h, kvh, s, skv,
+                               scale, causal, stream);
   if (dqk == 192 && dv == 128)
-    return launch<T, 192, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                               stream);
+    return launch<T, 192, 128>(q, k, v, o, lse, b, h, kvh, s, skv,
+                               scale, causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -439,7 +475,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int h, int kvh, int s,
-                           float scale_log2, int causal) {
+                           int skv, float scale_log2, int causal) {
   using QK = Tile<DQK>;
   using VT = Tile<DV>;
   constexpr bool kQInRegs = MmaShape<DQK, DV>::kQInRegs;
@@ -457,7 +493,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
   const int b = bh / h;
   const int kv_head = (bh % h) / (h / kvh);
-  const long long kv_row0 = ((long long)b * kvh + kv_head) * s;
+  const long long kv_row0 = ((long long)b * kvh + kv_head) * skv;
   const __nv_bfloat16* qg = q + (long long)bh * s * DQK;
   const __nv_bfloat16* kg = k + kv_row0 * DQK;
   const __nv_bfloat16* vg = v + kv_row0 * DV;
@@ -469,11 +505,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int wrow = warp * 16;
 
   const int q_last = min(q0 + kBQ, s) - 1;
-  const int n_kt = causal ? q_last / kBKV + 1 : (s + kBKV - 1) / kBKV;
+  const int n_kt = causal ? q_last / kBKV + 1 : (skv + kBKV - 1) / kBKV;
 
   load_tile<DQK>(sq, qg, q0, s);
-  load_tile<DQK>(sk, kg, 0, s);
-  load_tile<DV>(sv, vg, 0, s);
+  load_tile<DQK>(sk, kg, 0, skv);
+  load_tile<DV>(sv, vg, 0, skv);
   cp_async_commit();
 
   // Q's A fragment of k-step ks, from the warp's own rows of the Q tile
@@ -490,8 +526,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int stage = kt & 1;
     if (kt + 1 < n_kt) {
-      load_tile<DQK>(sk + (stage ^ 1) * QK::kSize, kg, (kt + 1) * kBKV, s);
-      load_tile<DV>(sv + (stage ^ 1) * VT::kSize, vg, (kt + 1) * kBKV, s);
+      load_tile<DQK>(sk + (stage ^ 1) * QK::kSize, kg, (kt + 1) * kBKV,
+                     skv);
+      load_tile<DV>(sv + (stage ^ 1) * VT::kSize, vg, (kt + 1) * kBKV, skv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -530,7 +567,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // g + 8 (e >> 1), key 8 j + 2 tig + (e & 1)
     const int j0 = kt * kBKV;
     const bool masked =
-        j0 + kBKV > s || (causal && j0 + kBKV - 1 > q0 + wrow);
+        j0 + kBKV > skv || (causal && j0 + kBKV - 1 > q0 + wrow);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int j = 0; j < kNTiles; ++j) {
@@ -540,7 +577,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
         if (masked) {
           const int key = j0 + 8 * j + 2 * tig + (e & 1);
           const int row = q0 + wrow + g + 8 * (e >> 1);
-          if (key >= s || (causal && key > row)) x = kNegInf;
+          if (key >= skv || (causal && key > row)) x = kNegInf;
         }
         sacc[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -640,7 +677,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DQK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
-               float* lse, int b, int h, int kvh, int s, float scale,
+               float* lse, int b, int h, int kvh, int s, int skv, float scale,
                int causal, cudaStream_t stream) {
   auto kernel = flash_attention_mma_kernel<DQK, DV>;
   constexpr size_t smem = MmaShape<DQK, DV>::kSmem;
@@ -654,25 +691,25 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, h, kvh, s, scale * 1.4426950408889634f, causal);
+      lse, h, kvh, s, skv, scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
 int dispatch_mma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int b, int h, int kvh, int s, int dqk, int dv,
-                 float scale, int causal, cudaStream_t stream) {
+                 float* lse, int b, int h, int kvh, int s, int skv, int dqk,
+                 int dv, float scale, int causal, cudaStream_t stream) {
   if (dqk == 32 && dv == 32)
-    return launch_mma<32, 32>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                              stream);
+    return launch_mma<32, 32>(q, k, v, o, lse, b, h, kvh, s, skv,
+                              scale, causal, stream);
   if (dqk == 64 && dv == 64)
-    return launch_mma<64, 64>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                              stream);
+    return launch_mma<64, 64>(q, k, v, o, lse, b, h, kvh, s, skv,
+                              scale, causal, stream);
   if (dqk == 128 && dv == 128)
-    return launch_mma<128, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                                stream);
+    return launch_mma<128, 128>(q, k, v, o, lse, b, h, kvh, s, skv,
+                                scale, causal, stream);
   if (dqk == 192 && dv == 128)
-    return launch_mma<192, 128>(q, k, v, o, lse, b, h, kvh, s, scale, causal,
-                                stream);
+    return launch_mma<192, 128>(q, k, v, o, lse, b, h, kvh, s, skv,
+                                scale, causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -681,6 +718,7 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o,
 // Launches on `stream` and returns cudaGetLastError(); never synchronises.
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
 // (dqk, dv): q's and k's width, and v's and o's, one of the pairs above.
+// s: q's and o's length; skv: k's and v's, which must equal s when causal.
 // All four tensors are contiguous and 16-byte aligned (the wrapper checks).
 // `lse` is null (serving) or an f32 [B, H, S] that receives each query
 // row's logsumexp of its scaled, masked scores, in the natural log domain:
@@ -688,18 +726,18 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o,
 // Writing it changes no arithmetic of o.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* lse, int b, int h, int kvh,
-                               int s, int dqk, int dv, int dtype, int causal,
-                               float scale, void* stream) {
-  if (b < 1 || h < 1 || kvh < 1 || s < 1 || h % kvh != 0 ||
-      (long long)b * h > 0x7fffffffLL)
+                               int s, int skv, int dqk, int dv, int dtype,
+                               int causal, float scale, void* stream) {
+  if (b < 1 || h < 1 || kvh < 1 || s < 1 || skv < 1 || h % kvh != 0 ||
+      (causal && skv != s) || (long long)b * h > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, l, b, h, kvh, s, dqk, dv, scale,
-                             causal, st);
+    return dispatch_d<float>(q, k, v, o, l, b, h, kvh, s, skv, dqk, dv,
+                             scale, causal, st);
   if (dtype == 1)
-    return dispatch_mma(q, k, v, o, l, b, h, kvh, s, dqk, dv, scale, causal,
-                        st);
+    return dispatch_mma(q, k, v, o, l, b, h, kvh, s, skv, dqk, dv, scale,
+                        causal, st);
   return (int)cudaErrorInvalidValue;
 }

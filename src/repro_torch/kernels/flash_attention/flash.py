@@ -1,8 +1,11 @@
 """Wrapper of the CUDA kernel ``csrc/flash_attention.cu``: forward GQA
-attention with an online softmax, q ``[B, H, S, Dqk]``, k ``[B, KV, S,
-Dqk]`` and v ``[B, KV, S, Dv]``, f32 or bf16, out ``[B, H, S, Dv]`` in
+attention with an online softmax, q ``[B, H, S, Dqk]``, k ``[B, KV, Skv,
+Dqk]`` and v ``[B, KV, Skv, Dv]``, f32 or bf16, out ``[B, H, S, Dv]`` in
 q's dtype, scaled by ``1/sqrt(Dqk)``.  v's width may differ from q's as
-in MLA (q.k over 128 + 64 dims, v over 128).
+in MLA (q.k over 128 + 64 dims, v over 128), and the keys' length Skv
+from the queries' S when not causal, as in an encoder-decoder's
+cross-attention (a decoder's queries over the encoder's output); causal
+attention takes one length, and two raise ``ValueError``.
 
 bf16 runs on the tensor cores (``mma.sync`` m16n8k16 with f32
 accumulators, K and V staged as bf16 through a 2-stage ``cp.async`` ring,
@@ -19,8 +22,8 @@ is the same, bit for bit.
 
 The wrapper checks what the kernel takes ((Dqk, Dv) one of ``PAIRS``: (32,
 32), (64, 64), (128, 128), (192, 128); one dtype for all three; matching
-shapes; ``H % KV == 0``; contiguous, 16-byte aligned CUDA tensors on one
-device), allocates the output, launches on PyTorch's
+shapes; ``Skv == S`` when causal; ``H % KV == 0``; contiguous, 16-byte
+aligned CUDA tensors on one device), allocates the output, launches on PyTorch's
 current stream without synchronising, and raises if the launch was
 refused.  ``LAUNCHES`` counts launches, so a run can show that its
 prefills went through the kernel.  The library is built at first use (see
@@ -45,7 +48,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 +
                    [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -54,7 +57,8 @@ LIBRARY = CudaLibrary(SOURCE, _bind)
 LAUNCHES = LaunchCounter()
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"flash_attention needs q, k and v on one CUDA "
@@ -69,26 +73,33 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention needs contiguous, 16-byte "
                              f"aligned tensors; {name} is not")
     b, h, s, d = q.shape
-    if (k.shape[0] != b or k.shape[2:] != (s, d)
+    if (k.shape[0] != b or k.shape[3] != d
             or v.shape[:3] != k.shape[:3]):
         raise ValueError(f"flash_attention needs q [B, H, S, Dqk], k "
-                         f"[B, KV, S, Dqk] and v [B, KV, S, Dv], got "
+                         f"[B, KV, Skv, Dqk] and v [B, KV, Skv, Dv], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    if causal and k.shape[2] != s:
+        raise ValueError(f"causal flash_attention needs keys of the "
+                         f"queries' length, got S={s} and Skv={k.shape[2]}"
+                         f" (keys of another length are taken when not "
+                         f"causal)")
     if (d, v.shape[3]) not in PAIRS:
         raise ValueError(f"flash_attention takes (q.k, v) head dims "
                          f"{PAIRS}, got {(d, v.shape[3])}")
-    if min(b, h, s) < 1 or k.shape[1] < 1 or h % k.shape[1]:
-        raise ValueError(f"flash_attention needs B, S >= 1 and H a multiple "
-                         f"of KV, got {tuple(q.shape)} and {tuple(k.shape)}")
+    if min(b, h, s, k.shape[2]) < 1 or k.shape[1] < 1 or h % k.shape[1]:
+        raise ValueError(f"flash_attention needs B, S, Skv >= 1 and H a "
+                         f"multiple of KV, got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, return_lse: bool = False):
-    """q: [B, H, S, Dqk]; k: [B, KV, S, Dqk]; v: [B, KV, S, Dv] on a CUDA
-    device.  Returns [B, H, S, Dv] in q's dtype there, and with
-    ``return_lse`` also the f32 row logsumexp [B, H, S]."""
-    _check(q, k, v)
+    """q: [B, H, S, Dqk]; k: [B, KV, Skv, Dqk]; v: [B, KV, Skv, Dv] on a
+    CUDA device (Skv == S when ``causal``).  Returns [B, H, S, Dv] in q's
+    dtype there, and with ``return_lse`` also the f32 row logsumexp
+    [B, H, S]."""
+    _check(q, k, v, causal=causal)
     b, h, s, d = q.shape
     dv = v.shape[3]
     lib = LIBRARY.load()
@@ -99,8 +110,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, h, k.shape[1], s, d,
-            dv, DTYPES[q.dtype], int(bool(causal)), 1.0 / math.sqrt(d), stream)
+            None if lse is None else lse.data_ptr(), b, h, k.shape[1], s,
+            k.shape[2], d, dv, DTYPES[q.dtype], int(bool(causal)),
+            1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES.add()

@@ -1,7 +1,8 @@
 """Wrapper of the CUDA kernel ``csrc/flash_attention_bwd.cu``: the gradient
 of GQA attention from the forward's output and row logsumexp.
 
-Given q ``[B, H, S, D]``, k and v ``[B, KV, S, D]``, the forward's output
+Given q ``[B, H, S, D]``, k and v ``[B, KV, S, D]`` (one length and one
+width: others raise), the forward's output
 o and the gradient dO (both ``[B, H, S, D]``), and its f32 row logsumexp
 ``lse`` ``[B, H, S]`` (natural log, as ``flash.flash_attention(...,
 return_lse=True)`` writes it), it returns dq ``[B, H, S, D]`` and dk, dv
@@ -54,9 +55,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True):
     """Returns ``(dq, dk, dv)`` for the attention ``o`` of q, k, v, all on
-    one CUDA device.  The kernel has one head width for q, k and v: v
-    narrower than q and k (MLA) raises ``ValueError``."""
-    _check(q, k, v)
+    one CUDA device.  The kernel has one head width for q, k and v, and
+    one length: v narrower than q and k (MLA), or keys of another length
+    than the queries (cross-attention), raise ``ValueError``."""
+    _check(q, k, v, causal=False)
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(
+            f"flash_attention_bwd takes keys of the queries' length, got "
+            f"S={q.shape[2]} and Skv={k.shape[2]}: the backward of "
+            f"cross-attention (encoder-decoder training) is not ported yet "
+            f"(ROADMAP, queue 1 item 7)")
     if v.shape[3] != q.shape[3]:
         raise ValueError(
             f"flash_attention_bwd takes one head width for q, k and v, got "

@@ -5,7 +5,9 @@ forward launches the forward kernel (``flash.py``), asking for the row
 logsumexp only when a gradient will be taken, and its backward launches
 the backward kernel (``flash_attention_bwd.py``); on CPU tensors both run
 the plain PyTorch versions (``ref.py``).  Nothing falls back from one to
-the other.  ``flash_attention_op`` is the call the models make.  The
+the other.  Keys may be of another length than the queries when not
+causal (cross-attention): the forward kernel takes them, the backward
+kernel refuses them, and the plain backward takes them.  ``flash_attention_op`` is the call the models make.  The
 reference halves its block sizes until they divide S; the kernels mask a
 ragged last tile themselves, so any S is taken as it is.
 """
@@ -29,12 +31,13 @@ def _device(q: torch.Tensor) -> str:
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """``apply(q, k, v, causal, save)``: q [B, H, S, Dqk], k [B, KV, S,
-    Dqk] and v [B, KV, S, Dv] -> o [B, H, S, Dv] in q's dtype (Dv < Dqk
-    is MLA's).  ``save`` keeps what the backward needs (q, k, v, o and the
-    f32 row logsumexp); without it the forward is the serving call and the
-    backward raises.  On the card the backward kernel takes Dv == Dqk only
-    and raises otherwise; on the CPU the plain backward takes any."""
+    """``apply(q, k, v, causal, save)``: q [B, H, S, Dqk], k [B, KV, Skv,
+    Dqk] and v [B, KV, Skv, Dv] -> o [B, H, S, Dv] in q's dtype (Dv < Dqk
+    is MLA's; Skv != S, not causal, cross-attention's).  ``save`` keeps
+    what the backward needs (q, k, v, o and the f32 row logsumexp);
+    without it the forward is the serving call and the backward raises.
+    On the card the backward kernel takes Dv == Dqk and Skv == S only and
+    raises otherwise; on the CPU the plain backward takes any."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, save: bool):
@@ -71,7 +74,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True) -> torch.Tensor:
-    """q: [B, H, S, Dqk]; k: [B, KV, S, Dqk]; v: [B, KV, S, Dv] ->
+    """q: [B, H, S, Dqk]; k: [B, KV, Skv, Dqk]; v: [B, KV, Skv, Dv] ->
     [B, H, S, Dv] in q's dtype, on the tensors' device, through
     :class:`FlashAttentionFn`; the row logsumexp is kept only where
     autograd records the call."""

@@ -4,7 +4,10 @@ Same function as ``csrc/flash_attention.cu`` and as the reference's
 ``attention_ref``: GQA attention in f32, masked scores ``-1e30``, cast
 back to q's dtype.  v may be narrower than q and k (MLA), as in the
 reference's chunked attention: the output takes v's width and the scale
-stays ``1/sqrt(Dqk)``.  ``attention_lse_ref`` is the row logsumexp the forward
+stays ``1/sqrt(Dqk)``.  k and v may be of another length Skv than q's S
+when not causal (cross-attention); causal attention with two lengths
+raises ``ValueError`` rather than guess how they align (the reference
+never asks for it).  ``attention_lse_ref`` is the row logsumexp the forward
 kernel writes for the backward, and ``attention_bwd_ref`` the gradient
 that ``csrc/flash_attention_bwd.cu`` computes from it.
 ``attention_bf16_mma_ref`` and ``attention_bwd_bf16_mma_ref`` emulate the
@@ -21,16 +24,23 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """q: [B, H, S, Dqk]; k: [B, KV, S, Dqk]; v: [B, KV, S, Dv] with
-    H % KV == 0.  Returns [B, H, S, Dv]."""
+    """q: [B, H, S, Dqk]; k: [B, KV, Skv, Dqk]; v: [B, KV, Skv, Dv] with
+    H % KV == 0 (Skv == S when ``causal``).  Returns [B, H, S, Dv]."""
     b, h, s, _ = q.shape
     w = torch.softmax(_scores(q, k, causal), dim=-1)
     out = torch.einsum("bkgqp,bkpd->bkgqd", w, v.float())
     return out.reshape(b, h, s, v.shape[3]).to(q.dtype)
 
 
+def _check_lengths(q: torch.Tensor, k: torch.Tensor, causal: bool) -> None:
+    if causal and k.shape[2] != q.shape[2]:
+        raise ValueError(f"causal attention needs keys of the queries' "
+                         f"length, got S={q.shape[2]} and Skv={k.shape[2]}")
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
-    """Scaled, masked f32 scores [B, KV, G, S, S] (masked to -1e30)."""
+    """Scaled, masked f32 scores [B, KV, G, S, Skv] (masked to -1e30)."""
+    _check_lengths(q, k, causal)
     b, h, s, d = q.shape
     kv = k.shape[1]
     qg = q.reshape(b, kv, h // kv, s, d).float()
@@ -96,7 +106,9 @@ def attention_bf16_mma_ref(q: torch.Tensor, k: torch.Tensor,
     (P rounded to bf16) and ``P_lo`` (the remainder rounded to bf16) with
     one PV product each, accumulated in f32, the row sum taken over the f32
     P and clamped to 1e-30, the output cast to q's dtype.  ``split_p=False``
-    keeps ``P_hi`` alone: the rounding the kernel's design rejected."""
+    keeps ``P_hi`` alone: the rounding the kernel's design rejected.
+    Keys may be of another length than the queries when not causal."""
+    _check_lengths(q, k, causal)
     b, h, s, d = q.shape
     kv, d_v = k.shape[1], v.shape[3]
     shape = (b, kv, h // kv, s)
@@ -108,7 +120,7 @@ def attention_bf16_mma_ref(q: torch.Tensor, k: torch.Tensor,
     l = torch.zeros(shape, device=q.device)
     acc = torch.zeros((*shape, d_v), device=q.device)
     qpos = torch.arange(s, device=q.device)[:, None]
-    for j0 in range(0, s, KERNEL_BKV):
+    for j0 in range(0, k.shape[2], KERNEL_BKV):
         kt, vt = kf[:, :, j0:j0 + KERNEL_BKV], vf[:, :, j0:j0 + KERNEL_BKV]
         sc = torch.einsum("bkgqd,bkpd->bkgqp", qf, kt) * scale_log2
         if causal:

@@ -7,11 +7,15 @@
 Counterpart of the reference's ``launch/serve.py``, on one device: the
 prefill and decode steps of ``repro_torch/serve/serve_step.py`` on
 ``--device`` (``cuda`` by default; without a CUDA device it exits 1).
-The dense, MoE (DeepSeek's MLA included), SSM and hybrid families serve
-(``--arch qwen3-moe-30b-a3b`` at full width takes 61 GB of bf16 weights
-on one 80 GB card, ``deepseek-v2-lite-16b`` 31.4 GB, ``falcon-mamba-7b``
-14.5 GB, ``zamba2-1.2b`` 2.6 GB), with ``--kv-quant`` on the int8 KV
-cache.  On a CUDA device the random weights are drawn there, from a CUDA
+The dense, MoE (DeepSeek's MLA included), SSM, hybrid and VLM families
+serve (``--arch qwen3-moe-30b-a3b`` at full width takes 61 GB of bf16
+weights on one 80 GB card, ``internvl2-26b`` 39.8 GB,
+``deepseek-v2-lite-16b`` 31.4 GB, ``falcon-mamba-7b`` 14.5 GB,
+``zamba2-1.2b`` 2.6 GB), with ``--kv-quant`` on the int8 KV cache; the
+VLM takes text prompts, as in the reference.  The encoder-decoder family
+(``seamless-m4t-medium``) is refused: the reference's launcher passes no
+``enc_out``, which its decode step needs (serve it through
+``repro_torch.serve``).  On a CUDA device the random weights are drawn there, from a CUDA
 generator seeded with 0.  Refused, because the port has no counterpart
 yet: ``--mesh`` and ``--kv-shard seq`` (sharding, and the cache's
 sequence axis placed over a mesh: ROADMAP queue 1 item 9).
@@ -29,6 +33,7 @@ from repro_torch.configs.base import (get_config, make_serve_config,
                                       reduce_config)
 from repro_torch.kernels.decode.ops import resolve_device
 from repro_torch.models import init_model
+from repro_torch.serve.batching import ENCDEC_REFUSED
 from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
 REFUSED = {
@@ -63,6 +68,8 @@ def main(argv=None) -> int:
             ap.error(REFUSED[flag])
 
     cfg = get_config(args.arch)
+    if cfg.is_encdec:
+        ap.error(ENCDEC_REFUSED.format(cfg.name))
     if args.reduced:
         cfg = reduce_config(cfg)
     cfg = dataclasses.replace(cfg, kv_cache_quant=args.kv_quant)

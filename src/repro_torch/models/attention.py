@@ -8,6 +8,9 @@ counterpart, ``repro_torch.kernels.flash_attention`` (the CUDA kernel on a
 CUDA tensor, its plain version on the CPU) through its autograd Function,
 so a training step's gradient runs the backward kernel; decode (one query
 against the cache) stays plain torch, as the reference's naive path.
+An encoder-decoder's cross-attention (a decoder's S queries over the
+encoder's Se keys, not causal) runs the same kernel with keys of their
+own length; its one-query decode step stays on the naive path.
 
 MLA (DeepSeek-V2) materialises per-head K and V from the rank-r latent for
 a full sequence or a prefill, and runs the same kernel with q.k over
@@ -18,8 +21,8 @@ scales, for GQA's k and v and for MLA's latent, and attends over the
 dequantised rows, as the reference does.
 
 The sequence-sharded cache (``kv_cache_shard="seq"``, a sharding placement:
-ROADMAP queue 1 item 9) and cross-attention (queue 1 item 7) are not
-ported yet and raise ``NotImplementedError``.
+ROADMAP queue 1 item 9) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -117,10 +120,10 @@ def _naive_attention(q, k, v, *, causal: bool, q_pos, kv_pos, kv_len=None):
 
 
 def _flash_attention(q, k, v, *, causal: bool):
-    """The kernel over q [B,S,KV,G,Dqk], k [B,S,KV,Dqk] and v
-    [B,S,KV,Dv]: query head ``kv*G + g`` reads KV head ``kv``, as the
-    kernel's ``bh // G`` does; the output takes v's width.
-    Differentiable: the gradients come back in these layouts."""
+    """The kernel over q [B,S,KV,G,Dqk], k [B,Skv,KV,Dqk] and v
+    [B,Skv,KV,Dv] (Skv == S when causal): query head ``kv*G + g`` reads
+    KV head ``kv``, as the kernel's ``bh // G`` does; the output takes v's
+    width.  Differentiable: the gradients come back in these layouts."""
     B, S, KV, G, D = q.shape
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, S, D)
     out = flash_attention_op(qh, k.transpose(1, 2), v.transpose(1, 2),
@@ -135,19 +138,26 @@ def grouped_attention(q, k, v, *, causal, q_pos, kv_pos, impl="chunked",
 
     ``chunked`` and ``chunked_noskip`` (the reference's online-softmax
     paths, with and without the causal block skip: one function) run the
-    flash kernel when queries and keys are the same sequence.  The kernel
-    masks by index, which is the positional mask when ``q_pos`` is
-    ``kv_pos``, as every caller passes them.  ``q_chunk`` and ``kv_chunk``
-    are the reference's tiling and do not change the function."""
+    flash kernel when queries and keys are the same sequence, and, not
+    causal and without ``kv_len``, over keys of another length (the
+    encoder-decoder's cross-attention: ``q_pos = arange(S)`` over
+    ``kv_pos = arange(Se)``, where no position masks another).  Under
+    ``causal`` the kernel masks by index, which is the positional mask
+    when ``q_pos`` is ``kv_pos``, as every caller passes them.
+    ``q_chunk`` and ``kv_chunk`` are the reference's tiling and do not
+    change the function."""
     Sq, Skv = q.shape[1], k.shape[1]
     if impl == "naive" or Sq == 1:
         return _naive_attention(q, k, v, causal=causal, q_pos=q_pos,
                                 kv_pos=kv_pos, kv_len=kv_len)
     if impl in ("chunked", "chunked_noskip"):
-        if Sq != Skv or kv_len is not None or q_pos is not kv_pos:
+        cross = not causal and kv_len is None
+        if not cross and (Sq != Skv or kv_len is not None
+                          or q_pos is not kv_pos):
             raise NotImplementedError(
                 "the port's full-sequence attention takes queries and keys "
-                "of one sequence (no caller of the reference passes others)")
+                "of one sequence, or, not causal, keys of another length "
+                "(no caller of the reference passes others)")
         return _flash_attention(q, k, v, causal=causal)
     raise ValueError(f"unknown attention impl {impl!r}")
 

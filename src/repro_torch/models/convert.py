@@ -9,8 +9,11 @@ state-dict entry ``layers.<i>.<rest>`` (and DeepSeek's
 ``dense_layers/<rest>`` is ``dense_layers.<i>.<rest>``; an SSM layer's
 ``layers/mamba/A_log`` is ``[L, d_inner, N]``), and every other leaf
 ``a/b`` is ``a.b`` (Zamba2's unstacked ``shared_attn/attn/wq/w`` is
-``shared_attn.attn.wq.w``).  Values are copied exactly (bf16 passes through
-f32 losslessly).
+``shared_attn.attn.wq.w``).  An encoder-decoder's ``enc_layers/<rest>`` and
+``dec_layers/<rest>`` (``cross/*`` and ``ln_x`` among them) are stacked
+over the encoder's and the decoder's layers likewise, and its
+``enc_norm`` and the VLM's ``projector/fc1/w`` are leaves as any other.
+Values are copied exactly (bf16 passes through f32 losslessly).
 """
 from __future__ import annotations
 
@@ -42,7 +45,9 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, *, device) -> Model:
     model = Model(cfg, device="meta")
     want = {name: tuple(t.shape) for name, t in model.state_dict().items()}
     n_dense = _n_dense_layers(cfg)
-    stacked = {"layers": cfg.n_layers - n_dense, "dense_layers": n_dense}
+    stacked = ({"enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers}
+               if cfg.is_encdec else
+               {"layers": cfg.n_layers - n_dense, "dense_layers": n_dense})
     got = {}
     for name, leaf in _flatten(tree).items():
         arr = np.asarray(leaf)

@@ -1,5 +1,5 @@
 """Core NN primitives: dense layers, norms, rotary embeddings, embeddings,
-the SwiGLU MLP.
+the SwiGLU MLP, and the GELU of the VLM's patch projector.
 
 Counterpart of the reference's ``models/layers.py``.  Each parameterised
 primitive is an ``nn.Module`` built with an explicit ``device`` and
@@ -172,3 +172,13 @@ def mlp_apply(p: MLP, x: torch.Tensor, compute_dtype="bfloat16"):
     u = dense_apply(p.up, x, compute_dtype)
     h = torch.nn.functional.silu(g) * u
     return dense_apply(p.down, h, compute_dtype)
+
+
+# --------------------------------------------------------------------------
+# GELU (the VLM projector's)
+# --------------------------------------------------------------------------
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation
+    ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))``, not torch's
+    default erf form."""
+    return torch.nn.functional.gelu(x, approximate="tanh")

@@ -1,6 +1,7 @@
 """Model assembly: init, forward, logits, decode caches and the decode
-step, for the dense, MoE (DeepSeek's MLA included), SSM (Mamba-1) and
-hybrid (Zamba2) families.
+step, for every family of the zoo: dense, MoE (DeepSeek's MLA included),
+SSM (Mamba-1), hybrid (Zamba2), encoder-decoder (audio: SeamlessM4T) and
+VLM (InternVL2's backbone with its patch projector).
 
 Counterpart of the reference's ``models/zoo.py``:
 
@@ -8,7 +9,10 @@ Counterpart of the reference's ``models/zoo.py``:
     h             = forward(model, cfg, batch)          # final hidden states
     loss, metrics = loss_fn(model, cfg, batch)          # train
     caches        = init_cache(cfg, batch, max_len, device=...)
-    logits, cache = decode_step(model, cfg, batch, caches, cache_index=i)
+    logits, cache = decode_step(model, cfg, batch, caches, cache_index=i,
+                                enc_out=None)
+    enc_out       = encode_frames(model, cfg, frames)  # encoder-decoder
+    specs         = input_specs(cfg, shape)             # meta stand-ins
 
 The reference scans stacked layer params; the port keeps one module per
 layer in an ``nn.ModuleList`` and loops over it, and where the reference
@@ -29,7 +33,18 @@ per-row scales "k_scale", "v_scale" (or "c_kv_scale"), {"layers":
 {"conv", "ssm"}} (Mamba-1) or {"layers": {"conv_x", "conv_B", "conv_C",
 "ssm"}} (Mamba-2) stacked over L, and for the hybrid also {"shared":
 {"k", "v"}} stacked over its call sites.  Each layer writes its slice in
-place.  The other families (audio, vlm) are not ported yet and raise.
+place.
+
+The encoder-decoder family has ``enc_layers`` (run unmasked over the
+frame embeddings, positions ``arange(Se)``), ``enc_norm`` and
+``dec_layers`` (causal self-attention, then cross-attention over the
+encoder's output ``enc_out``), and no ``layers``; its cache is {"dec":
+{"k", "v"}} stacked over the decoder layers, and a decode step takes
+``enc_out`` as an argument or from ``batch["enc_out"]``.  The VLM family
+is a dense decoder with a ``projector`` (``fc1``, the tanh GELU, ``fc2``)
+that maps a batch's ``patch_embeds`` [B, n_img, frontend_dim] into the
+model's width, ahead of the text tokens; its loss drops the image
+positions.
 """
 from __future__ import annotations
 
@@ -47,21 +62,21 @@ from repro_torch.models.attention import (Attention, attention_apply,
                                           check_supported)
 from repro_torch.models.blocks import SSM_KINDS, block_apply, init_block
 from repro_torch.models.layers import (MLP, Dense, Embedding, Norm,
-                                       dense_apply, embedding_apply,
+                                       dense_apply, embedding_apply, gelu,
                                        mlp_apply, norm_apply, torch_dtype)
 from repro_torch.models.ssm import mamba1_state_specs, mamba2_state_specs
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for the configurations the port cannot build yet."""
-    if cfg.family not in FAMILIES or cfg.is_encdec \
-            or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP, "
-            f"queue 1 item 7); the port has the families {FAMILIES}")
+    """Raise for the configurations the port cannot build: a family
+    outside the zoo's (``ValueError``), or an attention variant not ported
+    yet (``NotImplementedError``)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"zoo has {FAMILIES}")
     check_supported(cfg)
 
 
@@ -94,7 +109,10 @@ def _dense_cfg(cfg: ArchConfig) -> ArchConfig:
 
 
 def _stacks(params: "Model", cfg: ArchConfig) -> list:
-    """(cache key, layers, their config, block kind) in the order run."""
+    """(cache key, layers, their config, block kind) of the decoder, in
+    the order run."""
+    if cfg.is_encdec:
+        return [("dec", params.dec_layers, cfg, "dec")]
     out = []
     if params.dense_layers is not None:
         out.append(("dense_layers", params.dense_layers, _dense_cfg(cfg),
@@ -143,10 +161,25 @@ def _shared_attn_apply(p: SharedAttn, h, emb0, cfg: ArchConfig, *,
     return h + dense_apply(p.out_proj, x, cd), cache
 
 
+class Projector(nn.Module):
+    """The VLM's patch projector: ``fc1`` (frontend_dim -> d_model) and
+    ``fc2`` (d_model -> d_model), both with a bias."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cpu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(dtype=cfg.param_dtype, device=device, generator=generator,
+                  bias=True)
+        self.fc1 = Dense(cfg.frontend_dim, cfg.d_model, **kw)
+        self.fc2 = Dense(cfg.d_model, cfg.d_model, **kw)
+
+
 class Model(nn.Module):
-    """Parameters of a decoder; attribute names are the reference's tree
+    """Parameters of a model; attribute names are the reference's tree
     keys (``embed``, ``final_norm``, ``lm_head``, ``dense_layers``,
-    ``layers``, ``shared_attn``)."""
+    ``layers``, ``shared_attn``, ``projector``; an encoder-decoder's
+    ``enc_layers``, ``enc_norm`` and ``dec_layers`` in place of
+    ``layers``)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cpu",
                  generator: Optional[torch.Generator] = None):
@@ -158,6 +191,17 @@ class Model(nn.Module):
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype=dt, device=device)
         self.lm_head = (None if cfg.tie_embeddings
                         else Dense(cfg.d_model, cfg.vocab, dtype=dt, **kw))
+        self.enc_layers = self.enc_norm = self.dec_layers = None
+        self.dense_layers = self.layers = self.shared_attn = None
+        self.projector = None
+        if cfg.is_encdec:
+            self.enc_layers = nn.ModuleList(
+                init_block(cfg, "enc", **kw) for _ in range(cfg.enc_layers))
+            self.enc_norm = Norm(cfg.norm, cfg.d_model, dtype=dt,
+                                 device=device)
+            self.dec_layers = nn.ModuleList(
+                init_block(cfg, "dec", **kw) for _ in range(cfg.n_layers))
+            return
         n_dense = _n_dense_layers(cfg)
         self.dense_layers = (nn.ModuleList(
             init_block(_dense_cfg(cfg), "dense", **kw)
@@ -167,6 +211,8 @@ class Model(nn.Module):
                                     for _ in range(cfg.n_layers - n_dense))
         self.shared_attn = (SharedAttn(cfg, **kw) if cfg.family == "hybrid"
                             else None)
+        self.projector = (Projector(cfg, **kw) if cfg.frontend == "patch"
+                          else None)
 
     @property
     def device(self) -> torch.device:
@@ -196,14 +242,25 @@ def init_model(cfg: ArchConfig,
 # forward / logits
 # ==========================================================================
 def _embed_inputs(params: Model, cfg: ArchConfig, batch: dict):
-    return embedding_apply(params.embed, batch["tokens"], cfg.compute_dtype)
+    """Token embeddings, and for the VLM with ``patch_embeds`` in the
+    batch the projected patch embeddings ahead of them (image tokens lead
+    the sequence)."""
+    cd = cfg.compute_dtype
+    h = embedding_apply(params.embed, batch["tokens"], cd)
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(torch_dtype(cd))
+        pe = dense_apply(params.projector.fc1, pe, cd)
+        pe = dense_apply(params.projector.fc2, gelu(pe), cd)
+        h = torch.cat([pe, h], dim=1)
+    return h
 
 
 def _run_layers(params: Model, cfg: ArchConfig, h, *, positions,
-                caches=None, cache_index=None, cache_len=None,
+                caches=None, cache_index=None, cache_len=None, enc_out=None,
                 remat: bool = False):
     """The layer stacks (``dense_layers``, then ``layers``, with the
-    hybrid's shared block after every ``shared_attn_every``-th layer).
+    hybrid's shared block after every ``shared_attn_every``-th layer; an
+    encoder-decoder's ``dec_layers``, over ``enc_out``).
     With ``remat`` each layer of the stacks runs under ``checkpoint``: its
     activations are dropped after the forward and recomputed in the
     backward, so the forward kernel of its attention runs twice per
@@ -214,13 +271,13 @@ def _run_layers(params: Model, cfg: ArchConfig, h, *, positions,
         for i, layer in enumerate(stack):
             if remat:
                 h = checkpoint(_layer, layer, h, scfg, kind, positions,
-                               use_reentrant=False)
+                               enc_out, use_reentrant=False)
             else:
                 cache = _cache_slice(caches, key, i)
                 h, new = block_apply(layer, h, scfg, kind,
                                      positions=positions, cache=cache,
                                      cache_index=cache_index,
-                                     cache_len=cache_len)
+                                     cache_len=cache_len, enc_out=enc_out)
                 if cache is not None and kind in SSM_KINDS:
                     for n, t in new.items():  # the new state, in place
                         cache[n].copy_(t)
@@ -241,16 +298,41 @@ def _cache_slice(caches, key: str, i: int):
     return {n: c[i] for n, c in caches[key].items()}
 
 
-def _layer(layer, h, cfg: ArchConfig, kind: str, positions):
-    return block_apply(layer, h, cfg, kind, positions=positions)[0]
+def _layer(layer, h, cfg: ArchConfig, kind: str, positions, enc_out=None,
+           causal: bool = True):
+    return block_apply(layer, h, cfg, kind, positions=positions,
+                       enc_out=enc_out, causal=causal)[0]
+
+
+def encode_frames(params: Model, cfg: ArchConfig, frames: torch.Tensor, *,
+                  remat: bool = False) -> torch.Tensor:
+    """The encoder stack over (stub) frame embeddings [B, Se, d] on the
+    model's device, unmasked, positions ``arange(Se)``, then ``enc_norm``
+    -> ``enc_out`` [B, Se, d] in the compute dtype.  Its attention runs the
+    ``flash_attention`` kernel on a CUDA device, once a layer."""
+    h = frames.to(torch_dtype(cfg.compute_dtype))
+    positions = torch.arange(h.shape[1], device=h.device)
+    for layer in params.enc_layers:
+        if remat:
+            h = checkpoint(_layer, layer, h, cfg, "enc", positions, None,
+                           False, use_reentrant=False)
+        else:
+            h = block_apply(layer, h, cfg, "enc", positions=positions,
+                            causal=False)[0]
+    return norm_apply(cfg.norm, params.enc_norm, h)
 
 
 def forward(params: Model, cfg: ArchConfig, batch: dict, *,
             remat: bool = True) -> torch.Tensor:
-    """Returns final hidden states [B, S, d] (final norm applied)."""
+    """Returns final hidden states [B, S, d] (final norm applied): for
+    the VLM with ``patch_embeds`` S counts the image tokens; for the
+    encoder-decoder the decoder's over ``batch["frames"]`` encoded."""
+    enc_out = (encode_frames(params, cfg, batch["frames"], remat=remat)
+               if cfg.is_encdec else None)
     h = _embed_inputs(params, cfg, batch)
     positions = torch.arange(h.shape[1], device=h.device)
-    h = _run_layers(params, cfg, h, positions=positions, remat=remat)
+    h = _run_layers(params, cfg, h, positions=positions, enc_out=enc_out,
+                    remat=remat)
     return norm_apply(cfg.norm, params.final_norm, h)
 
 
@@ -286,15 +368,18 @@ def _chunk_loss(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor,
 def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
             remat: bool = True) -> tuple:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets"}:
-    [B, S] on the model's device) -> ``(loss, {"loss", "tokens"})``, 0-d
-    f32 tensors.  The vocab projection runs over sequence chunks
+    [B, S] on the model's device, with the VLM's ``patch_embeds`` or the
+    encoder-decoder's ``frames``) -> ``(loss, {"loss", "tokens"})``, 0-d
+    f32 tensors; the VLM's image positions carry no loss.  The vocab projection runs over sequence chunks
     (:func:`loss_chunks`), each under ``checkpoint``, so the backward
     holds one chunk's [B, S/n, V] f32 logits at a time; the reference
     sums its chunks in a ``lax.scan``.  With tied embeddings the table
     takes its gradient from both uses."""
     h = forward(params, cfg, batch, remat=remat)
-    B, S, _ = h.shape
     targets = batch["targets"]
+    if cfg.frontend == "patch":  # image tokens carry no LM loss
+        h = h[:, h.shape[1] - targets.shape[1]:]
+    B, S, _ = h.shape
     cd = torch_dtype(cfg.compute_dtype)
     w = (params.embed.table.T if cfg.tie_embeddings
          else params.lm_head.w).to(cd)  # [d, vocab]
@@ -351,7 +436,8 @@ def init_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     layer's cache (:func:`_attn_cache_spec`) or the SSM state (conv states
     in the compute dtype, the SSM state in f32), and for the hybrid
     "shared": the attention cache at the wide config, stacked over the
-    call sites."""
+    call sites; for the encoder-decoder {"dec": the decoder's
+    self-attention caches} (cross-attention keeps none)."""
     check_family(cfg)
     n_dense = _n_dense_layers(cfg)
 
@@ -359,6 +445,9 @@ def init_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
         return {name: torch.empty((n,) + shape, dtype=dt, device="meta")
                 for name, (shape, dt) in
                 _attn_cache_spec(c, batch, max_len).items()}
+
+    if cfg.is_encdec:
+        return {"dec": kv(cfg, cfg.n_layers)}
 
     specs = {"dense_layers": kv(cfg, n_dense)} if n_dense else {}
     n = cfg.n_layers - n_dense
@@ -396,23 +485,66 @@ def zero_ssm_state(cfg: ArchConfig, caches: dict) -> None:
 
 
 def decode_step(params: Model, cfg: ArchConfig, batch: dict, caches: dict,
-                *, cache_index) -> tuple:
+                *, cache_index, enc_out=None) -> tuple:
     """batch['tokens']: [B, S_in] on the model's device.  S_in == 1 is one
     decode step; S_in > 1 at ``cache_index`` 0 is a prefill, which returns
-    only the last position's logits.  An SSM layer starts from the state
-    in ``caches``, as in the reference (zeros from :func:`init_cache`).
-    Returns (logits [B, 1, V] f32, caches), the caches updated in
-    place."""
+    only the last position's logits (the VLM's prefill may lead with
+    ``batch["patch_embeds"]``, and S_in counts those positions).  An SSM
+    layer starts from the state in ``caches``, as in the reference (zeros
+    from :func:`init_cache`).  The encoder-decoder's decoder attends over
+    ``enc_out`` [B, Se, d], or ``batch["enc_out"]`` cast to the compute
+    dtype when not given.  Returns (logits [B, 1, V] f32, caches), the
+    caches updated in place."""
     idx = int(cache_index)
+    if cfg.is_encdec and enc_out is None:
+        enc_out = batch["enc_out"].to(torch_dtype(cfg.compute_dtype))
     h = _embed_inputs(params, cfg, batch)
     S_in = h.shape[1]
     positions = torch.arange(S_in, device=h.device) + idx
     h = _run_layers(params, cfg, h, positions=positions, caches=caches,
-                    cache_index=idx, cache_len=idx + S_in)
+                    cache_index=idx, cache_len=idx + S_in, enc_out=enc_out)
     h = norm_apply(cfg.norm, params.final_norm, h)
     if S_in > 1:  # prefill: only the last position's logits are needed
         h = h[:, -1:]
     return logits_fn(params, cfg, h), caches
+
+
+# ==========================================================================
+# Input specs
+# ==========================================================================
+def input_specs(cfg: ArchConfig, shape) -> dict:
+    """``meta`` tensors with the shapes and dtypes of every model input of
+    ``shape`` (a ``ShapeSpec``: kind, seq_len, global_batch), as the
+    reference's ShapeDtypeStructs: for train and prefill the VLM's
+    ``patch_embeds`` [B, min(frontend_tokens, S // 4), frontend_dim] f32
+    and ``tokens`` [B, S - n_img], the encoder-decoder's ``frames``
+    [B, max(S // 4, 1), d_model] f32 and ``tokens`` [B, S], or ``tokens``
+    [B, S] (int32), with ``targets`` like ``tokens`` for train; for decode
+    ``tokens`` [B, 1] and the encoder-decoder's ``enc_out`` [B, max(S //
+    4, 1), d_model] f32."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        n_tok = S
+        specs = {}
+        if cfg.frontend == "patch":
+            n_img = min(cfg.frontend_tokens, S // 4)
+            specs["patch_embeds"] = spec((B, n_img, cfg.frontend_dim), f32)
+            n_tok = S - n_img
+        elif cfg.is_encdec:
+            specs["frames"] = spec((B, max(S // 4, 1), cfg.d_model), f32)
+        specs["tokens"] = spec((B, n_tok), i32)
+        if shape.kind == "train":
+            specs["targets"] = spec((B, n_tok), i32)
+        return specs
+    specs = {"tokens": spec((B, 1), i32)}
+    if cfg.is_encdec:
+        specs["enc_out"] = spec((B, max(S // 4, 1), cfg.d_model), f32)
+    return specs
 
 
 # ==========================================================================

@@ -13,6 +13,12 @@ shares one cache index across rows; prompts are left-padded with token 0
 to the wave's length, and the padding is attended like any token), greedy
 sampling, no prefix sharing.
 
+The encoder-decoder family is refused: the reference's batcher passes no
+``enc_out`` to ``decode_step``, which then fails on that family (ROADMAP,
+queue 3); the port says so rather than gain a feature the reference
+lacks.  Serve it through ``serve_step``.  The VLM serves text prompts, as
+in the reference.
+
 One deliberate divergence: at each admission the port zeroes the SSM and
 conv state of its caches (``zoo.zero_ssm_state``).  The reference
 prefills a new wave into the caches of the last, so its SSM layers start
@@ -32,6 +38,15 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import zoo
 from repro_torch.serve.serve_step import check_device
+
+
+#: why the batcher and the launcher refuse the encoder-decoder family
+ENCDEC_REFUSED = (
+    "{}: the reference's continuous batcher and serving launcher pass no "
+    "enc_out to decode_step (src/repro/serve/batching.py, "
+    "src/repro/launch/serve.py), which needs it for the encoder-decoder "
+    "family (ROADMAP, queue 3); serve it with make_prefill_step, "
+    "make_decode_step and greedy_generate(enc_out=...)")
 
 
 @dataclass
@@ -55,6 +70,8 @@ class ContinuousBatcher:
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  max_len: int = 256, device="cuda"):
         zoo.check_family(cfg)
+        if cfg.is_encdec:
+            raise NotImplementedError(ENCDEC_REFUSED.format(cfg.name))
         self.device = check_device(params, device)
         self.cfg = cfg
         self.params = params

@@ -6,6 +6,16 @@ jit).  Both go through ``zoo.decode_step``: prefill is the S=prompt_len
 case with cache_index=0, whose attention is one ``flash_attention`` launch
 per layer on a CUDA device.  Every entry point takes ``device`` (default
 ``"cuda"``, which raises without a card) and needs the model there.
+
+The encoder-decoder family: the prefill encodes ``batch["frames"]``
+first (``zoo.encode_frames``: one more launch per encoder layer, and the
+decoder's cross-attention one per decoder layer); a decode step reads
+``batch["enc_out"]``, and ``greedy_generate`` takes ``enc_out=``, as in
+the reference.  The VLM family: a prefill's batch may lead with
+``patch_embeds`` [B, n_img, frontend_dim], which take the first n_img
+cache positions, so the decode index that follows it is n_img + the
+prompt's length; ``greedy_generate`` takes text prompts only, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -35,31 +45,56 @@ def _tokens(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.long, device=device)
 
 
+def _floats(x, device: torch.device) -> torch.Tensor:
+    """Embeddings on ``device``, in their own float dtype (f32 from
+    numpy); the model casts them to its compute dtype."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _inputs(batch: dict, device: torch.device) -> dict:
+    """``tokens`` and, where given, ``patch_embeds`` and ``enc_out`` of
+    ``batch`` on ``device``."""
+    out = {"tokens": _tokens(batch["tokens"], device)}
+    for name in ("patch_embeds", "enc_out"):
+        if name in batch:
+            out[name] = _floats(batch[name], device)
+    return out
+
+
 def make_prefill_step(cfg: ArchConfig, max_len: int, *, device="cuda"):
-    """prefill(params, batch) -> (last_logits [B,1,V], caches)."""
+    """prefill(params, batch) -> (last_logits [B,1,V], caches).  batch:
+    ``tokens`` [B, S], the VLM's ``patch_embeds`` where given, the
+    encoder-decoder's ``frames`` [B, Se, d_model]."""
     zoo.check_family(cfg)
     zoo.resolve_device(device)
 
     def prefill(params, batch):
         dev = check_device(params, device)
-        tokens = _tokens(batch["tokens"], dev)
-        caches = zoo.init_cache(cfg, tokens.shape[0], max_len, device=dev)
-        return zoo.decode_step(params, cfg, {"tokens": tokens}, caches,
-                               cache_index=0)
+        inputs = _inputs(batch, dev)
+        caches = zoo.init_cache(cfg, inputs["tokens"].shape[0], max_len,
+                                device=dev)
+        enc_out = None
+        if cfg.is_encdec:
+            enc_out = zoo.encode_frames(params, cfg,
+                                        _floats(batch["frames"], dev))
+        return zoo.decode_step(params, cfg, inputs, caches, cache_index=0,
+                               enc_out=enc_out)
 
     return prefill
 
 
 def make_decode_step(cfg: ArchConfig, *, device="cuda"):
-    """decode(params, caches, batch, index) -> (logits [B,1,V], caches)."""
+    """decode(params, caches, batch, index) -> (logits [B,1,V], caches).
+    The encoder-decoder's batch carries ``enc_out`` [B, Se, d_model]."""
     zoo.check_family(cfg)
     zoo.resolve_device(device)
 
     def decode(params, caches, batch, index):
         dev = check_device(params, device)
-        return zoo.decode_step(params, cfg,
-                               {"tokens": _tokens(batch["tokens"], dev)},
-                               caches, cache_index=index)
+        return zoo.decode_step(params, cfg, _inputs(batch, dev), caches,
+                               cache_index=index)
 
     return decode
 
@@ -68,25 +103,30 @@ def make_decode_step(cfg: ArchConfig, *, device="cuda"):
 def greedy_generate(params, cfg: ArchConfig, prompt, *, max_new: int,
                     max_len: Optional[int] = None, enc_out=None,
                     device="cuda") -> torch.Tensor:
-    """Host-loop greedy decoding: one prefill, then ``max_new - 1`` decode
-    steps.  Returns the new tokens [B, max_new] (int64) on the device."""
-    if enc_out is not None:
-        raise NotImplementedError("encoder-decoder serving is not ported "
-                                  "yet (ROADMAP, queue 1 item 7)")
+    """Host-loop greedy decoding of text prompts: one prefill, then
+    ``max_new - 1`` decode steps.  The encoder-decoder family needs the
+    encoder's output ``enc_out`` [B, Se, d_model] (``zoo.encode_frames``),
+    which every step attends over.  Returns the new tokens [B, max_new]
+    (int64) on the device."""
     zoo.check_family(cfg)
+    if cfg.is_encdec != (enc_out is not None):
+        raise ValueError(f"{cfg.name}: greedy_generate takes enc_out for "
+                         f"the encoder-decoder family, and only for it")
     dev = check_device(params, device)
     prompt = _tokens(prompt, dev)
     B, S0 = prompt.shape
     max_len = max_len or (S0 + max_new)
     caches = zoo.init_cache(cfg, B, max_len, device=dev)
-    logits, caches = zoo.decode_step(params, cfg, {"tokens": prompt}, caches,
+    extra = {} if enc_out is None else {"enc_out": _floats(enc_out, dev)}
+    logits, caches = zoo.decode_step(params, cfg,
+                                     {"tokens": prompt, **extra}, caches,
                                      cache_index=0)
     out = [torch.argmax(logits[:, -1], dim=-1)]
     idx = S0
     for _ in range(max_new - 1):
-        logits, caches = zoo.decode_step(params, cfg,
-                                         {"tokens": out[-1][:, None]},
-                                         caches, cache_index=idx)
+        logits, caches = zoo.decode_step(
+            params, cfg, {"tokens": out[-1][:, None], **extra}, caches,
+            cache_index=idx)
         out.append(torch.argmax(logits[:, -1], dim=-1))
         idx += 1
     return torch.stack(out, dim=1)

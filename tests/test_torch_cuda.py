@@ -426,7 +426,7 @@ def test_flash_attention_writes_no_row_past_s(cuda, dtype, s):
     lib = flash_kernel.LIBRARY.load()
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), fill.data_ptr(), None, b,
-        h, kv, s, d, d, flash_kernel.flash.DTYPES[dtype], 1, d ** -0.5,
+        h, kv, s, s, d, d, flash_kernel.flash.DTYPES[dtype], 1, d ** -0.5,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -927,6 +927,117 @@ def test_flash_attention_bwd_refuses_a_narrower_v(cuda, dtype):
     assert flash_kernel.BWD_LAUNCHES.count == before
 
 
+# ------------------------------------- cross-attention: keys of length Skv
+def _qkv_cross(seed, b, h, kv, sq, skv, dqk, dv, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(device=device, dtype=dtype)
+            for shape in ((b, h, sq, dqk), (b, kv, skv, dqk),
+                          (b, kv, skv, dv))]
+
+
+#: (S, Skv): the encoder-decoder's cross-attention (512 over 128), keys
+#: longer than queries, a ragged last key tile, one key, one query
+CROSS_LENGTHS = [(512, 128), (256, 100), (100, 37), (64, 256), (128, 512),
+                 (65, 63), (17, 1), (1, 77)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dqk,dv", flash_kernel.flash.PAIRS)
+@pytest.mark.parametrize("sq,skv", CROSS_LENGTHS)
+@pytest.mark.parametrize("g", [1, 3])
+def test_flash_attention_cross_lengths_match_plain_version(cuda, dtype, dqk,
+                                                           dv, sq, skv, g):
+    """Not causal, q of length S over k and v of length Skv, at every
+    (q.k, v) pair and G query heads a KV head: the kernel within the
+    reference's tolerance of the plain version, o [B, H, S, Dv] and the
+    row logsumexp [B, H, S]."""
+    q, k, v = _qkv_cross(sq * 7 + skv + dqk, 2, 2 * g, 2, sq, skv, dqk, dv,
+                         dtype, cuda)
+    before = flash_kernel.LAUNCHES.count
+    got, lse = flash_kernel.flash_attention(q, k, v, causal=False,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count == before + 1
+    assert got.dtype == dtype and got.shape == (2, 2 * g, sq, dv)
+    want = flash_kernel.attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+    torch.testing.assert_close(
+        lse, flash_kernel.attention_lse_ref(q, k, causal=False),
+        atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq,skv", [(512, 128), (100, 37), (64, 256)])
+def test_flash_attention_cross_rows_are_independent(cuda, dtype, sq, skv):
+    """Each query row over Skv keys is computed alone: the first n rows of
+    a call equal, bit for bit, a call on those n rows (n ragged); and the
+    raw entry given Skv reads no key row past it (one KV head, whose
+    buffer goes on with poisoned rows)."""
+    q, k, v = _qkv_cross(sq + skv, 1, 8, 1, sq, skv + 64, 64, 64, dtype,
+                         cuda)
+    kk, vv = k[:, :, :skv].contiguous(), v[:, :, :skv].contiguous()
+    full = flash_kernel.flash_attention(q, kk, vv, causal=False)
+    for n in (1, 17, sq - 3):
+        part = flash_kernel.flash_attention(q[:, :, :n].contiguous(), kk, vv,
+                                            causal=False)
+        assert torch.equal(part, full[:, :, :n])
+    k[:, :, skv:], v[:, :, skv:] = 1e4, float("nan")
+    out = torch.empty_like(full)
+    lib = flash_kernel.LIBRARY.load()
+    err = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 1,
+        8, 1, sq, skv, 64, 64, flash_kernel.flash.DTYPES[dtype], 0,
+        64 ** -0.5, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, full)
+
+
+def test_flash_attention_causal_with_two_lengths_raises(cuda):
+    """Causal attention with Skv != S is refused by the wrapper (before a
+    launch), by the raw entry, and by the plain version."""
+    q, k, v = _qkv_cross(3, 1, 4, 2, 64, 32, 64, 64, torch.bfloat16, cuda)
+    before = flash_kernel.LAUNCHES.count
+    with pytest.raises(ValueError, match="causal"):
+        flash_kernel.flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        flash_kernel.flash_attention_op(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        flash_kernel.attention_ref(q, k, v, causal=True)
+    assert flash_kernel.LAUNCHES.count == before
+    out = torch.empty_like(q)
+    lib = flash_kernel.LIBRARY.load()
+    err = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 1,
+        4, 2, 64, 32, 64, 64, flash_kernel.flash.DTYPES[q.dtype], 1,
+        64 ** -0.5, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bwd_refuses_cross_lengths(cuda, dtype):
+    """The backward kernel takes one length: keys of another length than
+    the queries raise, naming the ROADMAP item, and launch nothing; so
+    does a gradient through ``FlashAttentionFn`` on the card."""
+    q, k, v = _qkv_cross(4, 1, 4, 4, 96, 40, 64, 64, dtype, cuda)
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=False,
+                                          return_lse=True)
+    before = flash_kernel.BWD_LAUNCHES.count
+    with pytest.raises(ValueError, match="queue 1 item 7"):
+        flash_kernel.flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse,
+                                         causal=False)
+    q.requires_grad_(True)
+    out = flash_kernel.flash_attention_op(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="queue 1 item 7"):
+        out.sum().backward()
+    assert flash_kernel.BWD_LAUNCHES.count == before
+
+
 def _mla_cfg(**kw):
     """Reduced deepseek-v2-lite-16b in f32 with MLA at its published
     widths (q.k 128 + 64, v 128, rank 512), so the prefill runs the
@@ -1395,3 +1506,69 @@ def test_cluster_failover_on_cuda_bit_identical(cuda, tmp_path):
         for st in stores.values():
             st.close()
         ref.close()
+
+
+# --------------------------------------- encoder-decoder and VLM families
+def _reduced_f32(arch, **kw):
+    from repro_torch.configs.base import reduce_config
+
+    return make_serve_config(dataclasses.replace(
+        reduce_config(get_config(arch)), param_dtype="float32",
+        compute_dtype="float32", head_dim=64, **kw), 1)
+
+
+def test_encdec_prefill_on_the_card_matches_the_cpu(cuda):
+    """Reduced seamless-m4t-medium in f32 at a head width of 64: the
+    prefill encodes 24 frames and runs the decoder over 70 tokens, one
+    launch per encoder layer and two per decoder layer (its self- and
+    cross-attention, 70 queries over 24 keys), logits within 1e-4 of the
+    CPU's on the same weights; greedy tokens over ``enc_out`` equal."""
+    from repro_torch.models import Model, encode_frames
+    from repro_torch.serve import greedy_generate
+
+    cfg = _reduced_f32("seamless-m4t-medium")
+    model = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                       device=cuda)
+    cpu = Model(cfg, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab, (2, 70))
+    frames = rng.standard_normal((2, 24, cfg.d_model), dtype=np.float32)
+    before = flash_kernel.LAUNCHES.count
+    got, _ = make_prefill_step(cfg, 80, device=str(cuda))(
+        model, {"tokens": tokens, "frames": frames})
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count - before == (cfg.enc_layers
+                                                     + 2 * cfg.n_layers)
+    want, _ = make_prefill_step(cfg, 80, device="cpu")(
+        cpu, {"tokens": tokens, "frames": frames})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    enc = encode_frames(model, cfg, torch.from_numpy(frames).to(cuda))
+    card = greedy_generate(model, cfg, tokens, max_new=6, enc_out=enc,
+                           device=str(cuda))
+    host = greedy_generate(cpu, cfg, tokens, max_new=6,
+                           enc_out=enc.cpu(), device="cpu")
+    assert torch.equal(card.cpu(), host)
+
+
+def test_vlm_patch_prefill_on_the_card_matches_the_cpu(cuda):
+    """Reduced internvl2-26b in f32 at a head width of 64 (4 query heads
+    on 1): a prefill of 8 patches and 40 tokens launches the kernel once
+    per layer, its logits within 1e-4 of the CPU's on the same weights."""
+    from repro_torch.models import Model
+
+    cfg = _reduced_f32("internvl2-26b")
+    model = init_model(cfg, torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda)
+    cpu = Model(cfg, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(6)
+    batch = {"patch_embeds": rng.standard_normal(
+        (2, cfg.frontend_tokens, cfg.frontend_dim), dtype=np.float32),
+             "tokens": rng.integers(0, cfg.vocab, (2, 40))}
+    before = flash_kernel.LAUNCHES.count
+    got, _ = make_prefill_step(cfg, 64, device=str(cuda))(model, batch)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count - before == cfg.n_layers
+    want, _ = make_prefill_step(cfg, 64, device="cpu")(cpu, batch)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)

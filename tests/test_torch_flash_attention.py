@@ -7,7 +7,9 @@ to bf16 (round to nearest even in both packages) where the case asks, and
 handed to both.
 
 Tolerances are the reference's own (``tests/test_kernels.py``): 2e-5 in
-f32 and 2e-2 in bf16, where one output ulp near 1 is 7.8e-3.
+f32 and 2e-2 in bf16, where one output ulp near 1 is 7.8e-3.  Keys of
+another length than the queries (not causal: cross-attention) are held
+against the reference's chunked attention at the same tolerances.
 
 The gradient (``FlashAttentionFn``, whose CPU backward is
 ``attention_bwd_ref``) is held against ``jax.grad`` through the
@@ -26,6 +28,7 @@ from repro.kernels.flash_attention.ops import (
     flash_attention_op as jax_flash_attention_op)
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_attention_ref
+from repro.models import attention as jax_attention
 from repro.models.attention import grouped_attention as jax_grouped
 from repro_torch.kernels.flash_attention import (LAUNCHES, FlashAttentionFn,
                                                  attention_bwd_ref,
@@ -145,6 +148,115 @@ def test_bf16_kernel_rounding_within_tolerance(b, h, kv, s, d, causal):
     np.testing.assert_allclose(_np(got), _np(pallas), atol=tol)
     np.testing.assert_allclose(
         _np(got), _np(attention_ref(tq, tk, tv, causal=causal)), atol=tol)
+
+
+# --------------------------------------- keys of another length (not causal)
+#: (B, H, KV, S, Skv, Dqk, Dv): the encoder-decoder's cross-attention at
+#: seamless-m4t-medium's serving shape, keys longer than queries, a ragged
+#: last key tile, G > 1, and every (q.k, v) pair of the CUDA kernel
+CROSS_CASES = [(8, 16, 16, 512, 128, 64, 64), (2, 4, 2, 256, 100, 64, 64),
+               (3, 8, 8, 100, 37, 128, 128), (2, 4, 4, 64, 256, 32, 32),
+               (1, 16, 16, 128, 512, 192, 128)]
+
+
+def _cross_inputs(case, dtype, seed=0):
+    """numpy q [B, S, KV, G, Dqk], k [B, Skv, KV, Dqk], v [B, Skv, KV,
+    Dv], rounded through ``dtype``, in the reference's layout."""
+    b, h, kv, s, skv, d, dv = case
+    rng = np.random.default_rng(seed + s + skv)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((b, s, kv, h // kv, d), (b, skv, kv, d),
+                          (b, skv, kv, dv))]
+    return [np.array(jnp.asarray(a).astype(dtype).astype(jnp.float32))
+            for a in arrs]
+
+
+def _kv_chunk(skv):
+    return max(c for c in range(1, 65) if skv % c == 0)
+
+
+@pytest.mark.parametrize("case", CROSS_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_lengths_match_reference_chunked(case, dtype):
+    """The plain version (the CPU path of ``flash_attention_op``) with
+    S queries over Skv keys, not causal, against the reference's chunked
+    attention (its cross-attention path: ``q_pos = arange(S)``,
+    ``kv_pos = arange(Skv)``), within the reference's tolerance of the
+    dtype; the inputs are the same bf16-rounded values in both."""
+    b, h, kv, s, skv, d, dv = case
+    q, k, v = _cross_inputs(case, dtype)
+    want = jax_attention._chunked_attention(
+        *(jnp.asarray(x).astype(dtype) for x in (q, k, v)), causal=False,
+        q_pos=jnp.arange(s), kv_pos=jnp.arange(skv), q_chunk=64,
+        kv_chunk=_kv_chunk(skv))
+    tq = torch.from_numpy(q).to(getattr(torch, dtype))
+    tq = tq.permute(0, 2, 3, 1, 4).reshape(b, h, s, d)
+    tk = torch.from_numpy(k).to(getattr(torch, dtype)).transpose(1, 2)
+    tv = torch.from_numpy(v).to(getattr(torch, dtype)).transpose(1, 2)
+    before = LAUNCHES.count
+    got = flash_attention_op(tq.contiguous(), tk.contiguous(),
+                             tv.contiguous(), causal=False)
+    assert LAUNCHES.count == before
+    assert got.shape == (b, h, s, dv)
+    got = got.reshape(b, kv, h // kv, s, dv).permute(0, 3, 1, 2, 4)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("case", CROSS_CASES[1:], ids=str)
+def test_cross_lengths_bf16_kernel_rounding_within_tolerance(case):
+    """The bf16 kernel's rounding (64-key tiles, P as two bf16 parts) over
+    keys of another length, within 2e-2 of the plain version."""
+    b, h, kv, s, skv, d, dv = case
+    rng = np.random.default_rng(s * skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .bfloat16() for shape in ((b, h, s, d), (b, kv, skv, d),
+                                         (b, kv, skv, dv)))
+    got = attention_bf16_mma_ref(q, k, v, causal=False)
+    want = attention_ref(q, k, v, causal=False)
+    assert float((got.float() - want.float()).abs().max()) <= TOL["bfloat16"]
+
+
+def test_causal_with_two_lengths_raises():
+    q, k, v = (torch.zeros(shape) for shape in ((1, 2, 8, 16), (1, 2, 5, 16),
+                                                (1, 2, 5, 16)))
+    for fn in (attention_ref, flash_attention_op, attention_bf16_mma_ref):
+        with pytest.raises(ValueError, match="causal"):
+            fn(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        attention_lse_ref(q, k, causal=True)
+
+
+@pytest.mark.parametrize("kv,g,d", [(2, 3, 16), (4, 1, 64)])
+def test_cross_attention_gradient_matches_jax_grad(kv, g, d):
+    """The plain backward at S = 40 queries over Skv = 24 keys (the CPU
+    path of cross-attention training) against ``jax.grad`` through the
+    reference's chunked attention, at the tolerances of the gradient
+    test below."""
+    b, s, skv = 2, 40, 24
+    rng = np.random.default_rng(kv * 10 + g + d)
+    q = rng.standard_normal((b, s, kv, g, d), dtype=np.float32)
+    k = rng.standard_normal((b, skv, kv, d), dtype=np.float32)
+    v = rng.standard_normal((b, skv, kv, d), dtype=np.float32)
+    dout = rng.standard_normal((b, s, kv, g, d), dtype=np.float32)
+
+    def f(q, k, v):
+        out = jax_grouped(q, k, v, causal=False, q_pos=jnp.arange(s),
+                          kv_pos=jnp.arange(skv), impl="chunked",
+                          q_chunk=8, kv_chunk=8)
+        return jnp.sum(out * dout)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = attention.grouped_attention(tq, tk, tv, causal=False,
+                                      q_pos=torch.arange(s),
+                                      kv_pos=torch.arange(skv),
+                                      impl="chunked")
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    for name, a, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max(),
+                                   err_msg=f"d{name}")
 
 
 # ------------------------------------------------------- attention gradient

@@ -5,7 +5,9 @@ repro_torch.launch.serve`` (smollm, the SSM and hybrid families, and
 DeepSeek's MLA with and without ``--kv-quant``); the flags the port
 refuses (``--mesh``, ``--kv-shard seq``);
 ``--device cuda`` without a card (exit 1, "no CUDA device");
-``examples/train_video_lm_torch.py`` through its simulated fault."""
+``examples/train_video_lm_torch.py`` through its simulated fault;
+``examples/video_analytics_torch.py`` (the store feeding the reduced VLM)
+on the CPU, and without a card; the VLM through the serving launcher."""
 import json
 import os
 import pathlib
@@ -70,6 +72,30 @@ def test_serve_runs_the_ssm_families(arch):
     assert "prefill 2x8 in" in out.stdout and "decode 4 steps" in out.stdout
 
 
+def test_serve_runs_the_vlm():
+    """internvl2-26b serves text prompts through the launcher, as in the
+    reference (its patch projector is built, and not fed)."""
+    out = _run("-m", "repro_torch.launch.serve", "--arch", "internvl2-26b",
+               "--device", "cpu", "--reduced", "--batch", "2",
+               "--prompt-len", "8", "--max-new", "4")
+    assert out.returncode == 0, out.stderr
+    assert "serving internvl2-26b-smoke" in out.stdout
+    assert "prefill 2x8 in" in out.stdout and "decode 4 steps" in out.stdout
+
+
+def test_analytics_example_runs_on_the_cpu():
+    """``examples/video_analytics_torch.py --device cpu``: the store's
+    ingest and scans feed three batches of crops to the reduced VLM, whose
+    logits are finite, then the tuner drains."""
+    out = _run("examples/video_analytics_torch.py", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    assert "analytics backbone: internvl2-26b-smoke" in out.stdout
+    for i in range(3):
+        assert f"batch {i}: crops (4, 16, 16)" in out.stdout
+    assert out.stdout.count("finite=True") == 3
+    assert "layouts after analytics queries:" in out.stdout
+
+
 @pytest.mark.parametrize("quant", [(), ("--kv-quant",)],
                          ids=["float", "int8"])
 def test_serve_runs_mla(quant):
@@ -95,11 +121,15 @@ def test_refused_flags(args, names):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.launch.train",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "examples/video_analytics_torch.py"])
 def test_cuda_without_a_card_exits_1(module):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    out = _run("-m", module, "--reduced", "--device", "cuda")
+    if module.endswith(".py"):
+        out = _run(module, "--device", "cuda")
+    else:
+        out = _run("-m", module, "--reduced", "--device", "cuda")
     assert out.returncode == 1
     assert "no CUDA device" in out.stderr
 

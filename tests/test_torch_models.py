@@ -77,9 +77,18 @@ def test_param_count_of_smollm_135m():
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.init_model(port_get_config(arch), 0, device="cpu")
+def test_encdec_and_vlm_build_on_meta(arch):
+    """The encoder-decoder and VLM families build with the reference's
+    parameter count."""
+    model = zoo.Model(port_get_config(arch), device="meta")
+    assert sum(p.numel() for p in model.parameters()) == \
+        get_config(arch).param_count()
+
+
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(port_get_config("smollm-135m"), family="speech")
+    with pytest.raises(ValueError, match="unknown family"):
+        zoo.init_model(cfg, 0, device="cpu")
 
 
 def test_mla_family_builds_on_meta():
