@@ -119,9 +119,40 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    1080p video until a SOT's epoch rises; the encode launch counters must
    grow, and every region of a scan after the retile is held against the
    numpy oracle of the new tiles;
+12b. tuner race phase, on the same 32 frames: one store on the card with
+   the background tuner and the cache on (``RegretPolicy``,
+   ``CostModel(beta=1.4e-8, gamma=1e-5)``) serves ``RACE_THREADS`` = 4
+   client threads, each running the race mix of ``tests/test_tuner.py``
+   (``car`` 0-32 x4, ``person`` 0-32 x4, ``car`` 0-32 x4) until a scan
+   has seen a retile in flight (at most ``RACE_PASSES`` = 2 passes), and
+   a ``serve()`` session of 8 ``car`` 0-32 submissions beside them, while
+   the tuner thread retiles; every region bit for bit equal to an
+   inline-tuned store on the card running the mix serially and within
+   atol=1e-3, rtol=1e-5 of the numpy oracle, no query charged a retile,
+   no thread raising or hanging, an epoch risen after ``drain_tuner``,
+   and at least one scan that saw ``dct_quant``'s count grow between its
+   call and its return (the store's scheduler lock serialises a batch's
+   decode and a retile's re-encode, so they interleave on the card);
+   scan p50/p95, the tuner's counts, the three video kernels' launches
+   and the wall time printed;
 13. calibration: ``calibrated_cost_model`` on the card at its small default
    sizes (10 timed repeats of each decode sample), with finite positive
    beta and encode_per_pixel and a finite, non-negative gamma;
+13b. entry points phase: the ported examples' own functions in this
+   process, on the card, with the counts set to 0 before each and read
+   after: ``examples/quickstart_torch.py`` (the amber-alert flow with its
+   manifest reopen, a socket server, a 3-node in-process cluster with a
+   repair, shm), ``incremental_workload_torch.py`` (paper §5.3 W4 and the
+   background tuner, 256 frames) and ``edge_tiling_torch.py`` must
+   launch ``decode_gop_blocks``, ``dct_quant`` and ``idct_dequant`` and
+   hold every contract they print; ``serve_lm_torch.py``,
+   ``continuous_batching_torch.py`` and ``scripts/smoke_models_torch.py``
+   (every architecture of ``ARCH_IDS`` at ``reduce_config`` size, heads
+   widened to the kernel's) must launch ``flash_attention`` and give
+   finite logits; their output is summarised; ``scripts/
+   server_smoke_torch.py --transport shm --device cuda`` runs as a
+   subprocess beside the train phase's launchers (22 (e)) and must exit
+   0;
 14. serve phase, ``smollm-135m`` at full width (30 layers, d_model 576,
    ``make_serve_config(cfg, 1)``, bf16 weights from the seed) on the card:
    (a) ``greedy_generate`` of 8 prompts of 512 tokens, 32 new tokens; the
@@ -333,8 +364,9 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    one JSON line with the kernels' numbers (each kernel's launches on its
    latest path: ``flash_attention`` on seamless-m4t-medium's prefill,
    timed at its cross-attention shape, with the internvl2-26b prefill's,
-   the pipeline's and the earlier prefills' launches beside it in
-   ``launches_by_path``, and the pipeline's ``dct_quant``,
+   the pipeline's, the earlier prefills' and the LM entry points'
+   launches beside it in ``launches_by_path``, and the pipeline's, the
+   tuner race's and the video entry points' ``dct_quant``,
    ``idct_dequant`` and ``decode_gop_blocks`` launches beside theirs),
    then as its last line ``{"ok": true, "device": {...}}``.
 
@@ -351,6 +383,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import dataclasses
+import functools
 import hashlib
 import json
 import pathlib
@@ -409,6 +442,11 @@ H, W, N_FRAMES = 1080, 1920, 64
 GOP, QP = 16, 8
 LAYOUT = (6, 8)
 RETILE_FRAMES = 32
+#: the tuner race (tests/_torch_race.py): client threads, each running
+#: the race mix of tests/test_tuner.py (car x4, person x4, car x4 over the
+#: retile frames) until a scan has seen a retile in flight, at most
+#: RACE_PASSES times, beside a serve() session of 8 car scans
+RACE_THREADS, RACE_PASSES = 4, 2
 #: the serve path's configuration
 ARCH = "smollm-135m"
 #: the train path: B x S at SmolLM-135M's context length, steps, the
@@ -1008,17 +1046,9 @@ def ingest_phase(frames, dets) -> tuple:
 
 
 def _oracle_frames(ts) -> np.ndarray:
-    """Every frame of the store, decoded tile by tile by the numpy oracle."""
-    from repro_torch.codec.encode import decode_tile
-
-    last = ts.sots[-1]
-    out = np.zeros((last.frame_end, last.layout.frame_height,
-                    last.layout.frame_width), dtype=np.float32)
-    for rec in ts.sots:
-        for i, (y1, x1, y2, x2) in enumerate(rec.layout.tile_rects()):
-            out[rec.frame_start:rec.frame_end, y1:y2, x1:x2] = \
-                decode_tile(ts._read_tile(rec, i))
-    return out
+    """Every frame of the store, decoded tile by tile by the numpy oracle
+    (``tests/_torch_race.py``'s, which the race shares)."""
+    return _tests_module("_torch_race").oracle_frames(ts)
 
 
 def _check_regions(regions, oracle, what: str) -> float:
@@ -1138,14 +1168,6 @@ def scan_phase(store) -> tuple:
 
 
 # ------------------------------------------------------------ video serving
-def _shm_pool_bytes() -> int:
-    """A shared-memory pool budget within the free space of /dev/shm: a
-    reply written past a full tmpfs would fault, so the pool stays at half
-    the free space (replies beyond it ride the npz payload)."""
-    st = os.statvfs("/dev/shm")
-    return min(1 << 30, st.f_bavail * st.f_frsize // 2)
-
-
 def video_server_phase(store, oracle) -> None:
     """The 1080p, 48-tile store served in-process through the port's
     ``VideoStoreServer`` on a Unix socket, driven by client threads, each
@@ -1154,6 +1176,7 @@ def video_server_phase(store, oracle) -> None:
     every reply is held bit for bit against the same scan in-process."""
     from repro_torch.core import RemoteVideoStore, VideoStoreServer, wire
     from repro_torch.core.shm import shm_available
+    from repro_torch.tasm_serve import shm_pool_bytes
 
     want = {}
     for lbl, fr in SERVER_QUERIES:
@@ -1165,7 +1188,7 @@ def video_server_phase(store, oracle) -> None:
         [("shm", default, SERVER_REQUESTS)] if shm_available() else []) + (
         [("socket", "json", SERVER_REQUESTS_JSON)]
         if default != "json" else [])
-    pool_bytes = _shm_pool_bytes() if shm_available() else 0
+    pool_bytes = shm_pool_bytes("/dev/shm") if shm_available() else 0
     print(f"server: default codec={default} msgpack="
           f"{wire._msgpack is not None} passes={passes} "
           f"shm_pool_bytes={pool_bytes}", flush=True)
@@ -1243,7 +1266,9 @@ def _port_env() -> dict:
 
 
 class _Launcher:
-    """``python -m module *args`` started in the background, its output
+    """``python -m module *args`` (or ``python script.py *args`` where
+    ``module`` is a path ending in ``.py``) started in the background, its
+    output
     sent to temporary files, so that a check that leaves the card mostly
     idle (an f32 model held against the CPU) runs meanwhile;
     ``finish()`` waits for it, checks that it exited 0, prints its wall
@@ -1251,11 +1276,13 @@ class _Launcher:
     run that fails before ``finish()`` kills it at exit."""
 
     def __init__(self, label: str, module: str, *args: str):
-        self.label, self.argv = label, [module, *args]
+        self.label = label
         self.out = tempfile.TemporaryFile("w+")
         self.err = tempfile.TemporaryFile("w+")
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen([sys.executable, "-m", *self.argv],
+        self.cmd = ([module] if module.endswith(".py")
+                    else ["-m", module]) + list(args)
+        self.proc = subprocess.Popen([sys.executable, *self.cmd],
                                      env=_port_env(), stdout=self.out,
                                      stderr=self.err, text=True)
         atexit.register(self._stop)
@@ -1278,7 +1305,7 @@ class _Launcher:
             f.seek(0)
             outs.append(f.read())
             f.close()
-        what = "python -m " + " ".join(self.argv)
+        what = "python " + " ".join(self.cmd)
         check(rc == 0, f"{what} exited {rc}: {outs[1]}")
         print(f"{self.label} {what}: exit 0 in {wall:.3f} s: " +
               " | ".join(outs[0].strip().splitlines()), flush=True)
@@ -1881,6 +1908,110 @@ def calibration_phase() -> None:
     # to 0, so gamma is held to finite and non-negative
     check(np.isfinite(model.gamma) and model.gamma >= 0,
           f"calibrated gamma={model.gamma}")
+
+
+def tuner_race_phase(frames, dets) -> dict:
+    """Scans racing the background tuner's retiles on the card, through
+    ``tests/_torch_race.py`` (the race the card's test runs, here with
+    ``RACE_THREADS`` client threads on the first RETILE_FRAMES frames):
+    every region bit for bit an inline-tuned store's on the card and
+    within the numpy oracle, no query charged a retile, an epoch risen,
+    and a ``dct_quant`` launch between some scan's call and its return.
+    Returns the background store's launches, from the threads' start to
+    the drained tuner."""
+    from repro_torch.kernels import dct
+
+    racing = _tests_module("_torch_race")
+    t_phase = time.perf_counter()
+    out = racing.race(frames[:RETILE_FRAMES], dets[:RETILE_FRAMES], DEVICE,
+                      lambda: dct.LAUNCHES.count, threads=RACE_THREADS,
+                      max_passes=RACE_PASSES, start=reset_counts)
+    launches = read_counts()
+    worst = racing.check(out, must_race=True)
+    for name in ("decode_gop_blocks", "dct_quant", "idct_dequant"):
+        check(launches[name] > 0, f"tuner race never launched {name}: "
+                                  f"{launches}")
+    lat, tuner = out["latencies"], out["tuner"]
+    p50, p95 = np.percentile(lat, [50, 95])
+    print(f"tuner race: {RACE_THREADS} threads, {len(lat)} scans in all, "
+          f"and a session of {racing.SESSION}; race wall_s="
+          f"{out['race_s']:.6f} scan p50_s={p50:.6f} p95_s={p95:.6f} max_s="
+          f"{max(lat):.6f}; scans that saw a retile in flight="
+          f"{len(out['in_flight'])}; tuner observed={tuner.observed} "
+          f"proposals={tuner.proposals} coalesced={tuner.coalesced} applied="
+          f"{tuner.applied} retile_s={tuner.retile_s:.6f}; epochs="
+          f"{out['epochs']} (serial inline store: {out['serial_epochs']}, "
+          f"its {len(racing.MIX)} scans {out['serial_s']:.3f} s); launches="
+          f"{launches}; bit-identical to the serial store, max_abs_err="
+          f"{worst:.3g} against the oracle; phase wall_s="
+          f"{time.perf_counter() - t_phase:.3f}", flush=True)
+    return launches
+
+
+def entry_points_phase() -> dict:
+    """The ported entry points' own functions in this process on the card,
+    the launch counts set to 0 before each and read after: the video
+    examples must launch the decode and both encode kernels and hold
+    their contracts, the LM examples and the model smoke must launch
+    ``flash_attention`` and give finite logits, and every attention call
+    they make runs beside the plain version on the same q, k and v
+    (``_AttentionBesidePlain``), each within the larger of FLASH_TOL and
+    one ulp of the plain output.  Their printed output is kept and
+    summarised.  Returns each one's launches."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.base import ARCH_IDS
+
+    video = ("decode_gop_blocks", "dct_quant", "idct_dequant")
+    out = {}
+
+    def one(name, run, kernels, folder="examples"):
+        mod = _entry_point(name, folder)
+        text = io.StringIO()
+        attention = "flash_attention" in kernels
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text), (
+                _AttentionBesidePlain() if attention
+                else contextlib.nullcontext()) as sites:
+            ok = run(mod)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        failed = sorted(k for k, v in ok.items() if not v)
+        check(ok and not failed, f"{name}: contracts failed: {failed}")
+        for kernel in kernels:
+            check(launches[kernel] > 0,
+                  f"{name} never launched {kernel}: {launches}")
+        if attention:
+            check(len(sites.calls) == launches["flash_attention"]
+                  and max(sites.over) <= 1.0,
+                  f"{name} attention vs plain at the sites: "
+                  f"{list(zip(sites.calls, sites.errs, sites.mags))}")
+        lines = text.getvalue().strip().splitlines()
+        print(f"entry point {name}: wall_s={wall:.3f}" +
+              (" (attention beside plain at every site)" if attention
+               else "") + f" contracts {len(ok)} of {len(ok)} hold; "
+              "launches " +
+              " ".join(f"{k}={v}" for k, v in launches.items() if v) +
+              (f"; each site's attention output vs plain on the same q, k, "
+               f"v: {_site_line(sites)}" if attention else "") +
+              (f"; its last line printed: {lines[-1]!r}" if lines else ""),
+              flush=True)
+        out[name] = launches
+
+    with tempfile.TemporaryDirectory(prefix="tasm") as root:
+        one("quickstart_torch", lambda m: m.run(root, DEVICE), video)
+    one("incremental_workload_torch", lambda m: m.run(DEVICE), video)
+    one("edge_tiling_torch", lambda m: m.run(DEVICE), video)
+    one("serve_lm_torch", lambda m: m.run(DEVICE), ("flash_attention",))
+    one("continuous_batching_torch", lambda m: m.run(DEVICE),
+        ("flash_attention",))
+    one("smoke_models_torch",
+        lambda m: {a: m.smoke(a, DEVICE)["ok"] for a in ARCH_IDS},
+        ("flash_attention",), folder="scripts")
+    return out
 
 
 # ------------------------------------------------------ attention and serving
@@ -3551,7 +3682,7 @@ def _split_line(label: str, what: str, fn, wall_s: float) -> None:
 def _site_line(sites) -> str:
     """A prefill's attention calls by kind, (causal, S, Skv): the calls,
     the largest |kernel - plain|, the largest |SDPA - plain| (control),
-    the largest plain |o|, and the largest error over the larger of 2e-2
+    the largest plain |o|, and the largest error over the larger of the
     and one ulp of the plain output (the gate: at most 1)."""
     kinds = {}
     for i, call in enumerate(sites.calls):
@@ -3561,7 +3692,7 @@ def _site_line(sites) -> str:
             sites.over[i]))))
     return "; ".join(
         f"causal={c} S={s} Skv={kv}: {n} calls, max {e:.6g} (SDPA {se:.6g})"
-        f", max |o| {m:.4g}, over max(2e-2, ulp) {o:.4f}"
+        f", max |o| {m:.4g}, over max(FLASH_TOL, ulp) {o:.4f}"
         for (c, s, kv), (n, e, se, m, o) in kinds.items())
 
 
@@ -3778,16 +3909,21 @@ def encdec_serve_phase(seed: int) -> int:
     return launches["flash_attention"]
 
 
-def _analytics_example():
-    """``examples/video_analytics_torch.py`` as a module."""
+def _entry_point(name: str, folder: str = "examples"):
+    """``<folder>/<name>.py`` of this checkout as a module."""
     import importlib.util
 
-    path = ROOT / "examples" / "video_analytics_torch.py"
-    spec = importlib.util.spec_from_file_location("video_analytics_torch",
-                                                  path)
+    path = ROOT / folder / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+@functools.cache
+def _tests_module(name: str):
+    """``tests/<name>.py`` of this checkout as a module, loaded once."""
+    return _entry_point(name, "tests")
 
 
 class _OracleScans:
@@ -3856,7 +3992,7 @@ def pipeline_phase(model, cfg) -> tuple:
     counts, the first batch's crops)."""
     from repro_torch.train.data import tasm_region_batches
 
-    ex = _analytics_example()
+    ex = _entry_point("video_analytics_torch")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -3946,7 +4082,7 @@ def _vlm_f32_card_vs_cpu(seed: int, rng, crops) -> None:
     from repro_torch.models import decode_step, init_cache
     from repro_torch.serve import greedy_generate, make_prefill_step
 
-    ex = _analytics_example()
+    ex = _entry_point("video_analytics_torch")
     cfg = _arch_config(VLM_ARCH, param_dtype="float32",
                        compute_dtype="float32", n_layers=VLM_F32_LAYERS)
     model = _init_on_card(cfg, seed)
@@ -4372,9 +4508,11 @@ def _train_launcher(ckdir: str, steps: int, *extra: str) -> _Launcher:
                      *extra)
 
 
-def train_phase(seed: int) -> int:
+def train_phase(seed: int, beside_e=()) -> int:
     """The training slice at full width; returns the backward kernel's
-    launches over the main path's run."""
+    launches over the main path's run.  ``beside_e``: ``_Launcher``
+    arguments of processes run beside (e), which leaves the card mostly
+    idle."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_model
     from repro_torch.train.data import synthetic_token_batches
@@ -4444,9 +4582,12 @@ def train_phase(seed: int) -> int:
     # (e) launch.train for 3 steps, beside (c) and (d), then --resume to 5
     with tempfile.TemporaryDirectory() as ckdir:
         first = _train_launcher(ckdir, 3)
+        beside = [_Launcher(*a) for a in beside_e]
         _f32_step_card_vs_cpu(seed)
         _recovery(seed)
         outs = [first.finish(), _train_launcher(ckdir, 5, "--resume").finish()]
+        for launcher in beside:
+            launcher.finish()
     check(f"device={DEVICE}" in outs[0] and "done: 3 steps" in outs[0],
           f"launch.train: {outs[0]}")
     check("resumed from step 3" in outs[1] and "done: 5 steps" in outs[1],
@@ -4500,8 +4641,10 @@ def main() -> int:
     _phase("cluster", cluster_phase, args.seed)
     for mode in ("inline", "background"):
         retile_phase(frames, dets, mode)
+    race = _phase("tuner race", tuner_race_phase, frames, dets)
     del frames
     calibration_phase()
+    entry = _phase("entry points", entry_points_phase)
     _phase("serve", serve_phase, args.seed)
     moe = _phase("moe serve", moe_serve_phase, args.seed)
     hybrid = _phase("ssm serve", ssm_serve_phase, args.seed)
@@ -4509,7 +4652,10 @@ def main() -> int:
     encdec = _phase("encdec serve", encdec_serve_phase, args.seed)
     vlm, pipe = _phase("vlm serve", vlm_serve_phase, args.seed)
     numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
-    train = _phase("train", train_phase, args.seed)
+    # the server drill of scripts/server_smoke_torch.py, beside train (e)
+    train = _phase("train", train_phase, args.seed, [(
+        "entry point", str(ROOT / "scripts" / "server_smoke_torch.py"),
+        "--transport", "shm", "--device", DEVICE)])
 
     now = {"decode_gop_blocks F=16 M=32768":
            numbers["decode_gop_blocks"]["ms"],
@@ -4539,10 +4685,17 @@ def main() -> int:
                                    "pipeline": pipe["flash_attention"],
                                    "mla_prefill": mla,
                                    "zamba2_prefill": hybrid,
-                                   "moe_prefill": moe},
-               "decode_gop_blocks": {"pipeline": pipe["decode_gop_blocks"]},
-               "dct_quant": {"pipeline": pipe["dct_quant"]},
-               "idct_dequant": {"pipeline": pipe["idct_dequant"]}}
+                                   "moe_prefill": moe,
+                                   **{ex: entry[ex]["flash_attention"]
+                                      for ex in ("serve_lm_torch",
+                                                 "continuous_batching_torch",
+                                                 "smoke_models_torch")}},
+               **{name: {"pipeline": pipe[name], "tuner_race": race[name],
+                         **{ex: entry[ex][name] for ex in (
+                             "quickstart_torch", "incremental_workload_torch",
+                             "edge_tiling_torch")}}
+                  for name in ("decode_gop_blocks", "dct_quant",
+                               "idct_dequant")}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", **KERNELS[name],
         "launches": launches[name],

@@ -19,6 +19,9 @@ Without a CUDA device, and without ``--device cpu``, the server refuses to
 start and exits non-zero.  Ingest frames and scan replies ride wire frames
 of at most ``--max-frame-mb`` (256 MiB by default: a 64-frame 1080p f32
 ingest is 531 MB, so send such a video in pieces or raise the cap).
+Shared-memory replies are pooled up to half the free space of
+``/dev/shm`` at start, at most 1 GiB: the pool itself never checks the
+tmpfs, and a reply written past a full one would fault.
 
 Prints ``TASM serving on <addr>`` once the socket is accepting (scripts
 wait for that line or for the socket file).  SIGINT/SIGTERM shut down
@@ -98,6 +101,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def shm_pool_bytes(path: str) -> int:
+    """The shared-memory reply pool's cap: half the free space of the
+    tmpfs at ``path``, at most the pool's default."""
+    from repro_torch.core.shm import DEFAULT_POOL_BYTES
+
+    st = os.statvfs(path)
+    return min(DEFAULT_POOL_BYTES, st.f_bavail * st.f_frsize // 2)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     from repro_torch.core import (CacheConfig, DecodeConfig, TuningConfig,
@@ -110,6 +122,8 @@ def main(argv=None) -> int:
         kw["host"], kw["port"] = host or "127.0.0.1", int(port)
     if args.max_frame_mb is not None:
         kw["max_frame_bytes"] = args.max_frame_mb << 20
+    if os.path.isdir("/dev/shm"):
+        kw["shm_max_bytes"] = shm_pool_bytes("/dev/shm")
     cache_bytes = args.cache_bytes if args.cache_bytes is not None \
         else args.tile_cache_bytes
     try:

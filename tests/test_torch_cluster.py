@@ -19,7 +19,6 @@ execute / execute_many / serve() — including mid-batch retiles and
 killing a node loses no reads while the epoch check keeps a stale replica
 from ever serving a pre-retile generation.
 """
-import ast
 import json
 import pathlib
 
@@ -36,6 +35,8 @@ from repro_torch.core import (ClusterClient, ClusterRouter,
                               NoTilingPolicy, PlacementMap, VideoStore,
                               VideoStoreServer, uniform_layout, wire)
 from repro_torch.core.cost import CostModel
+
+from _torch_ast import code_only
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ATOL, RTOL = 1e-3, 1e-5
@@ -487,26 +488,8 @@ def test_cluster_matches_reference_cluster(tmp_path, small_video):
                 s.stop()
 
 
-def _code_only(path, rename=False):
-    """The module's AST with every docstring dropped (``repro_torch`` read
-    as ``repro`` when ``rename``)."""
-    text = path.read_text()
-    if rename:
-        text = text.replace("repro_torch", "repro")
-    tree = ast.parse(text)
-    for node in ast.walk(tree):
-        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
-                             ast.AsyncFunctionDef)):
-            body = node.body
-            if body and isinstance(body[0], ast.Expr) \
-                    and isinstance(body[0].value, ast.Constant) \
-                    and isinstance(body[0].value.value, str):
-                node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
-
-
 @pytest.mark.parametrize("module", ["cluster", "repair"])
 def test_copy_equals_reference_module(module):
     port = ROOT / "src" / "repro_torch" / "core" / f"{module}.py"
     ref = ROOT / "src" / "repro" / "core" / f"{module}.py"
-    assert _code_only(port, rename=True) == _code_only(ref)
+    assert code_only(port, rename=True) == code_only(ref)

@@ -1572,3 +1572,55 @@ def test_vlm_patch_prefill_on_the_card_matches_the_cpu(cuda):
     assert flash_kernel.LAUNCHES.count - before == cfg.n_layers
     want, _ = make_prefill_step(cfg, 64, device="cpu")(cpu, batch)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+# --------------------------------------- the tuner's race and entry points
+def _small_video():
+    """The small_video fixture's spec: its cars make RegretPolicy retile."""
+    return generate(VideoSpec(
+        height=96, width=160, n_frames=32, seed=5,
+        objects=[ObjectSpec("car", 2, (16, 24), 2.0),
+                 ObjectSpec("person", 1, (18, 10), 1.0)]))
+
+
+def test_scans_racing_background_retiles_on_the_card(cuda):
+    """Three client threads and a ``serve()`` session scan while the tuner
+    thread re-encodes on the card (``tests/_torch_race.py``): every region
+    bit for bit a serial inline store's on the card and within the decode
+    oracle's tolerance, no query charged a retile, and a ``dct_quant``
+    launch while a scan was in flight."""
+    from _torch_race import check, race
+
+    frames, dets = _small_video()
+    before = LAUNCHES.count
+    check(race(frames, dets, str(cuda), lambda: dct_kernel.LAUNCHES.count),
+          must_race=True)
+    assert LAUNCHES.count > before
+
+
+@pytest.mark.parametrize("name", ["quickstart_torch",
+                                  "incremental_workload_torch",
+                                  "edge_tiling_torch"])
+def test_video_examples_on_the_card(cuda, name, tmp_path):
+    """The video examples' flows on the card: every contract they print
+    holds, and each launched the decode and both encode kernels."""
+    from _torch_entry import load
+
+    mod = load(name)
+    counts = (LAUNCHES, dct_kernel.LAUNCHES, idct_kernel.LAUNCHES)
+    before = [c.count for c in counts]
+    ok = (mod.run(str(tmp_path), str(cuda)) if name == "quickstart_torch"
+          else mod.run(str(cuda)))
+    assert ok and all(ok.values()), ok
+    assert all(c.count > b for c, b in zip(counts, before))
+
+
+def test_cluster_smoke_on_the_card(cuda):
+    """``scripts/cluster_smoke_torch.py --device cuda``: three node
+    processes and a router on the card, the kill, the repair and the
+    clean shutdown."""
+    from _torch_entry import run
+
+    out = run("cluster_smoke_torch", "--device", "cuda", timeout=900)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines()[-1] == "cluster_smoke_torch,0.0,ok"

@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
-``examples/video_analytics_torch.py`` import neither JAX nor the
-reference package ``repro``, a CPU scan and a CPU
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's entry points (``examples/*_torch.py``, ``scripts/*_torch.py``)
+import neither JAX nor the reference package ``repro``, a CPU scan and a CPU
 greedy generation run without either in ``sys.modules``, and a store with
 no device named decodes on CUDA or refuses to start."""
 import ast
@@ -21,9 +21,10 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    assert files
-    return files + [ROOT / "chip_smoke.py",
-                    ROOT / "examples" / "video_analytics_torch.py"]
+    entry = sorted((ROOT / "examples").glob("*_torch.py")) + sorted(
+        (ROOT / "scripts").glob("*_torch.py"))
+    assert files and len(entry) >= 9
+    return files + [ROOT / "chip_smoke.py"] + entry
 
 
 def _imported_roots(path):

@@ -21,9 +21,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _run(*args, timeout=300):
+    """``python *args`` from the repo root, ``src`` on the path, at most
+    two OpenMP threads unless the environment says otherwise: the suite
+    runs in several workers at once, and a CPU run whose thread teams
+    outnumber the cores many times over can stall for minutes."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
+    env.setdefault("OMP_NUM_THREADS", "2")
     return subprocess.run([sys.executable, *args], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=timeout)
 

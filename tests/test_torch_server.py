@@ -286,3 +286,17 @@ def test_cli_without_device_needs_a_card(tmp_path):
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert not os.path.exists(sock)
+
+
+def test_cli_pool_fits_its_tmpfs(tmp_path):
+    """``tasm_serve`` caps its shared-memory reply pool at half the free
+    space of the tmpfs (the pool never checks it), at most the default."""
+    from repro_torch.core.shm import DEFAULT_POOL_BYTES
+    from repro_torch.tasm_serve import shm_pool_bytes
+
+    got = shm_pool_bytes(str(tmp_path))
+    st = os.statvfs(tmp_path)
+    half = st.f_bavail * st.f_frsize // 2
+    # the free space may move between the two reads: allow 16 MiB of it
+    assert 0 < got <= DEFAULT_POOL_BYTES
+    assert got == DEFAULT_POOL_BYTES or abs(got - half) <= 16 << 20
