@@ -162,7 +162,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    module): last-position prefill logits within 5e-2, greedy-token
    agreement printed; (c) the same in f32 at 4 layers: logits within 1e-3,
    greedy agreement >= 0.99; (d) ``ContinuousBatcher(slots=8,
-   max_len=640)`` over 16 requests of 64-512 prompt tokens and 8-32 new
+   max_len=640)`` over 16 requests of 64-512 prompt tokens and 8-16 new
    tokens: every request finishes, 30 launches per wave, stats printed;
    (e) the device time of one prefill and of one decode step, split by
    ``torch.profiler`` into ``flash_attention``, matmuls and the rest, and
@@ -306,7 +306,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    launches per wave, stats printed; (e) one patch prefill's and one
    decode step's device time by kind, the busy share and the peak
    memory; then the pipeline phase (20) on these weights; once they are
-   freed, (c) f32 at 4 layers, full width otherwise, card against CPU
+   freed, (c) f32 at 2 layers, full width otherwise, card against CPU
    (B=2): a patch prefill's logits within 1e-3, ``greedy_generate`` on
    text prompts with >= 0.99 of 16 tokens equal, on each that prefill
    one token short plus one decode step within 1e-3 of it, and the
@@ -333,13 +333,23 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 21. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
    dk, dv from the forward's o and row logsumexp) against its plain
    version, each element over its row's largest |gradient| (``BWD_TOL``:
-   2e-4 in f32, 1e-2 in bf16), at the training shape (8, 9, 3, 2048, 64)
-   bf16 causal and at (2, 9, 3, 512, 64) f32, causal and not (bf16 runs
-   on the tensor cores, f32 on the CUDA cores); times it, the plain version and
-   the backward of ``scaled_dot_product_attention`` (``enable_gqa``; the
-   library yardstick, which the port never calls) against the operation
-   bound (five causal-halved S^2 D products over the card's peak for the
-   type);
+   2e-4 in f32, 1e-2 in bf16), with o within FLASH_TOL, lse within
+   LSE_ATOL and two calls the same bits, at the training shape (8, 9, 3,
+   2048, 64) bf16 causal and at (2, 9, 3, 512, 64) f32, causal and not
+   (bf16 runs on the tensor cores, f32 on the CUDA cores), and at the new
+   cases in both dtypes: MLA's widths at deepseek-v2-lite-16b's prefill
+   shape (8, 16, 16, 512, q.k 192 / v 128) causal, and
+   seamless-m4t-medium's cross-attention (8, 16, 16, 512 queries over
+   128 keys, 64) not causal; times it in bf16 at the three shapes beside
+   the plain version and the backward of
+   ``scaled_dot_product_attention`` (``enable_gqa``; the library
+   yardstick, which the port never calls; null where it refuses a shape)
+   and the bound (``flash_bwd_bound_ms``: the bytes of q, k, v, o, dO,
+   lse, dq, dk, dv, against the five products over the live pairs); the
+   old cases' gradients (Skv == S, Dv == Dqk, ``BWD_DIGEST_SHAPES``,
+   causal and not, both dtypes) must hash to ``BWD_OLD_DIGESTS``, the
+   bits of the kernel before the widths and the keys' length became
+   parameters;
 22. train phase, ``smollm-135m`` at its published width (30 layers,
    d_model 576, vocab 49,152), bf16 params with an f32 master copy, remat
    on: (a) ``TRAIN_STEPS`` steps of ``make_train_step`` at B=8, S=2048 on
@@ -358,6 +368,29 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    restored from the step-2 checkpoint bit for bit (``restarts == 1``);
    (e) ``python -m repro_torch.launch.train --device cuda`` for 3 steps
    with ``--checkpoint-dir``, then ``--resume`` to 5;
+22b. family train phase, the six non-dense families (``FAMILY_ARCHS``):
+   (a) one f32 step each at ``reduce_config`` width (2 layers, the
+   hybrid's 4) with heads widened to the kernels' (64 for seamless, 128,
+   MLA's 192 / 128), B=2, S=128 (the encoder-decoder's 32 frames, and
+   again 37), card against CPU from the same weights: loss within rtol
+   1e-5, every gradient within 1e-4 of its leaf's largest, the backward's
+   launches equal to the model's attention sites (none for
+   falcon-mamba-7b); (d) ``python -m repro_torch.launch.train --arch
+   zamba2-1.2b --device cuda --steps 3 --batch 4 --seq 512`` at full
+   width and depth, run beside the train phase's (c)-(e), exits 0 with a
+   finite loss; (b) 3 bf16 steps
+   each at full width (f32 master, remat, AdamW lr 1e-3, warmup 1),
+   B=8, S=512 (falcon B=2; the encoder-decoder over [8, 128, 1024]
+   frames, the VLM over 128 patch embeddings and 384 tokens),
+   ``zamba2-1.2b`` and ``seamless-m4t-medium`` uncut, the other four at
+   2 layers (``FAMILY_LAYERS``): every loss finite, every param moved and
+   equal to the master rounded to bf16, the backward launched once per
+   attention site each step (6 for zamba2, 36 for seamless), and in the
+   first step each site's ``flash_attention_bwd`` held against its plain
+   version on the same q, k, v, o, dO and lse, per row within
+   ``BWD_TOL`` (bf16: 1e-2 of the row's largest |gradient|); the median
+   step, tokens/s, peak memory (steps 2-3) and one step's device time by
+   kind;
 23. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
@@ -367,7 +400,9 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    the pipeline's, the earlier prefills' and the LM entry points'
    launches beside it in ``launches_by_path``, and the pipeline's, the
    tuner race's and the video entry points' ``dct_quant``,
-   ``idct_dequant`` and ``decode_gop_blocks`` launches beside theirs),
+   ``idct_dequant`` and ``decode_gop_blocks`` launches beside theirs,
+   and ``flash_attention_bwd``'s by training path: smollm-135m's and
+   each family's of 22b (b)),
    then as its last line ``{"ok": true, "device": {...}}``.
 
 f32 products on the card stay f32 (``allow_tf32`` is set False for
@@ -467,6 +502,23 @@ BWD_FLOOR = 1e-2
 #: |lse| ~ 10 of these shapes
 LSE_ATOL = 1e-5
 TRAIN_F32 = (2, 2, 256)
+#: the backward's new cases at the serving phases' prefill shapes, (B, H,
+#: KV, S, Skv, Dqk, Dv): deepseek-v2-lite-16b's MLA (causal) and
+#: seamless-m4t-medium's cross-attention (not causal)
+BWD_MLA = (8, 16, 16, 512, 512, 192, 128)
+BWD_CROSS = (8, 16, 16, 512, 128, 64, 64)
+#: the backward's old cases (Skv == S, Dv == Dqk; (B, H, KV, S, D) at D
+#: 32, 64 and 128, G >= 1, ragged S), causal and not, from ``randn``
+#: inputs of DIGEST_SEED (``bwd_digests``): sha256 by dtype of the
+#: kernel before v's width and the keys' length became parameters (its
+#: source built beside the current one by ``scripts/torch_kernel_probe.py
+#: --bwd-only --baseline`` on an NVIDIA H100 80GB HBM3 at 700.00 W); the
+#: current kernel must give these bits
+BWD_DIGEST_SHAPES = [(2, 4, 4, 128, 32), (2, 6, 2, 100, 64),
+                     (1, 9, 3, 257, 64), (2, 4, 2, 65, 128),
+                     (1, 3, 1, 1, 64)]
+BWD_OLD_DIGESTS = {"bfloat16": "202818c62120c17d1623a0ad0494e8fe",
+                   "float32": "225d34293afee3a84968b381d8180c85"}
 GRAD_RTOL = 1e-4
 SERVE_B, SERVE_S, SERVE_NEW = 8, 512, 64
 #: new tokens of the earlier serve paths (smollm-135m, MoE, SSM, MLA):
@@ -478,8 +530,11 @@ FLASH_SHAPES = [(2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
                 (8, 9, 3, 512, 64), (1, 9, 3, 4096, 64), (3, 9, 3, 100, 64),
                 (1, 9, 3, 1, 64), (8, 32, 4, 512, 128), (2, 8, 8, 256, 128),
                 (8, 32, 32, 512, 128)]
+#: the batchers' requests: new tokens cut from 16-64 to 8-32, then to
+#: 8-16 when the family train phase came, to hold the smoke within its
+#: time limit
 BATCH_SLOTS, BATCH_MAX_LEN, BATCH_REQUESTS = 8, 640, 16
-BATCH_PROMPT, BATCH_NEW = (64, 512), (8, 32)
+BATCH_PROMPT, BATCH_NEW = (64, 512), (8, 16)
 FLASH_MAIN = (8, 9, 3, 512, 64)
 FLASH_LONG = (1, 9, 3, 4096, 64)
 #: the (D, D) pairs' outputs over FLASH_SHAPES, causal and not, from
@@ -556,13 +611,14 @@ ENCDEC_F32_LAYERS = 2
 #: the VLM serve path: internvl2-26b at its published width and depth (48
 #: layers, d_model 6144, 48 heads of 128 on 8, d_ff 16,384, vocab 92,553,
 #: the 3200 -> 6144 -> 6144 patch projector), its parameter count and
-#: depth, and the f32 card-against-CPU check's depth (4 layers: their f32
-#: weights with the f32 embedding and lm_head are 10.8 GB, on the card and
-#: again on the host); a prefill takes ``input_specs``' S // 4 = 128 patch
+#: depth, and the f32 card-against-CPU check's depth (2 layers, cut from
+#: 4 to hold the smoke within its time limit: their f32 weights with the
+#: f32 embedding and lm_head are 7.7 GB, on the card and again on the
+#: host); a prefill takes ``input_specs``' S // 4 = 128 patch
 #: embeddings of width 3,200 and 384 text tokens
 VLM_ARCH = "internvl2-26b"
 VLM_PUBLISHED = (19_918_682_112, 48)
-VLM_F32_LAYERS = 4
+VLM_F32_LAYERS = 2
 #: the paper's pipeline (``examples/video_analytics_torch.py``) at full
 #: width: batches of crops (each crop a prefill of the backbone's 1,024
 #: patch tokens and PIPE_TEXT text tokens), and the crops of the first
@@ -573,6 +629,20 @@ PIPE_BATCHES, PIPE_CROPS, PIPE_TEXT, PIPE_F32_CROPS = 3, 4, 8, 1
 FLASH_PIPE = (PIPE_CROPS, 48, 8, 1024 + PIPE_TEXT, 128)
 SSM_F32_LAYERS = {"zamba2-1.2b": 7, "falcon-mamba-7b": 2}
 SSM_F32_B, SSM_F32_NEW = 2, 16
+#: the family training phase: the six non-dense families in the order
+#: they run; (a) f32 card against CPU at B x S, and the encoder-decoder
+#: again over a ragged frame count; (b) bf16 at full width, B x S (falcon
+#: at B=2: its scan's four [B, S, 8192, 16] f32 tensors), steps, and the
+#: depths one card holds at 14 bytes a parameter (zamba2-1.2b and
+#: seamless-m4t-medium uncut: 38 layers, 12 + 12; deepseek's 2 are its
+#: dense layer and one MoE layer); (d) the train launcher's family
+FAMILY_ARCHS = (MOE_ARCH, "falcon-mamba-7b", "zamba2-1.2b", MLA_ARCH,
+                ENCDEC_ARCH, VLM_ARCH)
+FAMILY_F32_B, FAMILY_F32_S, FAMILY_F32_RAGGED = 2, 128, 37
+FAMILY_B, FAMILY_S, FAMILY_STEPS = 8, 512, 3
+FAMILY_BATCH = {"falcon-mamba-7b": 2}
+FAMILY_LAYERS = {MOE_ARCH: 2, "falcon-mamba-7b": 2, MLA_ARCH: 2, VLM_ARCH: 2}
+FAMILY_LAUNCH_ARCH = "zamba2-1.2b"
 #: the share of the first layer's int8 KV-cache codes that may differ (by
 #: one) between the card and the CPU from the same input: where x / scale
 #: lies within their f32 error of .5 (about 1e-4 in code units)
@@ -2432,23 +2502,27 @@ def _print_top(what: str, label: str, times: dict) -> None:
 def _device_split(what: str, fn, *, bwd: bool = False) -> dict:
     """Device time of ``fn()``, by kind, from the profiler (None where it
     recorded no device time); prints the largest other kernels.  With
-    ``bwd`` the attention backward's kernels are a kind of their own."""
+    ``bwd`` the attention backward's kernels are a kind of their own.  It
+    records the device's activity alone (the host's op events, which
+    nothing here reads, made a profiled step of zamba2-1.2b's 38 layers
+    take 20 times its unprofiled wall time) and sums the profiler's raw
+    events, without building its function events (``key_averages``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     split = {"flash_attention_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
     if bwd:
         split["flash_attention_bwd_ms"] = 0.0
     others = {}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
             continue
-        ms = evt.device_time_total / 1e3
-        name = evt.key.lower()
+        ms = evt.duration_ns() / 1e6
+        key = evt.name()
+        name = key.lower()
         if bwd and "attention_bwd" in name:
             split["flash_attention_bwd_ms"] += ms
         elif "flash_attention" in name:
@@ -2457,7 +2531,7 @@ def _device_split(what: str, fn, *, bwd: bool = False) -> dict:
             split["matmul_ms"] += ms
         else:
             split["other_ms"] += ms
-            others[evt.key[:60]] = others.get(evt.key[:60], 0.0) + ms
+            others[key[:60]] = others.get(key[:60], 0.0) + ms
     if sum(split.values()) == 0.0:
         return {k: None for k in split}
     _print_top(what, "other", others)
@@ -2513,7 +2587,7 @@ def _generate(model, cfg, prompts, *, prefill_extra=None, decode_extra=None,
 def _batcher_run(what: str, cfg, model, rng, *, per_wave=None,
                  repeat: bool = False) -> dict:
     """``ContinuousBatcher(slots=8, max_len=640)`` over 16 requests of
-    64-512 prompt tokens and 8-32 new tokens drawn from ``rng``: every
+    64-512 prompt tokens and 8-16 new tokens drawn from ``rng``: every
     request finishes with its tokens, ``per_wave`` ``flash_attention``
     launches per wave (one per layer unless given; counts set to 0 just
     before the run, read just after); returns the stats.  With
@@ -4267,17 +4341,28 @@ def vlm_serve_phase(seed: int) -> tuple:
 
 
 # ---------------------------------------------------------------- training
+def _bwd_shape(shape) -> tuple:
+    """A backward shape as (B, H, KV, S, Skv, Dqk, Dv), from (B, H, KV, S,
+    D) or that 7-tuple itself."""
+    if len(shape) == 5:
+        b, h, kv, s, d = shape
+        return b, h, kv, s, s, d, d
+    return tuple(shape)
+
+
 def flash_bwd_bound_ms(shape, dtype, causal: bool) -> tuple[float, str]:
     """Least time for one attention backward: q, k, v, o, dO and the f32
-    lse read and dq, dk, dv written once over the HBM rate, against the
-    five products the gradient needs (recomputed scores, dP, dv, dk, dq; 2
-    FLOPs per multiply-add over the live (query, key) pairs) over the
-    card's peak for the type."""
-    b, h, kv, s, d = shape
+    lse read and dq, dk, dv written once over the HBM rate (B (H S + KV
+    Skv)(2 Dqk + 2 Dv) elements), against the five products the gradient
+    needs (the recomputed scores, dq and dk over Dqk; dP and dv over Dv; 2
+    FLOPs per multiply-add over the live (query, key) pairs: 2 B H pairs
+    (3 Dqk + 2 Dv)) over the card's peak for the type.  ``shape`` as
+    :func:`_bwd_shape` takes it."""
+    b, h, kv, s, skv, d, dv = _bwd_shape(shape)
     elt = torch.finfo(dtype).bits // 8
-    n_bytes = (b * s * d * (4 * h + 4 * kv) * elt) + b * h * s * 4
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 5 * 2 * b * h * d * pairs
+    n_bytes = b * (h * s + kv * skv) * (2 * d + 2 * dv) * elt + b * h * s * 4
+    pairs = s * (s + 1) // 2 if causal else s * skv
+    flops = 2 * b * h * pairs * (3 * d + 2 * dv)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
@@ -4294,14 +4379,117 @@ def bwd_row_err(got: torch.Tensor, want: torch.Tensor,
     return float(((got.float() - w).abs() / row).max())
 
 
-def flash_bwd_kernel_phase(seed: int) -> dict:
+def _qkv_bwd(rng, shape, dtype):
+    """q, k, v on the card for a backward ``shape`` (:func:`_bwd_shape`)."""
+    return _qkv_cross(rng, _bwd_shape(shape), dtype)
+
+
+def _dout_bwd(rng, q, v):
+    """dO [B, H, S, Dv] from ``rng`` on the card, in q's dtype."""
+    shape = (*q.shape[:3], v.shape[3])
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        DEVICE, q.dtype)
+
+
+def bwd_chain_errs(q, k, v, dout, causal: bool) -> dict:
+    """The main path's chain (the forward kernel's o and lse into the
+    backward kernel) held against the fully plain chain: o within
+    FLASH_TOL, lse within LSE_ATOL, each gradient over its row's largest
+    within BWD_TOL; two calls of the backward the same bits.  Returns the
+    readings, with ``max_abs`` the largest absolute gradient error."""
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_lse_ref,
                                                      attention_ref,
                                                      flash_attention,
                                                      flash_attention_bwd)
 
+    dtype, what = q.dtype, f"{tuple(q.shape)} / {tuple(v.shape)}"
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+    o_ref = attention_ref(q, k, v, causal=causal)
+    lse_ref = attention_lse_ref(q, k, causal=causal)
+    torch.cuda.synchronize()
+    errs = {"o": float((o.float() - o_ref.float()).abs().max()),
+            "lse": float((lse - lse_ref).abs().max())}
+    check(errs["o"] <= FLASH_TOL[dtype],
+          f"flash_attention o vs plain {what} {dtype} causal={causal}: max "
+          f"|diff| {errs['o']} > {FLASH_TOL[dtype]}")
+    check(errs["lse"] <= LSE_ATOL,
+          f"flash_attention lse vs plain {what} {dtype} causal={causal}: "
+          f"max |diff| {errs['lse']} > {LSE_ATOL}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {what} {dtype} causal={causal}: two calls "
+          f"gave other bits")
+    want = attention_bwd_ref(q, k, v, o_ref, dout, lse_ref, causal=causal)
+    floor = BWD_FLOOR * max(float(w.float().abs().max()) for w in want)
+    errs["max_abs"] = 0.0
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        errs[gname] = bwd_row_err(a, w, floor)
+        check(errs[gname] <= BWD_TOL[dtype],
+              f"flash_attention_bwd {gname} vs plain {what} {dtype} causal="
+              f"{causal}: {errs[gname]} of its row's largest > "
+              f"{BWD_TOL[dtype]}")
+        errs["max_abs"] = max(errs["max_abs"],
+                              float((a.float() - w.float()).abs().max()))
+    return errs
+
+
+def bwd_times(q, k, v, o, dout, lse, causal: bool, shape) -> dict:
+    """Device ms of the backward kernel, of its plain version and of
+    SDPA's backward (``enable_gqa``; the library yardstick, which the port
+    never calls: None, with its error, where SDPA refuses the shape),
+    beside the bound."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {"ms": cuda_ms(lambda: flash_attention_bwd(
+        q, k, v, o, dout, lse, causal=causal), iters=5)}
+    row["plain_ms"] = cuda_ms(lambda: attention_bwd_ref(
+        q, k, v, o, dout, lse, causal=causal), iters=2, warmup=1)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    try:
+        ref_out = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)
+        row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            ref_out, (qg, kg, vg), dout, retain_graph=True), iters=5)
+    except RuntimeError as e:  # a shape SDPA's backward refuses
+        row["library_ms"] = None
+        row["library_error"] = str(e).splitlines()[0][:200]
+    row["bound_ms"], row["bound_by"] = flash_bwd_bound_ms(shape, q.dtype,
+                                                          causal)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def bwd_digests(call) -> dict:
+    """{dtype name: sha256 of ``call(q, k, v, o, dO, lse, causal=...)``'s
+    dq, dk, dv over BWD_DIGEST_SHAPES, causal and not, on ``randn`` inputs
+    from DIGEST_SEED, o and lse from the forward kernel}: the same bits
+    give the same digests."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(DIGEST_SEED)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        digest = hashlib.sha256()
+        for shape in BWD_DIGEST_SHAPES:
+            q, k, v = _qkv(rng, *shape, dtype)
+            dout = _qkv(rng, *shape, dtype)[0]
+            for causal in (True, False):
+                o, lse = flash_attention(q, k, v, causal=causal,
+                                         return_lse=True)
+                for g in call(q, k, v, o, dout, lse, causal=causal):
+                    digest.update(g.contiguous().view(-1).view(torch.uint8)
+                                  .cpu().numpy().tobytes())
+        out[str(dtype).split(".")[-1]] = digest.hexdigest()[:32]
+    return out
+
+
+def flash_bwd_kernel_phase(seed: int) -> dict:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
     rng = np.random.default_rng(seed + 4)
     worst, at_main = 0.0, None
     for shape, dtype in ((BWD_MAIN, torch.bfloat16),
@@ -4310,56 +4498,48 @@ def flash_bwd_kernel_phase(seed: int) -> dict:
         dout = _qkv(rng, *shape, dtype)[0]
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         for causal in (True, False):
-            # the main path's chain: the forward kernel's o and lse into
-            # the backward kernel, each held against its plain version
-            o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-            got = flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
-            o_ref = attention_ref(q, k, v, causal=causal)
-            lse_ref = attention_lse_ref(q, k, causal=causal)
-            torch.cuda.synchronize()
-            o_err = float((o.float() - o_ref.float()).abs().max())
-            lse_err = float((lse - lse_ref).abs().max())
-            check(o_err <= FLASH_TOL[dtype],
-                  f"flash_attention o vs plain {shape} {dtype} causal="
-                  f"{causal}: max |diff| {o_err} > {FLASH_TOL[dtype]}")
-            check(lse_err <= LSE_ATOL,
-                  f"flash_attention lse vs plain {shape} {dtype} causal="
-                  f"{causal}: max |diff| {lse_err} > {LSE_ATOL}")
-            want = attention_bwd_ref(q, k, v, o_ref, dout, lse_ref,
-                                     causal=causal)
-            floor = BWD_FLOOR * max(float(w.float().abs().max())
-                                    for w in want)
-            rel = {}
-            for gname, a, w in zip(("dq", "dk", "dv"), got, want):
-                rel[gname] = bwd_row_err(a, w, floor)
-                check(rel[gname] <= BWD_TOL[dtype],
-                      f"flash_attention_bwd {gname} vs plain {shape} "
-                      f"{dtype} causal={causal}: {rel[gname]} of its row's "
-                      f"largest > {BWD_TOL[dtype]}")
-                worst = max(worst, float((a.float() - w.float()).abs().max()))
+            errs = bwd_chain_errs(q, k, v, dout, causal)
+            worst = max(worst, errs.pop("max_abs"))
             print(f"flash_attention_bwd {shape} {name} causal={causal} vs "
-                  f"plain: o {o_err:.3g}, lse {lse_err:.3g}, "
-                  + ", ".join(f"{g} {r:.3g}" for g, r in rel.items())
-                  + " of the row's largest", flush=True)
-            del got, want, o_ref, lse_ref
+                  f"plain: " + ", ".join(f"{g} {r:.3g}"
+                                         for g, r in errs.items())
+                  + " (gradients of the row's largest)", flush=True)
         o, lse = flash_attention(q, k, v, return_lse=True)
-        k_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, dout, lse),
-                       iters=5)
-        r_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, dout, lse),
-                       iters=2, warmup=1)
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        ref_out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
-        l_ms = cuda_ms(lambda: torch.autograd.grad(
-            ref_out, (qg, kg, vg), dout, retain_graph=True), iters=5)
-        b_ms, b_by = flash_bwd_bound_ms(shape, dtype, True)
+        row = bwd_times(q, k, v, o, dout, lse, True, shape)
         print(f"flash_attention_bwd {shape} {name} causal: kernel_ms="
-              f"{k_ms:.6f} plain_ms={r_ms:.6f} sdpa_backward_ms={l_ms:.6f} "
-              f"bound_ms={b_ms:.6f} ({b_by}) share_of_bound="
-              f"{b_ms / k_ms:.3f}", flush=True)
+              f"{row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+              f"sdpa_backward_ms={row['library_ms']:.6f} bound_ms="
+              f"{row['bound_ms']:.6f} ({row['bound_by']}) share_of_bound="
+              f"{row['share_of_bound']:.3f}", flush=True)
         if shape == BWD_MAIN:
-            at_main = dict(ms=k_ms, plain_ms=r_ms, library_ms=l_ms,
-                           bound_ms=b_ms, bound_by=b_by)
-        del qg, kg, vg, ref_out
+            at_main = row
+    # MLA's widths (causal) and keys of another length (not causal), at
+    # the serving phases' prefill shapes, in both dtypes; bf16 timed
+    for label, shape, causal in (("mla", BWD_MLA, True),
+                                 ("cross", BWD_CROSS, False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv_bwd(rng, shape, dtype)
+            dout = _dout_bwd(rng, q, v)
+            errs = bwd_chain_errs(q, k, v, dout, causal)
+            worst = max(worst, errs.pop("max_abs"))
+            print(f"flash_attention_bwd {label} {shape} {dtype} causal="
+                  f"{causal} vs plain: " + ", ".join(
+                      f"{g} {r:.3g}" for g, r in errs.items()), flush=True)
+        q, k, v = _qkv_bwd(rng, shape, torch.bfloat16)
+        dout = _dout_bwd(rng, q, v)
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        row = bwd_times(q, k, v, o, dout, lse, causal, shape)
+        print(f"flash_attention_bwd {label} {shape} bf16 causal={causal}: "
+              + " ".join(f"{n}={x:.6f}" if isinstance(x, float) else
+                         f"{n}={x}" for n, x in row.items()), flush=True)
+    digests = bwd_digests(flash_attention_bwd)
+    check(digests == BWD_OLD_DIGESTS,
+          f"flash_attention_bwd old cases' digests {digests}, not the "
+          f"parent build's {BWD_OLD_DIGESTS}")
+    print(f"flash_attention_bwd old cases (Skv == S, Dv == Dqk) over "
+          f"{len(BWD_DIGEST_SHAPES)} shapes, causal and not: digests equal "
+          f"to the build before the widths and lengths became parameters "
+          f"{digests}", flush=True)
     q, k, v = _qkv(rng, 1, 9, 3, 16, 64, torch.bfloat16)
     o, lse = flash_attention(q, k, v, return_lse=True)
     at_main.update(max_abs_err=worst, host_us=host_us(
@@ -4508,11 +4688,11 @@ def _train_launcher(ckdir: str, steps: int, *extra: str) -> _Launcher:
                      *extra)
 
 
-def train_phase(seed: int, beside_e=()) -> int:
+def train_phase(seed: int, beside_e=()) -> tuple:
     """The training slice at full width; returns the backward kernel's
-    launches over the main path's run.  ``beside_e``: ``_Launcher``
-    arguments of processes run beside (e), which leaves the card mostly
-    idle."""
+    launches over the main path's run, and the standard output of each
+    process of ``beside_e``: ``_Launcher`` arguments of processes run
+    beside (c)-(e), which leave the card mostly idle."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_model
     from repro_torch.train.data import synthetic_token_batches
@@ -4586,13 +4766,255 @@ def train_phase(seed: int, beside_e=()) -> int:
         _f32_step_card_vs_cpu(seed)
         _recovery(seed)
         outs = [first.finish(), _train_launcher(ckdir, 5, "--resume").finish()]
-        for launcher in beside:
-            launcher.finish()
+        beside_outs = [launcher.finish() for launcher in beside]
     check(f"device={DEVICE}" in outs[0] and "done: 3 steps" in outs[0],
           f"launch.train: {outs[0]}")
     check("resumed from step 3" in outs[1] and "done: 5 steps" in outs[1],
           f"launch.train --resume: {outs[1]}")
-    return launches["flash_attention_bwd"]
+    return launches["flash_attention_bwd"], beside_outs
+
+
+# ------------------------------------------------- training of the families
+def _families():
+    """``tests/_torch_families.py``: the families' kernel widths, batches
+    and attention sites, as the tests take them."""
+    return _tests_module("_torch_families")
+
+
+def _family_full(arch: str):
+    """(b)'s config: ``arch`` at its published width, bf16 params (an f32
+    master in the optimizer), cut to FAMILY_LAYERS where one card cannot
+    hold 14 bytes a parameter of the whole depth."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    return cfg
+
+
+def _family_f32_card_vs_cpu(arch: str, seed: int, rng, frames=None) -> None:
+    """(a): one f32 step's loss and gradients of ``arch`` at (a)'s config,
+    card against CPU from the same weights, and the backward kernel's
+    launches equal to the model's attention sites."""
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.models import init_model
+
+    fam = _families()
+    cfg = fam.kernel_widths(reduce_config(get_config(arch)), "float32")
+    cpu = init_model(cfg, seed, device="cpu")
+    card = init_model(cfg, seed, device=DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    batch = {k: torch.from_numpy(v) for k, v in fam.batch(
+        cfg, FAMILY_F32_B, FAMILY_F32_S, rng, frames).items()}
+    reset_counts()
+    loss_d, g_d = _grads(card, cfg, {k: v.to(DEVICE)
+                                     for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = read_counts()["flash_attention_bwd"]
+    loss_h, g_h = _grads(cpu, cfg, batch)
+    sites = fam.attention_sites(cfg)
+    check(launches == sites, f"f32 {arch} step launched the backward "
+                             f"{launches} times, not {sites}")
+    rel = abs(float(loss_d) - float(loss_h)) / abs(float(loss_h))
+    check(rel <= 1e-5, f"f32 {arch} loss card {float(loss_d)} cpu "
+                       f"{float(loss_h)}")
+    worst, at = 0.0, None
+    for name, gh in g_h.items():
+        diff = float((g_d[name].cpu() - gh).abs().max())
+        ratio = diff / max(float(gh.abs().max()), 1e-30)
+        check(ratio <= GRAD_RTOL, f"f32 {arch} gradient {name}: max |diff| "
+                                  f"{diff}, {ratio} of the leaf's largest")
+        if ratio >= worst:
+            worst, at = ratio, name
+    extra = f", {batch['frames'].shape[1]} frames" if cfg.is_encdec else ""
+    print(f"family train (a) {arch} f32, {cfg.n_layers} layers at d_model "
+          f"{cfg.d_model}, heads of {cfg.head_dim}, B={FAMILY_F32_B} S="
+          f"{FAMILY_F32_S}{extra}, card vs cpu: loss {float(loss_d):.7f} / "
+          f"{float(loss_h):.7f} (rel {rel:.3g}); worst gradient diff "
+          f"{worst:.3g} of its leaf's largest ({at}, of {len(g_h)} leaves); "
+          f"flash_attention_bwd launches {launches} = attention sites",
+          flush=True)
+
+
+class _BwdBesidePlain:
+    """A test-only patch of the attention backward that autograd calls
+    (``ops.flash_attention_bwd``): each call runs the kernel and, on the
+    same q, k, v, o, dO and lse, its plain version; kept for each call:
+    its (B, H, KV, S, Skv, Dqk, Dv, causal) (``calls``) and each
+    gradient's largest error over its row's largest |gradient|, that
+    scale at least BWD_FLOOR of the call's largest (``errs``, as
+    :func:`bwd_chain_errs` reads them); the kernel's gradients go on."""
+
+    def __enter__(self):
+        from unittest import mock
+
+        from repro_torch.kernels.flash_attention import attention_bwd_ref, ops
+
+        self.calls, self.errs = [], []
+        real = ops.flash_attention_bwd
+
+        def bwd(q, k, v, o, dout, lse, causal=True):
+            got = real(q, k, v, o, dout, lse, causal=causal)
+            want = attention_bwd_ref(q, k, v, o, dout, lse, causal=causal)
+            floor = BWD_FLOOR * max(float(w.float().abs().max())
+                                    for w in want)
+            self.errs.append({g: bwd_row_err(a, w, floor) for g, a, w in
+                              zip(("dq", "dk", "dv"), got, want)})
+            self.calls.append((*q.shape[:2], k.shape[1], q.shape[2],
+                               k.shape[2], q.shape[3], v.shape[3],
+                               bool(causal)))
+            return got
+
+        self._patch = mock.patch.object(ops, "flash_attention_bwd", bwd)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def check(self, arch: str, sites: int, dtype) -> str:
+        """Fails unless ``sites`` calls were made, each gradient within
+        BWD_TOL[dtype]; returns a line of the worst errors by shape."""
+        check(len(self.calls) == sites,
+              f"{arch}: {len(self.calls)} backward calls beside the plain "
+              f"version, not {sites}")
+        worst = {}
+        for call, errs in zip(self.calls, self.errs):
+            for g, e in errs.items():
+                check(e <= BWD_TOL[dtype],
+                      f"{arch}: flash_attention_bwd {g} at {call} vs plain "
+                      f"on the same inputs: {e} of its row's largest > "
+                      f"{BWD_TOL[dtype]}")
+            at = worst.setdefault(call, dict.fromkeys(errs, 0.0))
+            for g, e in errs.items():
+                at[g] = max(at[g], e)
+        return "; ".join(
+            f"{self.calls.count(c)} at {c[:7]} causal={c[7]}: " +
+            ", ".join(f"{g} {e:.3g}" for g, e in w.items())
+            for c, w in worst.items())
+
+
+def _family_bf16_steps(arch: str, seed: int, rng) -> int:
+    """(b): FAMILY_STEPS bf16 steps of ``arch`` at full width (f32 master,
+    remat, AdamW), each launching the backward once per attention site,
+    the first with every site's backward held against its plain version
+    on the same inputs (:class:`_BwdBesidePlain`); returns the backward's
+    launches over the steps."""
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _family_full(arch)
+    b = FAMILY_BATCH.get(arch, FAMILY_B)
+    _free_card(f"family train (b) {arch}")
+    t0 = time.perf_counter()
+    model = _init_on_card(cfg, seed)
+    opt = init_opt_state(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=FAMILY_STEPS))
+    batches = [_families().batch(cfg, b, FAMILY_S, rng)
+               for _ in range(FAMILY_STEPS + 1)]
+    sites = _families().attention_sites(cfg)
+    losses, times, per_step = [], [], []
+    reset_counts()
+    for i, batch in enumerate(batches[:FAMILY_STEPS]):
+        bwd0 = read_counts()["flash_attention_bwd"]
+        t0 = time.perf_counter()
+        if i == 0:  # every backward site beside its plain version
+            with _BwdBesidePlain() as beside:
+                model, opt, metrics = step(model, opt, batch)
+        else:
+            model, opt, metrics = step(model, opt, batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        times.append(time.perf_counter() - t0)
+        per_step.append(read_counts()["flash_attention_bwd"] - bwd0)
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+    launches = read_counts()["flash_attention_bwd"]
+    peak = torch.cuda.max_memory_allocated()
+    against_plain = beside.check(arch, sites, torch.bfloat16)
+    check(all(np.isfinite(losses)), f"{arch} train losses {losses}")
+    check(per_step == [sites] * FAMILY_STEPS,
+          f"{arch}: backward launches per step {per_step}, not {sites}")
+    # every leaf's f32 master moved (a bf16 param of 1.0 may not: one of
+    # its ulps is 2^-7), and every param is its master rounded to bf16
+    still = [n for n, p in before.items()
+             if torch.equal(opt["master"][n], p.float())]
+    check(not still, f"{arch}: the master of {still} did not move")
+    check(all(torch.equal(p, opt["master"][n].bfloat16())
+              for n, p in model.named_parameters()),
+          f"{arch}: params are not the master rounded to bf16")
+    moved = sum(not torch.equal(p, before[n])
+                for n, p in model.named_parameters())
+    check(not torch.equal(model.embed.table, before["embed.table"]),
+          f"{arch}: the bf16 embedding did not move")
+    del before
+    med = float(np.median(times[1:]))
+    tokens = batches[0]["targets"].size
+    depth = (f"{cfg.enc_layers} + {cfg.n_layers}" if cfg.is_encdec
+             else cfg.n_layers)
+    print(f"family train (b) {arch} {depth} layers at full width "
+          f"(d_model {cfg.d_model}), B={b} S={FAMILY_S}, bf16 params + f32 "
+          f"master, remat: init {init_s:.3f} s; first step {times[0]:.6f} s "
+          f"(the plain backward beside each site), median step {med:.6f} "
+          f"s, tokens_per_s={tokens / med:.1f}, peak_memory_bytes={peak} "
+          f"(steps 2-{FAMILY_STEPS}); bf16 params moved {moved} of "
+          f"{len(opt['master'])} (every master); flash_attention_bwd per step "
+          f"{per_step[-1]} = attention sites; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"family train (b) {arch} step 1, flash_attention_bwd vs its plain "
+          f"version on each site's inputs (of the row's largest, limit "
+          f"{BWD_TOL[torch.bfloat16]}): {against_plain or 'no sites'}",
+          flush=True)
+    split = _device_split(f"family train (b) {arch} one step",
+                          lambda: step(model, opt, batches[-1]), bwd=True)
+    busy = (None if split["other_ms"] is None
+            else sum(split.values()) / 1e3 / med)
+    print(f"family train (b) {arch} one step, device time (torch.profiler): "
+          + " ".join(f"{k}={'not measured' if v is None else f'{v:.6f}'}"
+                     for k, v in split.items()) +
+          f"; device busy share of the median step ({med:.6f} s, "
+          f"unprofiled): {'not measured' if busy is None else f'{busy:.4f}'}",
+          flush=True)
+    del model, opt, step
+    return launches
+
+
+def family_launch_args(ckdir: str) -> tuple:
+    """(d)'s ``_Launcher`` arguments: ``python -m repro_torch.launch.train
+    --arch zamba2-1.2b --device cuda --steps 3 --batch 4 --seq 512`` at
+    full width and depth, checkpointing into ``ckdir``.  It runs beside
+    the train phase's (c)-(e), which leave the card mostly idle: its final
+    checkpoint writes 18 GB (bf16 params, the f32 master, m and v)."""
+    return ("family train (d)", "repro_torch.launch.train", "--arch",
+            FAMILY_LAUNCH_ARCH, "--device", DEVICE, "--steps", "3",
+            "--batch", "4", "--seq", str(FAMILY_S), "--checkpoint-dir",
+            ckdir)
+
+
+def family_train_phase(seed: int, launch_out: str) -> dict:
+    """Training of the six non-dense families: (d) the output of
+    :func:`family_launch_args`' run, checked; (a) an f32 step each at
+    reduced width, card against CPU; (b) bf16 steps each at full width.
+    Returns the backward kernel's launches of (b) by architecture."""
+    check(f"arch={FAMILY_LAUNCH_ARCH}" in launch_out and "device=cuda"
+          in launch_out and "done: 3 steps" in launch_out,
+          f"launch.train zamba2: {launch_out}")
+    last = next(x for x in launch_out.splitlines()
+                if x.startswith("step     3"))
+    check(np.isfinite(float(last.split()[3])), f"launch.train: {last}")
+    rng = np.random.default_rng(seed + 9)
+    for arch in FAMILY_ARCHS:
+        _family_f32_card_vs_cpu(arch, seed, rng)
+    _family_f32_card_vs_cpu(ENCDEC_ARCH, seed, rng, frames=FAMILY_F32_RAGGED)
+    launches = {}
+    for arch in FAMILY_ARCHS:
+        launches[arch] = _family_bf16_steps(arch, seed, rng)
+    _free_card("family train phase done")
+    return launches
 
 
 def _phase(name: str, fn, *args):
@@ -4652,10 +5074,17 @@ def main() -> int:
     encdec = _phase("encdec serve", encdec_serve_phase, args.seed)
     vlm, pipe = _phase("vlm serve", vlm_serve_phase, args.seed)
     numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
-    # the server drill of scripts/server_smoke_torch.py, beside train (e)
-    train = _phase("train", train_phase, args.seed, [(
-        "entry point", str(ROOT / "scripts" / "server_smoke_torch.py"),
-        "--transport", "shm", "--device", DEVICE)])
+    # the server drill of scripts/server_smoke_torch.py and the family
+    # train phase's launch.train (d), beside train (c)-(e)
+    with tempfile.TemporaryDirectory() as ckdir:
+        train, (_, family_out) = _phase(
+            "train", train_phase, args.seed, [
+                ("entry point", str(ROOT / "scripts" /
+                                    "server_smoke_torch.py"),
+                 "--transport", "shm", "--device", DEVICE),
+                family_launch_args(ckdir)])
+    families = _phase("family train", family_train_phase, args.seed,
+                      family_out)
 
     now = {"decode_gop_blocks F=16 M=32768":
            numbers["decode_gop_blocks"]["ms"],
@@ -4690,6 +5119,8 @@ def main() -> int:
                                       for ex in ("serve_lm_torch",
                                                  "continuous_batching_torch",
                                                  "smoke_models_torch")}},
+               "flash_attention_bwd": {"smollm_train": train, **{
+                   f"{arch}_train": n for arch, n in families.items()}},
                **{name: {"pipeline": pipe[name], "tuner_race": race[name],
                          **{ex: entry[ex][name] for ex in (
                              "quickstart_torch", "incremental_workload_torch",

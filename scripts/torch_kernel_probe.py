@@ -38,12 +38,14 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    must take the ``lse`` pointer too; one whose entry takes a single head
    width, from before v's width was a parameter, or a single length,
    from before the keys' length was one, is called through the current
-   one) give bit-identical
+   one, and so is a backward whose entry takes one length and one width)
+   give bit-identical
    output at ragged and full shapes (the encode kernels for intra and
    inter at qp 4, 8 and 16; the search at both motion shapes, N in {1, 7,
-   33, 500, 32400}, on float and integer pixels; ``flash_attention_bwd``'s
-   f32 path, whose kernels this version keeps, at the smoke's f32 shape
-   and ragged ones, D in {32, 64, 128}, causal and not), and times both
+   33, 500, 32400}, on float and integer pixels; ``flash_attention_bwd``
+   at its old cases (Skv == S, Dv == Dqk) in f32 and bf16, at the smoke's
+   shapes and ragged ones, D in {32, 64, 128}, G >= 1, causal and not,
+   and the digests ``chip_smoke.BWD_OLD_DIGESTS`` records), and times both
    versions of each kernel at the main path's shapes
    in turns (baseline, current, current, baseline; the encode kernels warm
    and L2-cold at N=32,400 and 131,072), with SDPA beside the attention
@@ -66,7 +68,12 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 ``--ptxas-only`` stops after the ptxas reports (about 40 s);
 ``--sad-only`` stops after the ptxas reports and ``sad_search``;
 ``--bwd-only`` prints the two attention sources' ptxas reports and runs
-5 and the backward's part of 3 alone (about a minute).  ``--flash-only``
+5 and the backward's part of 3 alone, then the backward's new cases at
+the smoke's two timing shapes (MLA's (8, 16, 16, 512, 192 / 128) causal
+and seamless' cross-attention, 512 queries over 128 keys): each dtype
+per row against the plain chain, bf16 timed beside the plain version,
+SDPA's backward and the bound, with the profiler's split by kernel
+(about two minutes).  ``--flash-only``
 prints the forward's ptxas report (and the baseline's), runs the
 forward's part of 3 (the (D, D) pairs and the (192, 128) pair),
 prints the sha256 digests of both groups' outputs that ``chip_smoke.py``
@@ -123,6 +130,10 @@ SAD_STRIP = "constexpr int kStripFixed = 17;"
 #: ragged S at each head dim
 BWD_F32_SHAPES = [cs.BWD_F32, (1, 4, 2, 257, 32), (1, 6, 2, 100, 128),
                   (2, 3, 3, 1, 64), (1, 3, 1, 1500, 64)]
+#: and the tensor-core path's: the training layout, G = 1 and ragged S at
+#: each width (held in both dtypes, as the f32 shapes are)
+BWD_BF16_SHAPES = [(1, 9, 3, 2048, 64), (2, 4, 4, 65, 32),
+                   (1, 6, 2, 257, 128), (2, 2, 2, 100, 128)]
 
 
 def ptxas_report(source: pathlib.Path, tag: str = "") -> None:
@@ -194,10 +205,49 @@ class OlderFlash:
         return Entry
 
 
+def _bind_bwd_one_shape(lib: ctypes.CDLL) -> None:
+    """The backward's entry before the widths and the keys' length were
+    parameters: ``s, d`` where the current entry takes ``s, skv, dqk,
+    dv``."""
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 +
+                   [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+class OlderBwd:
+    """A baseline backward library with the older entry (one width, one
+    length), called through the current signature (``dqk != dv`` or
+    ``skv != s`` is refused, as the kernel would refuse an unknown
+    width), so it can stand in for ``flash_attention_bwd.LIBRARY``."""
+
+    def __init__(self, source: pathlib.Path):
+        self.lib = kbuild.CudaLibrary(source, _bind_bwd_one_shape)
+
+    def build(self):
+        return self.lib.build()
+
+    def load(self):
+        raw = self.lib.load()
+
+        class Entry:
+            @staticmethod
+            def flash_attention_bwd(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    b, h, kvh, s, skv, dqk, d_v, dtype,
+                                    causal, scale, stream):
+                if skv != s or dqk != d_v:
+                    return 1  # cudaErrorInvalidValue
+                return raw.flash_attention_bwd(q, k, v, o, dout, lse, delta,
+                                               dq, dk, dv, b, h, kvh, s, dqk,
+                                               dtype, causal, scale, stream)
+        return Entry
+
+
 def baseline_libraries(tree: pathlib.Path, only=None) -> dict:
     """The baseline's libraries (those named in ``only``, or all), built."""
     kernels = tree / "src" / "repro_torch" / "kernels"
     flash_src = kernels / "flash_attention" / "csrc" / fmod.SOURCE.name
+    bwd_src = kernels / "flash_attention" / "csrc" / bwd_mod.SOURCE.name
     libs = {
         "decode": kbuild.CudaLibrary(
             kernels / "decode" / "csrc" / dbuild.SOURCE.name, dbuild._bind),
@@ -211,9 +261,9 @@ def baseline_libraries(tree: pathlib.Path, only=None) -> dict:
             idct_mod._bind),
         "sad": kbuild.CudaLibrary(
             kernels / "sad" / "csrc" / sad_mod.SOURCE.name, sad_mod._bind),
-        "bwd": kbuild.CudaLibrary(
-            kernels / "flash_attention" / "csrc" / bwd_mod.SOURCE.name,
-            bwd_mod._bind)}
+        "bwd": (kbuild.CudaLibrary(bwd_src, bwd_mod._bind)
+                if "int s, int skv" in bwd_src.read_text()
+                else OlderBwd(bwd_src))}
     libs = {k: lib for k, lib in libs.items() if only is None or k in only}
     for lib in libs.values():
         lib.build()
@@ -655,28 +705,40 @@ def flash_cross() -> None:
 
 
 def bwd_versions(base) -> None:
-    """The backward's f32 path bit-identical to the baseline's, then both
-    versions in turns, bf16 at the training shape and f32."""
+    """The backward's old cases (Skv == S, Dv == Dqk) bit-identical to the
+    baseline's in both dtypes, causal and not, at D in {32, 64, 128}, G >=
+    1 and ragged S; the digests ``chip_smoke.py`` holds them to, from
+    both; then both versions in turns, bf16 at the training shape and
+    f32."""
     patched = library_patch(bwd_mod)
     rng = np.random.default_rng(2)
     n = 0
-    for shape in BWD_F32_SHAPES:
-        q, k, v = cs._qkv(rng, *shape, torch.float32)
-        dout = cs._qkv(rng, *shape, torch.float32)[0]
-        for causal in (True, False):
-            o, lse = fmod.flash_attention(q, k, v, causal=causal,
-                                          return_lse=True)
-            cur = bwd_mod.flash_attention_bwd(q, k, v, o, dout, lse,
-                                              causal=causal)
-            with patched(base):
-                old = bwd_mod.flash_attention_bwd(q, k, v, o, dout, lse,
+    for shape in BWD_F32_SHAPES + BWD_BF16_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = cs._qkv(rng, *shape, dtype)
+            dout = cs._qkv(rng, *shape, dtype)[0]
+            for causal in (True, False):
+                o, lse = fmod.flash_attention(q, k, v, causal=causal,
+                                              return_lse=True)
+                cur = bwd_mod.flash_attention_bwd(q, k, v, o, dout, lse,
                                                   causal=causal)
-            cs.check(all(torch.equal(a, b) for a, b in zip(cur, old)),
-                     f"flash_attention_bwd {shape} f32 causal={causal}: "
-                     f"not the baseline's bits")
-            n += 1
-    print(f"flash_attention_bwd f32: {n} cases bit-identical to the "
-          f"baseline", flush=True)
+                with patched(base):
+                    old = bwd_mod.flash_attention_bwd(q, k, v, o, dout, lse,
+                                                      causal=causal)
+                cs.check(all(torch.equal(a, b) for a, b in zip(cur, old)),
+                         f"flash_attention_bwd {shape} {dtype} causal="
+                         f"{causal}: not the baseline's bits")
+                n += 1
+    print(f"flash_attention_bwd: {n} old cases (Skv == S, Dv == Dqk) "
+          f"bit-identical to the baseline, f32 and bf16", flush=True)
+    with patched(base):
+        old = cs.bwd_digests(bwd_mod.flash_attention_bwd)
+    cur = cs.bwd_digests(bwd_mod.flash_attention_bwd)
+    print(f"flash_attention_bwd old-case digests (chip_smoke.bwd_digests): "
+          f"baseline {old}; current {cur}; recorded in chip_smoke "
+          f"{cs.BWD_OLD_DIGESTS}", flush=True)
+    cs.check(old == cur, "the backward's digests differ from the "
+                         "baseline's")
     for shape, dtype in ((cs.BWD_MAIN, torch.bfloat16),
                          (cs.BWD_F32, torch.float32)):
         q, k, v = cs._qkv(rng, *shape, dtype)
@@ -690,6 +752,34 @@ def bwd_versions(base) -> None:
         bwd_kernel_split(f"flash_attention_bwd {shape} {dtype} causal",
                          lambda: bwd_mod.flash_attention_bwd(
                              q, k, v, o, dout, lse))
+
+
+def bwd_new_cases() -> None:
+    """The backward at MLA's widths and over keys of another length, at
+    the smoke's two timing shapes (``chip_smoke.BWD_MLA``, causal, and
+    ``chip_smoke.BWD_CROSS``, not causal): each dtype held per row against
+    the plain chain, then bf16 timed beside the plain version, SDPA's
+    backward and the bound, with the profiler's split by kernel."""
+    rng = np.random.default_rng(7)
+    for shape, causal in ((cs.BWD_MLA, True), (cs.BWD_CROSS, False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = cs._qkv_bwd(rng, shape, dtype)
+            dout = cs._dout_bwd(rng, q, v)
+            errs = cs.bwd_chain_errs(q, k, v, dout, causal)
+            print(f"flash_attention_bwd {shape} {dtype} causal={causal} vs "
+                  f"plain: " + ", ".join(f"{n} {e:.3g}"
+                                         for n, e in errs.items()),
+                  flush=True)
+        q, k, v = cs._qkv_bwd(rng, shape, torch.bfloat16)
+        dout = cs._dout_bwd(rng, q, v)
+        o, lse = fmod.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+        row = cs.bwd_times(q, k, v, o, dout, lse, causal, shape)
+        print(f"flash_attention_bwd {shape} bf16 causal={causal}: " +
+              " ".join(f"{n}={x}" for n, x in row.items()), flush=True)
+        bwd_kernel_split(f"flash_attention_bwd {shape} bf16",
+                         lambda: bwd_mod.flash_attention_bwd(
+                             q, k, v, o, dout, lse, causal=causal))
 
 
 def bwd_rounding(shape=(1, 9, 3, 2048, 64)) -> None:
@@ -821,6 +911,7 @@ def main() -> int:
         bwd_rounding()
         if args.baseline:
             bwd_versions(baseline_libraries(args.baseline, ("bwd",))["bwd"])
+        bwd_new_cases()
         return 0
     if args.flash_only:
         ptxas_report(fmod.SOURCE)

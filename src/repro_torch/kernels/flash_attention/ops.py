@@ -6,8 +6,9 @@ logsumexp only when a gradient will be taken, and its backward launches
 the backward kernel (``flash_attention_bwd.py``); on CPU tensors both run
 the plain PyTorch versions (``ref.py``).  Nothing falls back from one to
 the other.  Keys may be of another length than the queries when not
-causal (cross-attention): the forward kernel takes them, the backward
-kernel refuses them, and the plain backward takes them.  ``flash_attention_op`` is the call the models make.  The
+causal (cross-attention), and v may be narrower than q and k (MLA): both
+kernels and both plain versions take them.  ``flash_attention_op`` is the
+call the models make.  The
 reference halves its block sizes until they divide S; the kernels mask a
 ragged last tile themselves, so any S is taken as it is.
 """
@@ -36,8 +37,8 @@ class FlashAttentionFn(torch.autograd.Function):
     is MLA's; Skv != S, not causal, cross-attention's).  ``save`` keeps
     what the backward needs (q, k, v, o and the f32 row logsumexp);
     without it the forward is the serving call and the backward raises.
-    On the card the backward kernel takes Dv == Dqk and Skv == S only and
-    raises otherwise; on the CPU the plain backward takes any."""
+    The backward runs the backward kernel on the card and the plain
+    backward on the CPU, at every shape the forward takes."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, save: bool):

@@ -31,8 +31,7 @@ import torch
 
 from repro_torch.configs.base import (get_config, make_serve_config,
                                       reduce_config)
-from repro_torch.kernels.decode.ops import resolve_device
-from repro_torch.models import init_model
+from repro_torch.launch import init_on_device
 from repro_torch.serve.batching import ENCDEC_REFUSED
 from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
@@ -77,15 +76,10 @@ def main(argv=None) -> int:
     print(f"serving {cfg.name}: kv_repeat={cfg.kv_repeat} "
           f"quant={cfg.kv_cache_quant} shard={cfg.kv_cache_shard}",
           flush=True)
-    try:
-        dev = resolve_device(args.device)
-    except RuntimeError as e:  # no CUDA device for --device cuda
-        print(f"launch.serve: {e}", file=sys.stderr, flush=True)
-        return 1
-    gen = (torch.Generator(device=dev).manual_seed(0) if dev.type == "cuda"
-           else 0)
     t0 = time.time()
-    model = init_model(cfg, gen, device=dev)
+    model = init_on_device(cfg, args.device, "launch.serve")
+    if model is None:
+        return 1
     dev = model.device
     n_params = sum(p.numel() for p in model.parameters())
     print(f"init {n_params} parameters on {dev} in {time.time() - t0:.2f}s",

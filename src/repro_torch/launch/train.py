@@ -7,7 +7,12 @@
 Counterpart of the reference's ``launch/train.py``, on one device: the
 model trains on ``--device`` (``cuda`` by default; without a CUDA device it
 exits 1, and ``--device cpu`` runs on the CPU, with ``--reduced`` at a
-smoke size).  The loop is the fault-tolerant one from
+smoke size).  As the reference's, it feeds tokens only, so it trains
+every family but the encoder-decoder and the VLM, whose losses need
+frames or patch embeddings.  On a card the random weights are drawn there
+from a CUDA generator seeded with 0 (as ``launch.serve`` draws them): a
+host draw of a full-width model takes a while.  The loop is the
+fault-tolerant one from
 ``repro_torch/train/elastic.py``: async checkpoints, crash-restart,
 straggler-tolerant prefetch.  Params are bf16 with an f32 master copy in
 the optimizer state, as the reference sets them.  ``--mesh`` is refused:
@@ -22,7 +27,7 @@ import sys
 import tempfile
 
 from repro_torch.configs.base import get_config, reduce_config
-from repro_torch.models import init_model
+from repro_torch.launch import init_on_device
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import PrefetchPipeline, synthetic_token_batches
 from repro_torch.train.elastic import LoopConfig, recoverable_train_loop
@@ -59,10 +64,8 @@ def main(argv=None) -> int:
     if args.reduced:
         cfg = reduce_config(cfg)
     cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
-    try:
-        model = init_model(cfg, 0, device=args.device)
-    except RuntimeError as e:  # no CUDA device for --device cuda
-        print(f"launch.train: {e}", file=sys.stderr, flush=True)
+    model = init_on_device(cfg, args.device, "launch.train")
+    if model is None:
         return 1
     print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
           f"device={model.device}", flush=True)

@@ -144,13 +144,22 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _segsum_decay(log_a: torch.Tensor) -> torch.Tensor:
     """log_a: [..., Q].  Returns L[..., i, j] = exp(sum_{t=j+1..i} log_a_t)
-    for i >= j, else 0 (the SSD 1-semiseparable decay matrix)."""
+    for i >= j, else 0 (the SSD 1-semiseparable decay matrix).
+
+    The reference masks after the exp (``where(mask, exp(diff), 0)``); the
+    port masks before it (``exp(where(mask, diff, -inf))``), which gives
+    the same values bit for bit.  Above the diagonal ``diff`` is a sum of
+    decays' negated logs, and once it passes about 88 its exp overflows
+    f32: the masked inf takes a zero gradient, and 0 x inf makes the
+    reference's gradient NaN (``jax.grad`` of its ``zoo.loss_fn`` for
+    reduced zamba2 is NaN in every Mamba-2 layer, ROADMAP queue 3); here
+    the masked entries are exp(-inf) = 0 with a zero gradient."""
     Q = log_a.shape[-1]
     cs = torch.cumsum(log_a, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                  device=log_a.device))
-    return torch.where(mask, torch.exp(diff), torch.zeros_like(diff))
+    return torch.exp(diff.masked_fill(~mask, float("-inf")))
 
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor):

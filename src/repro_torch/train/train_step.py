@@ -27,7 +27,8 @@ def _on(batch: dict, device: torch.device) -> dict:
 def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
                     *, microbatches: int = 1, remat: bool = True):
     """Returns train_step(model, opt_state, batch) -> (model, opt, metrics).
-    ``batch`` holds "tokens" and "targets" ([B, S], numpy or tensors); they
+    ``batch`` holds "tokens" and "targets" ([B, S], numpy or tensors), and
+    the encoder-decoder's "frames" or the VLM's "patch_embeds" (f32); they
     go to the model's device."""
     opt_cfg = opt_cfg or AdamWConfig()
 

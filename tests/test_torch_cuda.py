@@ -42,6 +42,8 @@ from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 from repro_torch.train.train_step import make_train_step
 
+import _torch_families as families
+
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 1e-3, 1e-5
 
@@ -525,23 +527,38 @@ def test_flash_attention_bwd_at_the_training_layout(cuda):
                              True)
 
 
-def _check_bwd_against_plain(cuda, seed, b, g, kv, s, d, dtype, causal):
-    q, k, v, o, lse, dout = _bwd_case(cuda, seed, b, g, kv, s, d, dtype,
-                                      causal)
+def _check_bwd_chain(q, k, v, dout, causal):
+    """The main path's chain (the forward kernel's o and lse into the
+    backward kernel, one launch) against the fully plain chain: o within
+    FLASH_TOL, lse within LSE_ATOL, each gradient per row within
+    BWD_TOL."""
+    dtype = q.dtype
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
     before = flash_kernel.BWD_LAUNCHES.count
     got = flash_kernel.flash_attention_bwd(q, k, v, o, dout, lse,
                                            causal=causal)
     torch.cuda.synchronize()
     assert flash_kernel.BWD_LAUNCHES.count == before + 1
-    want = flash_kernel.attention_bwd_ref(
-        q, k, v, flash_kernel.attention_ref(q, k, v, causal=causal), dout,
-        flash_kernel.attention_lse_ref(q, k, causal=causal), causal=causal)
+    o_ref = flash_kernel.attention_ref(q, k, v, causal=causal)
+    lse_ref = flash_kernel.attention_lse_ref(q, k, causal=causal)
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+    want = flash_kernel.attention_bwd_ref(q, k, v, o_ref, dout, lse_ref,
+                                          causal=causal)
     floor = BWD_FLOOR * max(float(w.float().abs().max()) for w in want)
     for name, a, w, x in zip("qkv", got, want, (q, k, v)):
         assert a.dtype == dtype and a.shape == x.shape, name
         err = _row_scaled_err(a, w, floor)
         assert err <= BWD_TOL[dtype], (
             f"d{name}: {err} of its row's largest > {BWD_TOL[dtype]}")
+
+
+def _check_bwd_against_plain(cuda, seed, b, g, kv, s, d, dtype, causal):
+    q, k, v, _, _, dout = _bwd_case(cuda, seed, b, g, kv, s, d, dtype,
+                                    causal)
+    _check_bwd_chain(q, k, v, dout, causal)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -714,6 +731,87 @@ def test_bf16_train_steps_on_the_card(cuda):
     assert not torch.equal(model.embed.table, before)
     assert torch.equal(model.embed.table,
                        opt["master"]["embed.table"].bfloat16())
+
+
+# ------------------------------------------- training of the other families
+#: the non-dense families, and the encoder-decoder again over a ragged
+#: frame count (its cross-attention 128 queries over 37 keys)
+FAMILY_CASES = [f for f in families.FAMILIES if f != "dense"] + [
+    "encdec-ragged"]
+
+
+def _family_case(family, dtype):
+    """``reduce_config`` of the family's architecture (2 layers; the
+    hybrid's 4, two shared-block sites) at the kernels' head widths, and
+    its frame count."""
+    from repro_torch.configs.base import reduce_config
+
+    arch = families.FAMILIES[family.replace("-ragged", "")]
+    cfg = families.kernel_widths(reduce_config(get_config(arch)), dtype)
+    return cfg, 37 if family.endswith("-ragged") else None
+
+
+def _family_batch(cfg, frames, seed, device):
+    """B=2, S=128 positions of the family's batch on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in families.batch(
+        cfg, 2, 128, np.random.default_rng(seed), frames).items()}
+
+
+@pytest.mark.parametrize("family", FAMILY_CASES)
+def test_f32_family_train_step_on_the_card_equals_the_cpu(cuda, family):
+    """One f32 step of each non-dense family, B=2, S=128, from the same
+    weights: the loss within rtol 1e-5, every gradient within 1e-4 of its
+    leaf's largest, the params after the AdamW update from the same
+    gradients within 1e-6 of their leaf's largest, and one backward launch
+    per attention site (none for falcon-mamba-7b)."""
+    cfg, frames = _family_case(family, "float32")
+    cpu = init_model(cfg, 0, device="cpu")
+    card = init_model(cfg, 0, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = _family_batch(cfg, frames, 3, "cpu")
+    b0 = flash_kernel.BWD_LAUNCHES.count
+    loss_d, g_d = _loss_and_grads(card, cfg,
+                                  {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert flash_kernel.BWD_LAUNCHES.count - b0 == families.attention_sites(
+        cfg)
+    loss_h, g_h = _loss_and_grads(cpu, cfg, batch)
+    np.testing.assert_allclose(float(loss_d), float(loss_h), rtol=1e-5)
+    for name, gh in g_h.items():
+        torch.testing.assert_close(g_d[name].cpu(), gh, rtol=0,
+                                   atol=1e-4 * float(gh.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+    p_d, p_h = dict(card.named_parameters()), dict(cpu.named_parameters())
+    opt_cfg = AdamWConfig(lr=1e-3)
+    adamw_update(g_d, init_opt_state(p_d), p_d, opt_cfg)
+    adamw_update({n: g.cpu() for n, g in g_d.items()}, init_opt_state(p_h),
+                 p_h, opt_cfg)
+    for name, ph in p_h.items():
+        torch.testing.assert_close(p_d[name].cpu(), ph, rtol=0,
+                                   atol=1e-6 * float(ph.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("family", FAMILY_CASES)
+def test_bf16_family_train_steps_on_the_card(cuda, family):
+    """Three bf16 steps with an f32 master and remat, B=2, S=128: finite
+    losses, one backward launch per attention site and step, the params
+    moved and equal to the master rounded to bf16."""
+    cfg, frames = _family_case(family, "bfloat16")
+    model = init_model(cfg, 0, device=cuda)
+    opt = init_opt_state(dict(model.named_parameters()))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1))
+    b0 = flash_kernel.BWD_LAUNCHES.count
+    for i in range(3):
+        model, opt, m = step(model, opt, _family_batch(cfg, frames, i, cuda))
+        assert np.isfinite(float(m["loss"])), i
+    assert (flash_kernel.BWD_LAUNCHES.count - b0
+            == 3 * families.attention_sites(cfg))
+    assert int(opt["step"]) == 3
+    for name, p in model.named_parameters():
+        assert torch.equal(p, opt["master"][name].bfloat16()), name
+    assert not torch.equal(model.embed.table, before["embed.table"])
 
 
 def _full_width_smollm(cuda, **kw):
@@ -909,22 +1007,32 @@ def test_flash_attention_old_pairs_same_bits_twice(cuda, dtype, d):
             atol=FLASH_TOL[dtype], rtol=0)
 
 
+def _dout(seed, q, dv):
+    rng = np.random.default_rng(seed)
+    shape = (*q.shape[:3], dv)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        device=q.device, dtype=q.dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_flash_attention_bwd_refuses_a_narrower_v(cuda, dtype):
-    """The backward kernel takes one head width: at q.k 192, v 128 it
-    raises, naming the ROADMAP item, and launches nothing; so does a
-    gradient through ``FlashAttentionFn`` on the card."""
-    q, k, v = _qkv_mla(1, 1, 4, 4, 64, dtype, cuda)
-    o, lse = flash_kernel.flash_attention(q, k, v, return_lse=True)
-    before = flash_kernel.BWD_LAUNCHES.count
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        flash_kernel.flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse)
-    q.requires_grad_(True)
-    out = flash_kernel.flash_attention_op(q, k, v)
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        out.sum().backward()
-    assert flash_kernel.BWD_LAUNCHES.count == before
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("s", [1, 17, 63, 65, 257, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_at_192_128_matches_plain_version(cuda, dtype, g,
+                                                              s, causal):
+    """MLA's widths in the backward: dq and dk of 192 dims, dv of 128, G
+    query heads on a KV head, S around the tiles (bf16: the dv and the dk
+    pass of the tensor-core kernel, dq over two 32-key halves a tile)."""
+    q, k, v = _qkv_mla(s + 5 * g, 2, 2 * g, 2, s, dtype, cuda)
+    _check_bwd_chain(q, k, v, _dout(s + g, q, 128), causal)
+
+
+def test_flash_attention_bwd_at_the_mla_prefill_shape(cuda):
+    """deepseek-v2-lite-16b's B=8, S=512 training attention, bf16
+    causal."""
+    q, k, v = _qkv_mla(9, 8, 16, 16, 512, torch.bfloat16, cuda)
+    _check_bwd_chain(q, k, v, _dout(9, q, 128), True)
 
 
 # ------------------------------------- cross-attention: keys of length Skv
@@ -1018,24 +1126,111 @@ def test_flash_attention_causal_with_two_lengths_raises(cuda):
     assert err != 0
 
 
+#: (S, Skv) of the backward over keys of another length: seamless'
+#: cross-attention (512 over 128), the ragged 96 over 40 and 100 over 37,
+#: keys longer than queries, one key, one query
+BWD_CROSS_LENGTHS = [(512, 128), (96, 40), (100, 37), (64, 256), (65, 63),
+                     (17, 1), (1, 77)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_flash_attention_bwd_refuses_cross_lengths(cuda, dtype):
-    """The backward kernel takes one length: keys of another length than
-    the queries raise, naming the ROADMAP item, and launch nothing; so
-    does a gradient through ``FlashAttentionFn`` on the card."""
-    q, k, v = _qkv_cross(4, 1, 4, 4, 96, 40, 64, 64, dtype, cuda)
+@pytest.mark.parametrize("dqk,dv", flash_kernel.flash.PAIRS)
+@pytest.mark.parametrize("sq,skv", BWD_CROSS_LENGTHS)
+@pytest.mark.parametrize("g", [1, 3])
+def test_flash_attention_bwd_cross_lengths_match_plain_version(
+        cuda, dtype, dqk, dv, sq, skv, g):
+    """Not causal, S queries over Skv keys, at every (q.k, v) pair: dq
+    [B, H, S, Dqk], dk [B, KV, Skv, Dqk] and dv [B, KV, Skv, Dv] per row
+    within BWD_TOL of the plain chain (the dk/dv grid over Skv's key
+    tiles, the dq grid over S's query tiles)."""
+    q, k, v = _qkv_cross(sq * 3 + skv + dqk + g, 2, 2 * g, 2, sq, skv, dqk,
+                         dv, dtype, cuda)
+    _check_bwd_chain(q, k, v, _dout(sq + skv, q, dv), False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bwd_at_the_cross_attention_shape(cuda, dtype):
+    """seamless-m4t-medium's training cross-attention: B=8, 16 heads of
+    64, 512 decoder queries over 128 encoder frames."""
+    q, k, v = _qkv_cross(8, 8, 16, 16, 512, 128, 64, 64, dtype, cuda)
+    _check_bwd_chain(q, k, v, _dout(8, q, 64), False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["mla", "cross", "mla-cross"])
+def test_flash_attention_bwd_new_cases_same_bits_twice(cuda, dtype, case):
+    sq, skv = (257, 257) if case == "mla" else (96, 40)
+    dqk, dv = (64, 64) if case == "cross" else (192, 128)
+    causal = case == "mla"
+    q, k, v = _qkv_cross(31, 2, 6, 2, sq, skv, dqk, dv, dtype, cuda)
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+    dout = _dout(32, q, dv)
+    first = flash_kernel.flash_attention_bwd(q, k, v, o, dout, lse,
+                                             causal=causal)
+    second = flash_kernel.flash_attention_bwd(q, k, v, o, dout, lse,
+                                              causal=causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["mla", "cross"])
+def test_flash_attention_fn_gradient_at_the_new_cases(cuda, dtype, case):
+    """A gradient through ``FlashAttentionFn`` on the card at MLA's widths
+    (causal) and over keys of another length (not causal): one forward
+    launch with the lse, one backward launch, and no plain fallback; the
+    gradients per row within BWD_TOL of the plain backward's."""
+    if case == "mla":
+        q, k, v = _qkv_mla(12, 2, 6, 2, 130, dtype, cuda)
+    else:
+        q, k, v = _qkv_cross(13, 2, 6, 2, 96, 40, 64, 64, dtype, cuda)
+    causal = case == "mla"
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    f0, b0 = flash_kernel.LAUNCHES.count, flash_kernel.BWD_LAUNCHES.count
+    with mock.patch.object(flash_kernel.ops, "attention_bwd_ref",
+                           side_effect=AssertionError("plain backward")):
+        out = flash_kernel.flash_attention_op(q, k, v, causal=causal)
+        dout = _dout(14, q, v.shape[3])
+        got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count - f0 == 1
+    assert flash_kernel.BWD_LAUNCHES.count - b0 == 1
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    want = flash_kernel.attention_bwd_ref(
+        qd, kd, vd, flash_kernel.attention_ref(qd, kd, vd, causal=causal),
+        dout, flash_kernel.attention_lse_ref(qd, kd, causal=causal),
+        causal=causal)
+    floor = BWD_FLOOR * max(float(w.float().abs().max()) for w in want)
+    for a, w in zip(got, want):
+        assert _row_scaled_err(a, w, floor) <= BWD_TOL[dtype]
+
+
+def test_flash_attention_bwd_causal_with_two_lengths_raises(cuda):
+    """Causal with Skv != S is refused by the backward's wrapper (before a
+    launch) and by its raw entry, as the forward refuses it."""
+    q, k, v = _qkv_cross(3, 1, 4, 2, 64, 32, 64, 64, torch.bfloat16, cuda)
     o, lse = flash_kernel.flash_attention(q, k, v, causal=False,
                                           return_lse=True)
     before = flash_kernel.BWD_LAUNCHES.count
-    with pytest.raises(ValueError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="causal"):
         flash_kernel.flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse,
-                                         causal=False)
-    q.requires_grad_(True)
-    out = flash_kernel.flash_attention_op(q, k, v, causal=False)
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        out.sum().backward()
+                                         causal=True)
     assert flash_kernel.BWD_LAUNCHES.count == before
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    delta = torch.empty_like(lse)
+    lib = flash_kernel.BWD_LIBRARY.load()
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(g.data_ptr() for g in grads), 1, 4, 2, 64, 32, 64, 64,
+        flash_kernel.flash.DTYPES[q.dtype], 1, 64 ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def _mla_cfg(**kw):

@@ -226,18 +226,21 @@ def test_causal_with_two_lengths_raises():
         attention_lse_ref(q, k, causal=True)
 
 
-@pytest.mark.parametrize("kv,g,d", [(2, 3, 16), (4, 1, 64)])
+@pytest.mark.parametrize("kv,g,d", [(2, 3, 16), (4, 1, 64),
+                                    (2, 2, (192, 128))])
 def test_cross_attention_gradient_matches_jax_grad(kv, g, d):
     """The plain backward at S = 40 queries over Skv = 24 keys (the CPU
-    path of cross-attention training) against ``jax.grad`` through the
-    reference's chunked attention, at the tolerances of the gradient
-    test below."""
+    path of cross-attention training; 24 is a ragged tile of the kernel's
+    64), at one head width or at MLA's (q.k 192, v 128), against
+    ``jax.grad`` through the reference's chunked attention, at the
+    tolerances of the gradient test below."""
     b, s, skv = 2, 40, 24
+    d, dv = d if isinstance(d, tuple) else (d, d)
     rng = np.random.default_rng(kv * 10 + g + d)
     q = rng.standard_normal((b, s, kv, g, d), dtype=np.float32)
     k = rng.standard_normal((b, skv, kv, d), dtype=np.float32)
-    v = rng.standard_normal((b, skv, kv, d), dtype=np.float32)
-    dout = rng.standard_normal((b, s, kv, g, d), dtype=np.float32)
+    v = rng.standard_normal((b, skv, kv, dv), dtype=np.float32)
+    dout = rng.standard_normal((b, s, kv, g, dv), dtype=np.float32)
 
     def f(q, k, v):
         out = jax_grouped(q, k, v, causal=False, q_pos=jnp.arange(s),
@@ -261,16 +264,19 @@ def test_cross_attention_gradient_matches_jax_grad(kv, g, d):
 
 # ------------------------------------------------------- attention gradient
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("kv,g,d", [(2, 3, 16), (1, 4, 32), (3, 1, 64)])
+@pytest.mark.parametrize("kv,g,d", [(2, 3, 16), (1, 4, 32), (3, 1, 64),
+                                    (2, 2, (192, 128))])
 def test_attention_gradient_matches_jax_grad(causal, kv, g, d):
     # the port's FlashAttentionFn (plain backward on the CPU) against
-    # jax.grad through the reference's chunked online-softmax attention
+    # jax.grad through the reference's chunked online-softmax attention;
+    # d is one head width, or MLA's (q.k, v) widths
     b, s = 2, 48
+    d, dv = d if isinstance(d, tuple) else (d, d)
     rng = np.random.default_rng(kv * 10 + g + d)
     q = rng.standard_normal((b, s, kv, g, d), dtype=np.float32)
     k = rng.standard_normal((b, s, kv, d), dtype=np.float32)
-    v = rng.standard_normal((b, s, kv, d), dtype=np.float32)
-    dout = rng.standard_normal((b, s, kv, g, d), dtype=np.float32)
+    v = rng.standard_normal((b, s, kv, dv), dtype=np.float32)
+    dout = rng.standard_normal((b, s, kv, g, dv), dtype=np.float32)
     pos = jnp.arange(s)
 
     def f(q, k, v):
@@ -355,11 +361,14 @@ def _row_scaled_errs(got, want):
 
 def _bwd_inputs(seed, b, h, kv, s, d, causal):
     """bf16 q, k, v, dO from a seed (standard normal, as the card's tests
-    make them), and the plain o and lse."""
+    make them), and the plain o and lse; ``s`` is one length or (S, Skv),
+    ``d`` one width or (Dqk, Dv)."""
+    s, skv = s if isinstance(s, tuple) else (s, s)
+    d, dv = d if isinstance(d, tuple) else (d, d)
     rng = np.random.default_rng(seed)
     q, k, v, dout = (torch.from_numpy(rng.standard_normal(
         shape, dtype=np.float32)).bfloat16() for shape in (
-        (b, h, s, d), (b, kv, s, d), (b, kv, s, d), (b, h, s, d)))
+        (b, h, s, d), (b, kv, skv, d), (b, kv, skv, dv), (b, h, s, dv)))
     o = attention_ref(q, k, v, causal=causal)
     lse = attention_lse_ref(q, k, causal=causal)
     return q, k, v, o, dout, lse
@@ -368,16 +377,24 @@ def _bwd_inputs(seed, b, h, kv, s, d, causal):
 @pytest.mark.parametrize("b,h,kv,s,d,causal", [
     (*shape, causal) for shape in (
         (2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
-        (3, 9, 3, 1, 64), (3, 9, 3, 7, 64), (3, 9, 3, 100, 64))
-    for causal in (True, False)] + [(1, 9, 3, 2048, 64, True)])
+        (3, 9, 3, 1, 64), (3, 9, 3, 7, 64), (3, 9, 3, 100, 64),
+        (2, 4, 2, 100, (192, 128)), (1, 4, 4, 1, (192, 128)))
+    for causal in (True, False)] + [(1, 9, 3, 2048, 64, True)] + [
+    # keys of another length (not causal): seamless' 4:1 cross-attention,
+    # the ragged 96 over 40, keys longer than queries, MLA's widths
+    (2, 4, 4, (128, 32), 64, False), (2, 4, 2, (96, 40), 64, False),
+    (1, 4, 2, (33, 130), 32, False), (2, 4, 2, (96, 40), (192, 128), False)],
+    ids=str)
 def test_bf16_bwd_rounding_within_tolerance(b, h, kv, s, d, causal):
     """What the CPU can say of the backward kernel's bf16 design: P and dS
     split into bf16 hi + lo parts before the second products stays inside
     the card's per-row bf16 limit of the plain gradient, and before the
     final rounding within SPLIT_TOL of it; P and dS rounded to bf16 alone
-    (the rejected design) lose at least ten times as much.  The kernel
-    itself is held on the card (``tests/test_torch_cuda.py``)."""
-    q, k, v, o, dout, lse = _bwd_inputs(s + d + h, b, h, kv, s, d, causal)
+    (the rejected design) lose at least ten times as much, at the
+    kernel's width pairs and at keys of another length.  The kernel itself
+    is held on the card (``tests/test_torch_cuda.py``)."""
+    q, k, v, o, dout, lse = _bwd_inputs(
+        int(np.sum(s) + np.sum(d)) + h, b, h, kv, s, d, causal)
     want = attention_bwd_ref(q, k, v, o, dout, lse, causal=causal)
     got = attention_bwd_bf16_mma_ref(q, k, v, o, dout, lse, causal=causal)
     for a, x in zip(got, (q, k, v)):
@@ -392,5 +409,5 @@ def test_bf16_bwd_rounding_within_tolerance(b, h, kv, s, d, causal):
     hi = _row_scaled_errs(attention_bwd_bf16_mma_ref(
         *f32, lse, causal=causal, split=False), exact)
     assert max(split) <= SPLIT_TOL, split
-    if s > 1:  # at S = 1, P = 1 and dS = 0 are exact in bf16
+    if k.shape[2] > 1:  # one key: P = 1 and dS = 0 are exact in bf16
         assert max(hi) >= 10 * max(split), (hi, split)

@@ -1,6 +1,7 @@
 """The port's LM launchers and training example as subprocesses on the CPU:
 ``python -m repro_torch.launch.train --device cpu --reduced`` for 3 steps,
-then ``--resume`` to 5 from its checkpoint; ``python -m
+then ``--resume`` to 5 from its checkpoint, and the token-only families
+(MoE, SSM, hybrid, MLA) for 2 steps, then ``--resume`` to 3; ``python -m
 repro_torch.launch.serve`` (smollm, the SSM and hybrid families, and
 DeepSeek's MLA with and without ``--kv-quant``); the flags the port
 refuses (``--mesh``, ``--kv-shard seq``);
@@ -14,6 +15,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,6 +58,29 @@ def test_train_then_resume(tmp_path):
     assert "resumed from step 3" in second.stdout
     assert "done: 5 steps, restarts=0" in second.stdout
     assert "step     5 loss" in second.stdout
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "falcon-mamba-7b",
+                                  "zamba2-1.2b", "deepseek-v2-lite-16b"])
+def test_train_then_resume_the_token_only_families(arch, tmp_path):
+    """The launcher feeds tokens only, as the reference's does, so it
+    trains every family but the encoder-decoder and the VLM: 2 steps with
+    a checkpoint, then a resume to 3, each logging a finite loss."""
+    args = (*TRAIN, "--arch", arch, "--checkpoint-dir", str(tmp_path),
+            "--checkpoint-every", "2")
+    first = _run(*args, "--steps", "2")
+    assert first.returncode == 0, first.stderr
+    assert f"arch={arch}-smoke" in first.stdout
+    assert "done: 2 steps, restarts=0" in first.stdout
+    assert (tmp_path / "LATEST").read_text() == "step_000000002"
+    second = _run(*args, "--steps", "3", "--resume")
+    assert second.returncode == 0, second.stderr
+    assert "resumed from step 2" in second.stdout
+    assert "done: 3 steps, restarts=0" in second.stdout
+    for out, step in ((first.stdout, 2), (second.stdout, 3)):
+        line = next(x for x in out.splitlines()
+                    if x.startswith(f"step {step:5d} loss"))
+        assert all(np.isfinite(float(x)) for x in line.split()[3::2]), line
 
 
 def test_serve_runs():

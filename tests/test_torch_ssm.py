@@ -5,11 +5,15 @@ conv, the segment-sum decay, both chunked scans (several chunks, a
 carried state, a length that is not a multiple of the chunk), both
 mixers with and without a decode state, the blocks, and reduced
 ``falcon-mamba-7b``, reduced ``zamba2-1.2b`` and a hybrid with a
-trailing layer as whole models: forward, loss, and a prefill then three
-decode steps with the states compared; the full configs' parameter
-counts, and the deterministic leaves bit for bit.  Weights are the
-reference's, carried across by ``params_from_numpy``; inputs are made
-with numpy from a seed.
+trailing layer as whole models: forward, loss, every gradient leaf
+against ``jax.grad``, and a prefill then three decode steps with the
+states compared; the full configs' parameter counts, and the
+deterministic leaves bit for bit.  The reference's Mamba-2 gradient is
+NaN (its decay matrix masks after an exp that overflows); the port's is
+finite, and is held against the reference with its decay masked before
+the exp (``tests/_torch_ssd.py``), which changes none of its values.
+Weights are the reference's, carried across by ``params_from_numpy``;
+inputs are made with numpy from a seed.
 
 Tolerances: f32 within 1e-4 (both frameworks compute in f32 and differ
 in summation order: the port's associative scan combines in the
@@ -31,6 +35,8 @@ from repro.models import ssm as jax_ssm
 from repro.models import zoo as jax_zoo
 from repro_torch.configs.base import get_config, reduce_config
 from repro_torch.models import blocks, params_from_numpy, ssm, zoo
+
+from _torch_ssd import segsum_decay_masked_first
 
 FALCON, ZAMBA = "falcon-mamba-7b", "zamba2-1.2b"
 F32 = dict(param_dtype="float32", compute_dtype="float32")
@@ -94,6 +100,35 @@ def test_segsum_decay_matches_reference():
     got = ssm._segsum_decay(tl)
     close(got, want)
     assert float(got[0, 0, 2, 5]) == 0.0  # above the diagonal
+
+
+def test_segsum_decay_masks_before_the_exp():
+    """Where a sum above the diagonal overflows exp in f32 (decays' logs
+    down to -40 over 10 steps), the port's decay equals the reference's
+    formula (mask after the exp) bit for bit and the reference's value,
+    while the reference's gradient is NaN and the port's finite, equal to
+    the gradient of the reference masked first."""
+    la = -np.random.default_rng(2).uniform(0, 40, (2, 3, 10))
+    jl, tl = both(la)
+    w = np.random.default_rng(3).standard_normal((2, 3, 10, 10))
+    jw, tw = both(w)
+    got = ssm._segsum_decay(tl)
+    cs = torch.cumsum(tl, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((10, 10), dtype=torch.bool))
+    assert torch.equal(got, torch.where(mask, torch.exp(diff),
+                                        torch.zeros_like(diff)))
+    close(got, jax_ssm._segsum_decay(jl))
+    assert float(diff.max()) > 88.8  # exp overflows above the diagonal
+
+    def jloss(fn):
+        return jax.grad(lambda x: jnp.sum(fn(x) * jw))(jl)
+
+    assert np.isnan(np.asarray(jloss(jax_ssm._segsum_decay))).any()
+    tx = tl.clone().requires_grad_()
+    (gx,) = torch.autograd.grad((ssm._segsum_decay(tx) * tw).sum(), tx)
+    assert torch.isfinite(gx).all()
+    close(gx, jloss(segsum_decay_masked_first))
 
 
 SCANS = [(16, 4), (16, 16), (12, 5), (7, 16), (1, 4)]
@@ -222,6 +257,55 @@ def test_forward_and_loss_match_reference(case, S):
     tl, metrics = zoo.loss_fn(model, tcfg, {"tokens": tt, "targets": ttg})
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     assert float(metrics["tokens"]) == 2 * S
+
+
+def _unstack(tree, n_layers):
+    """The reference's stacked tree as {port state_dict name: array}."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        name = "/".join(str(p.key) for p in path)
+        arr = np.asarray(leaf, np.float32)
+        stack, _, rest = name.partition("/")
+        if stack == "layers":
+            for i in range(n_layers):
+                out[f"layers.{i}.{rest.replace('/', '.')}"] = arr[i]
+        else:
+            out[name.replace("/", ".")] = arr
+    return out
+
+
+@pytest.mark.parametrize("case", list(MODELS))
+def test_loss_gradients_match_jax_grad(case, monkeypatch):
+    """Every gradient leaf (the scans', the convs', ``A_log``, ``D``,
+    ``dt_bias`` and the shared block's) within 1e-4 of its largest value
+    against ``jax.grad(zoo.loss_fn)``, at S = 32: two chunks of 16, so the
+    carried state's gradient crosses a chunk boundary.  The reference runs
+    with its Mamba-2 decay masked before the exp (its own formula gives a
+    NaN gradient: ``test_segsum_decay_masks_before_the_exp``)."""
+    monkeypatch.setattr(jax_ssm, "_segsum_decay", segsum_decay_masked_first)
+    jcfg, tcfg = _model_case(case, **F32)
+    params, model = _carried(jcfg, tcfg)
+    toks = np.random.default_rng(11).integers(0, jcfg.vocab, (2, 33))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    jb = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+    want = _unstack(jax.jit(jax.grad(
+        lambda p: jax_zoo.loss_fn(p, jcfg, jb)[0]))(params), jcfg.n_layers)
+    named = dict(model.named_parameters())
+    model.requires_grad_(True)
+    try:
+        loss, _ = zoo.loss_fn(model, tcfg, {k: torch.from_numpy(v)
+                                            for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(named.values()))
+    finally:
+        model.requires_grad_(False)
+    got = dict(zip(named, grads))
+    assert set(got) == set(want)
+    for name, g in got.items():
+        w = want[name]
+        assert np.isfinite(w).all(), name
+        scale = max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(np32(g), w, atol=1e-4 * scale, rtol=0,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

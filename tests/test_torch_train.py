@@ -1,7 +1,9 @@
-"""Training of the dense family on the port (``zoo.loss_fn`` and
-``repro_torch.train``) against the JAX reference on the CPU, at
-``reduce_config(smollm-135m)`` with the reference's weights carried across
-(``params_from_numpy``) and inputs made with numpy from a seed.
+"""Training on the port (``zoo.loss_fn`` and ``repro_torch.train``) against
+the JAX reference on the CPU, at ``reduce_config(smollm-135m)`` with the
+reference's weights carried across (``params_from_numpy``) and inputs made
+with numpy from a seed; and train steps of every other family (MoE, SSM,
+hybrid, MLA, encoder-decoder, VLM) at their ``reduce_config`` against the
+reference's ``make_train_step``.
 
 Tolerances (the attention gradient is held in
 ``tests/test_torch_flash_attention.py``): the loss rtol 1e-5 at f32 and
@@ -10,7 +12,10 @@ per-leaf gradients 1e-4 x the leaf's max|g| at f32; the optimizer rtol
 1e-6 (and 1e-6 of a leaf's largest value, where a moment's update
 cancels) on identical gradients (Adam's first step divides g by |g|, so
 end to end a sign flip of a near-zero gradient would move a weight by 2
-lr); five train steps' losses 1e-4 relative at f32."""
+lr); five train steps' losses (two for the other families) 1e-4
+relative at f32.  The hybrid's reference runs with its Mamba-2 decay
+masked before the exp (``tests/_torch_ssd.py``): its own formula gives a
+NaN gradient, which its first AdamW step writes into every weight."""
 import dataclasses
 from unittest import mock
 
@@ -22,6 +27,7 @@ import torch
 
 from repro.configs.base import get_config as jax_get_config
 from repro.configs.base import reduce_config as jax_reduce_config
+from repro.models import ssm as jax_ssm
 from repro.models import zoo as jax_zoo
 from repro.train import optimizer as jax_opt
 from repro.train.train_step import make_train_step as jax_make_train_step
@@ -31,6 +37,9 @@ from repro_torch.models.convert import _flatten
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state, lr_schedule)
 from repro_torch.train.train_step import make_eval_step, make_train_step
+
+import _torch_families as families
+from _torch_ssd import segsum_decay_masked_first
 
 
 def _configs(dtype):
@@ -276,8 +285,17 @@ def test_clip_norm_applied():
 
 
 # -------------------------------------------------------------- train steps
-def test_five_train_steps_match_reference(pair32):
-    jcfg, params, tcfg, _ = pair32
+def _train_steps_against_reference(arch, steps, jcfg=None, params=None):
+    """``steps`` f32 steps of the port's ``make_train_step`` and the
+    reference's (jitted) from the same weights and batches: each step's
+    loss within rtol 1e-4."""
+    if jcfg is None:
+        jcfg = dataclasses.replace(jax_reduce_config(jax_get_config(arch)),
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+        params = jax_zoo.init_model(jcfg, jax.random.key(0))
+    tcfg = dataclasses.replace(reduce_config(get_config(arch)),
+                               param_dtype="float32", compute_dtype="float32")
     model = params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
                               device="cpu")
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=10)
@@ -285,14 +303,32 @@ def test_five_train_steps_match_reference(pair32):
     tstep = make_train_step(tcfg, AdamWConfig(**kw))
     jo = jax_opt.init_opt_state(params)
     to = init_opt_state(dict(model.named_parameters()))
-    for i in range(5):
-        batch = _batch(jcfg.vocab, seed=10 + i)
+    for i in range(steps):
+        batch = families.batch(jcfg, 4, 32, np.random.default_rng(10 + i))
         params, jo, jm = jstep(params, jo, _jax(batch))
         model, to, tm = tstep(model, to, batch)
+        assert np.isfinite(float(jm["loss"])), f"reference step {i}"
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=1e-4, err_msg=f"step {i}")
-    assert int(to["step"]) == 5
+    assert int(to["step"]) == steps
     assert not any(p.requires_grad for p in model.parameters())
+
+
+def test_five_train_steps_match_reference(pair32):
+    jcfg, params, _, _ = pair32
+    _train_steps_against_reference("smollm-135m", 5, jcfg, params)
+
+
+@pytest.mark.parametrize("family",
+                         [f for f in families.FAMILIES if f != "dense"])
+def test_train_steps_match_reference(family, monkeypatch):
+    """Two f32 steps of each other family at its ``reduce_config``, as the
+    dense family's five: the MoE routing (no gradient through the top-k),
+    dispatch and combine; the SSM scan; the hybrid's shared block; MLA's
+    attention at q.k 24 over v 16; the encoder and the cross-attention
+    (32 queries over 8 frames); the VLM's projector."""
+    monkeypatch.setattr(jax_ssm, "_segsum_decay", segsum_decay_masked_first)
+    _train_steps_against_reference(families.FAMILIES[family], 2)
 
 
 def test_grad_accumulation_matches_full_batch():
