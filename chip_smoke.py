@@ -124,7 +124,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    ``CostModel(beta=1.4e-8, gamma=1e-5)``) serves ``RACE_THREADS`` = 4
    client threads, each running the race mix of ``tests/test_tuner.py``
    (``car`` 0-32 x4, ``person`` 0-32 x4, ``car`` 0-32 x4) until a scan
-   has seen a retile in flight (at most ``RACE_PASSES`` = 2 passes), and
+   has seen a retile in flight (at most ``RACE_PASSES`` = 4 passes), and
    a ``serve()`` session of 8 ``car`` 0-32 submissions beside them, while
    the tuner thread retiles; every region bit for bit equal to an
    inline-tuned store on the card running the mix serially and within
@@ -155,7 +155,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    0;
 14. serve phase, ``smollm-135m`` at full width (30 layers, d_model 576,
    ``make_serve_config(cfg, 1)``, bf16 weights from the seed) on the card:
-   (a) ``greedy_generate`` of 8 prompts of 512 tokens, 32 new tokens; the
+   (a) ``greedy_generate`` of 8 prompts of 512 tokens, 16 new tokens; the
    prefill launches ``flash_attention`` 30 times; TTFT of the prefill and
    steady decode tokens/s; (b) the same with the prefill attention
    switched to the plain version (a test-only patch of the attention
@@ -178,7 +178,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    of bf16 weights drawn on the card from a CUDA generator seeded with
    the seed), with no earlier model resident (free card memory printed
    before the init, the init time after it): (a) ``greedy_generate`` of
-   8 prompts of 512 tokens, 32 new; the prefill launches
+   8 prompts of 512 tokens, 16 new; the prefill launches
    ``flash_attention`` 48 times; TTFT and decode tokens/s; (b) the same
    weights with the plain prefill attention: the last-position logits'
    largest gap and the greedy agreement; per layer, the share of the
@@ -207,7 +207,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    its published width and depth with ``make_serve_config(cfg, 1)`` and
    bf16 weights drawn on the card from a CUDA generator seeded with the
    seed, the card's free memory printed before each init: (a)
-   ``greedy_generate`` of 8 prompts of 512 tokens, 32 new: TTFT, decode
+   ``greedy_generate`` of 8 prompts of 512 tokens, 16 new: TTFT, decode
    tokens/s, init time, peak memory; zamba2's prefill launches
    ``flash_attention`` 6 times, falcon's 0; (b) zamba2 only: the same
    weights with the plain prefill attention and with SDPA (a control):
@@ -240,7 +240,7 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    ``make_serve_config(cfg, 1)``; 15,706,484,224 parameters, equal to
    ``analytic_param_count``, 31.4 GB of bf16 weights drawn on the card
    from a CUDA generator seeded with the seed): (a) ``greedy_generate``
-   of 8 prompts of 512 tokens, 32 new; the prefill launches
+   of 8 prompts of 512 tokens, 16 new; the prefill launches
    ``flash_attention`` 27 times at (8,16,16,512, 192 / 128); TTFT, decode
    tokens/s, init time; (b) the same weights with the plain prefill
    attention and with SDPA (a control): the last-position logits' gaps
@@ -391,6 +391,32 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    ``BWD_TOL`` (bf16: 1e-2 of the row's largest |gradient|); the median
    step, tokens/s, peak memory (steps 2-3) and one step's device time by
    kind;
+22c. dryrun phase, the port's analysis tools (``repro_torch.launch``):
+   (a) ``python -m repro_torch.launch.dryrun --mesh single`` over every
+   shape of one architecture of each family (smollm-135m the dense one;
+   ``DRYRUN_GROUPS``), in processes started beside (b) with no card
+   visible (falcon-mamba-7b's train_4k and prefill_32k walks are left
+   out: ``DRYRUN_LEFT_OUT``; the CPU tests walk the whole table): every
+   row ok or skipped, one line a
+   cell (dominant term, compute_s, memory_s, total_device_bytes,
+   fits_hbm), smollm-135m's prefill_32k ok and fitting the card, its
+   decode_32k (a 96.6 GB KV cache) not; (b) that prefill_32k cell on the
+   card at its production shape: full-width smollm-135m in bf16 drawn on
+   the card, ``make_prefill_step`` on B=32 prompts of 32,768 tokens from
+   the seed, one warm-up on one prompt, then ``DRYRUN_TIMED`` timed
+   calls, the first with the counts set to 0 just before and read just
+   after (30 ``flash_attention`` launches at (32, 9, 3, 32,768, 64)):
+   the median wall, the peak
+   memory beside the row's ``total_device_bytes``, the roofline share of
+   the row's dominant term (at most 1.0, against the card's name and
+   power limit), finite last logits, layer 0's attention held against
+   the plain version on its own q, k, v (batch rows 0 and 31, the first
+   and the last 256 query rows over all keys, each element within 2e-2
+   of its row's largest |plain| value), and the kernel at that shape
+   timed beside SDPA
+   (``enable_gqa``) and its bound; (c) train (a)'s median step against
+   the port's FLOP count of that step (``count_flops`` on ``meta``) and
+   6·N·D, each as a share of the card's bf16 peak;
 23. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
@@ -398,7 +424,8 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    latest path: ``flash_attention`` on seamless-m4t-medium's prefill,
    timed at its cross-attention shape, with the internvl2-26b prefill's,
    the pipeline's, the earlier prefills' and the LM entry points'
-   launches beside it in ``launches_by_path``, and the pipeline's, the
+   launches beside it in ``launches_by_path`` (the dryrun phase's 32k
+   prefill's among them), and the pipeline's, the
    tuner race's and the video entry points' ``dct_quant``,
    ``idct_dequant`` and ``decode_gop_blocks`` launches beside theirs,
    and ``flash_attention_bwd``'s by training path: smollm-135m's and
@@ -438,9 +465,12 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+#: the card's published peaks (H100 SXM data sheet, repro_torch's
+#: launch/mesh.py): HBM3 bytes/s, f32 and bf16 FLOP/s
+from repro_torch.launch.mesh import (HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
+                                     PEAK_FLOPS_BF16 as BF16_FLOPS,
+                                     PEAK_FLOPS_FP32 as FP32_FLOPS)
+
 #: fp32 adds the card issues per second: half the FLOP/s peak, which counts
 #: an FMA as two operations
 FP32_ADDS = FP32_FLOPS / 2
@@ -453,8 +483,6 @@ FLOPS_PER_BLOCK_FRAME = 64 * (2 * 16 + 2)
 #: the divide or the dequant multiply)
 BYTES_PER_BLOCK = 64 * 4 + 64 * 2
 FLOPS_PER_BLOCK = 64 * (2 * 15 + 1)
-#: bf16 dense tensor-core peak of the H100 SXM (NVIDIA data sheet)
-BF16_FLOPS = 989e12
 #: tolerances of the attention kernel against its plain version (the
 #: reference's, tests/test_kernels.py), and of the serve comparisons
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -480,8 +508,10 @@ RETILE_FRAMES = 32
 #: the tuner race (tests/_torch_race.py): client threads, each running
 #: the race mix of tests/test_tuner.py (car x4, person x4, car x4 over the
 #: retile frames) until a scan has seen a retile in flight, at most
-#: RACE_PASSES times, beside a serve() session of 8 car scans
-RACE_THREADS, RACE_PASSES = 4, 2
+#: RACE_PASSES times, beside a serve() session of 8 car scans (2 passes
+#: once saw no retile in flight where the tuner lagged the scans; a pass
+#: past the first runs only then)
+RACE_THREADS, RACE_PASSES = 4, 4
 #: the serve path's configuration
 ARCH = "smollm-135m"
 #: the train path: B x S at SmolLM-135M's context length, steps, the
@@ -522,9 +552,12 @@ BWD_OLD_DIGESTS = {"bfloat16": "202818c62120c17d1623a0ad0494e8fe",
 GRAD_RTOL = 1e-4
 SERVE_B, SERVE_S, SERVE_NEW = 8, 512, 64
 #: new tokens of the earlier serve paths (smollm-135m, MoE, SSM, MLA):
-#: cut from SERVE_NEW to hold the smoke within its time limit; the
-#: encoder-decoder and VLM paths decode SERVE_NEW
-EARLY_NEW = 32
+#: cut from SERVE_NEW (to 32, then to 16) to hold the smoke within its
+#: time limit: with the dryrun phase cut to what its checks need (its (b)
+#: two timed 9.3 s prefills of the 32k cell after a one-prompt warm-up,
+#: its (a) hidden behind them) the smoke took 703 s on an H100 at 32;
+#: the encoder-decoder and VLM paths decode SERVE_NEW
+EARLY_NEW = 16
 F32_LAYERS = 4
 FLASH_SHAPES = [(2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
                 (8, 9, 3, 512, 64), (1, 9, 3, 4096, 64), (3, 9, 3, 100, 64),
@@ -1345,7 +1378,7 @@ class _Launcher:
     time and output after ``label`` and returns its standard output.  A
     run that fails before ``finish()`` kills it at exit."""
 
-    def __init__(self, label: str, module: str, *args: str):
+    def __init__(self, label: str, module: str, *args: str, env=None):
         self.label = label
         self.out = tempfile.TemporaryFile("w+")
         self.err = tempfile.TemporaryFile("w+")
@@ -1353,8 +1386,9 @@ class _Launcher:
         self.cmd = ([module] if module.endswith(".py")
                     else ["-m", module]) + list(args)
         self.proc = subprocess.Popen([sys.executable, *self.cmd],
-                                     env=_port_env(), stdout=self.out,
-                                     stderr=self.err, text=True)
+                                     env={**_port_env(), **(env or {})},
+                                     stdout=self.out, stderr=self.err,
+                                     text=True)
         atexit.register(self._stop)
 
     def _stop(self) -> None:
@@ -1362,7 +1396,7 @@ class _Launcher:
             self.proc.kill()
             self.proc.wait()
 
-    def finish(self, timeout: float = 600) -> str:
+    def finish(self, timeout: float = 600, echo: bool = True) -> str:
         try:
             rc = self.proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
@@ -1377,8 +1411,9 @@ class _Launcher:
             f.close()
         what = "python " + " ".join(self.cmd)
         check(rc == 0, f"{what} exited {rc}: {outs[1]}")
-        print(f"{self.label} {what}: exit 0 in {wall:.3f} s: " +
-              " | ".join(outs[0].strip().splitlines()), flush=True)
+        print(f"{self.label} {what}: exit 0 in {wall:.3f} s" + (
+            ": " + " | ".join(outs[0].strip().splitlines()) if echo
+            else ""), flush=True)
         return outs[0]
 
 
@@ -4771,7 +4806,7 @@ def train_phase(seed: int, beside_e=()) -> tuple:
           f"launch.train: {outs[0]}")
     check("resumed from step 3" in outs[1] and "done: 5 steps" in outs[1],
           f"launch.train --resume: {outs[1]}")
-    return launches["flash_attention_bwd"], beside_outs
+    return launches["flash_attention_bwd"], beside_outs, med
 
 
 # ------------------------------------------------- training of the families
@@ -5017,6 +5052,277 @@ def family_train_phase(seed: int, launch_out: str) -> dict:
     return launches
 
 
+# ------------------------------------------- the dry run, and one of its cells
+#: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives it (set by
+#: ``main``), beside every roofline share
+CARD = "not read"
+#: the cell of the table that (b) runs on the card at its production shape
+DRYRUN_CELL = "prefill_32k"
+#: (b)'s timed prefills after one warm-up, and the query rows of a layer-0
+#: attention head group held against the plain version (the first and the
+#: last, over all keys, in batch rows 0 and B - 1)
+DRYRUN_TIMED = 2
+DRYRUN_ROWS = 256
+#: (a)'s processes, started together beside (b): (archs, shapes) each,
+#: over one architecture of each family (smollm-135m the dense one, whose
+#: row (b) reads), balanced by their walks' times on one host core
+#: (zamba2-1.2b's train and prefill walks the longest); the other dense
+#: architectures' cells are walked by tests/test_torch_dryrun.py.
+#: falcon-mamba-7b's train_4k and prefill_32k are left out
+#: (``DRYRUN_LEFT_OUT``): their walks loop over 16 and 128 scan chunks a
+#: layer and take about 40 s each on one core, past (b)'s time
+#: (tests/test_torch_dryrun_ssm.py walks them on the CPU, at 2 of their
+#: 64 layers)
+DRYRUN_GROUPS = (
+    (("zamba2-1.2b",), ("train_4k",)),
+    (("zamba2-1.2b",), ("prefill_32k", "decode_32k", "long_500k")),
+    (("falcon-mamba-7b",), ("decode_32k", "long_500k")),
+    (("seamless-m4t-medium", "deepseek-v2-lite-16b"), ("all",)),
+    (("qwen3-moe-30b-a3b", "internvl2-26b", "smollm-135m"), ("all",)))
+DRYRUN_LEFT_OUT = {("falcon-mamba-7b", "train_4k"),
+                   ("falcon-mamba-7b", "prefill_32k")}
+
+
+def _dryrun_jobs(out_root: str) -> list:
+    """(a): ``python -m repro_torch.launch.dryrun --mesh single`` over the
+    cells of ``DRYRUN_GROUPS`` but ``DRYRUN_LEFT_OUT``, in the processes
+    of ``DRYRUN_GROUPS``, each writing its rows under ``out_root``;
+    ``CUDA_VISIBLE_DEVICES`` is empty, so none can open a context on the
+    card (the walk needs none)."""
+    jobs = []
+    for i, (archs, shapes) in enumerate(DRYRUN_GROUPS):
+        jobs.append(_Launcher(
+            f"dryrun (a) {','.join(archs)} x {','.join(shapes)}",
+            "repro_torch.launch.dryrun", "--mesh", "single", "--arch",
+            ",".join(archs), "--shape", ",".join(shapes), "--out",
+            os.path.join(out_root, str(i)), env={"CUDA_VISIBLE_DEVICES": ""}))
+    return jobs
+
+
+def _dryrun_rows(jobs: list, out_root: str) -> dict:
+    """Wait for (a)'s processes (each must exit 0) and return its rows by
+    (arch, shape); every cell of ``DRYRUN_GROUPS`` but ``DRYRUN_LEFT_OUT``
+    has one."""
+    from repro_torch.configs.base import SHAPES
+
+    for job in jobs:
+        job.finish(echo=False)
+    rows = {}
+    for path in sorted(pathlib.Path(out_root).glob("*/1xh100.jsonl")):
+        for line in path.read_text().splitlines():
+            r = json.loads(line)
+            rows[(r["arch"], r["shape"])] = r
+    want = {(a, sh) for archs, shapes in DRYRUN_GROUPS for a in archs
+            for sh in (SHAPES if shapes == ("all",) else shapes)}
+    check(set(rows) == want and not want & DRYRUN_LEFT_OUT,
+          f"dry run: rows for {sorted(rows)}")
+    print(f"dryrun (a) {len(rows)} cells; left out (walked by "
+          f"tests/test_torch_dryrun_ssm.py): {sorted(DRYRUN_LEFT_OUT)}",
+          flush=True)
+    return rows
+
+
+def _rows_vs_plain(q, k, v, o, rows: slice) -> tuple:
+    """For query ``rows`` of q [1, H, S, D] over all the causal keys of k,
+    v [1, KV, S, D] (the plain scores of those rows only): the largest |o
+    - plain| over FLASH_TOL times its row's largest |plain| value (a last
+    row averages about 32k keys of unit scale, so its values are a few
+    hundredths: an absolute limit would hold nothing), and the largest
+    |plain| value."""
+    g = q.shape[1] // k.shape[1]
+    kr, vr = (x.float().repeat_interleave(g, 1) for x in (k, v))
+    sc = q[:, :, rows].float() @ kr.transpose(-1, -2) / q.shape[-1] ** 0.5
+    pos = torch.arange(k.shape[2], device=q.device)
+    sc = sc.masked_fill(pos[None, :] > pos[rows][:, None], float("-inf"))
+    want = torch.softmax(sc, dim=-1) @ vr
+    scale = want.abs().amax(-1, keepdim=True)
+    err = (o[:, :, rows].float() - want).abs()
+    return (float((err / (FLASH_TOL[o.dtype] * scale)).max()),
+            float(scale.max()))
+
+
+def dryrun_phase(seed: int, train_med: float) -> int:
+    """(a) the port's dry run over the table (``_dryrun_jobs``), run beside
+    (b): every row ok or skipped, one line a cell, smollm-135m's
+    prefill_32k ok and fitting the card, its decode_32k not; (b) that
+    prefill cell on the card at its production shape: full-width
+    smollm-135m in bf16 drawn on the card, ``make_prefill_step`` on B=32
+    prompts of 32,768 tokens from the seed, a warm-up on one prompt and
+    ``DRYRUN_TIMED`` timed calls (the first's launches counted: 30 of
+    ``flash_attention``, layer 0's q, k, v and output kept), their median
+    wall, peak memory beside
+    the row's ``total_device_bytes``, the roofline share of the row's
+    dominant term (at most 1.0), finite last logits, layer 0's attention
+    rows held against the plain version, and the kernel at (32, 9, 3,
+    32,768, 64) timed beside SDPA and its bound; (c) train (a)'s step
+    (``train_med``, B=8 x S=2048) against the port's count of that step
+    and 6·N·D.  Returns (b)'s ``flash_attention`` launches."""
+    from unittest import mock
+
+    from repro_torch.configs.base import ShapeSpec, get_config, get_shape
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytic_cost import count_flops, tiling_of
+    from repro_torch.launch.mesh import HBM_PER_CHIP, make_production_mesh
+    from repro_torch.launch.roofline import model_flops_estimate
+    from repro_torch.models import init_model, zoo
+    from repro_torch.serve.serve_step import make_prefill_step
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    out_root = tempfile.mkdtemp(prefix="dryrun_torch_")
+    jobs = _dryrun_jobs(out_root)
+
+    # (b) the cell on the card, beside (a)
+    shape = get_shape(DRYRUN_CELL)
+    B, S = shape.global_batch, shape.seq_len
+    scfg = dryrun.prefill_config(get_config(ARCH), shape,
+                                 make_production_mesh())
+    model = _init_on_card(scfg, seed)
+    step = make_prefill_step(scfg, S, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, scfg.vocab, (B, S), generator=gen,
+                                     device=DEVICE, dtype=torch.int32)}
+    site = {}
+    real = flash_ops.flash_attention
+
+    def first(q, k, v, **kw):  # layer 0's call: batch rows 0 and B - 1
+        out = real(q, k, v, **kw)
+        if not site:
+            site.update({i: [x[i:i + 1].clone() for x in (q, k, v, out)]
+                         for i in (0, q.shape[0] - 1)})
+        return out
+
+    # the warm-up: one prompt of the cell's length (at the full batch it
+    # took as long as a timed call, 9.2-9.3 s, and read no different)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        step(model, {"tokens": batch["tokens"][:1]})
+        torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    walls = []
+    for i in range(DRYRUN_TIMED):
+        # the first timed call is the main path's run: its launches are
+        # counted and layer 0's q, k, v and output kept
+        torch.cuda.reset_peak_memory_stats()
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), mock.patch.object(
+                flash_ops, "flash_attention", first if i == 0 else real):
+            logits, caches = step(model, batch)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        del caches
+        if i == 0:
+            launches = read_counts()
+            check(launches["flash_attention"] == scfg.n_layers and all(
+                n == 0 for k, n in launches.items()
+                if k != "flash_attention"),
+                f"dryrun (b) launches {launches}")
+            over = {f"b{j} rows {r.start}-{r.stop - 1}":
+                    _rows_vs_plain(*site[j], r)
+                    for j in site for r in (slice(0, DRYRUN_ROWS),
+                                            slice(S - DRYRUN_ROWS, S))}
+            check(max(x for x, _ in over.values()) <= 1.0,
+                  f"dryrun (b) layer 0 rows against the plain version: "
+                  f"{over}")
+            site.clear()
+    check(logits.shape == (B, 1, scfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"dryrun (b) last logits {tuple(logits.shape)}")
+    del logits, model
+    torch.cuda.empty_cache()
+
+    # the kernel alone at the cell's shape, beside SDPA and its bound
+    kshape = (B, scfg.n_heads, scfg.n_kv_heads, S, scfg.head_dim)
+    b, h, kv, _, d = kshape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    q, k, v = (torch.randn(x, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+               for x in ((b, h, S, d), (b, kv, S, d), (b, kv, S, d)))
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                      2, warmup=1)
+    b_ms, b_by = flash_bound_ms(kshape, torch.bfloat16, True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # (a) the table
+    rows = _dryrun_rows(jobs, out_root)
+    shutil.rmtree(out_root, ignore_errors=True)
+    for (arch, name), r in sorted(rows.items()):
+        check(r["status"] in ("ok", "skipped"),
+              f"dryrun (a) {arch} x {name}: {r.get('error')}")
+        if r["status"] == "skipped":
+            print(f"dryrun (a) {arch} x {name}: skipped ({r['reason']})",
+                  flush=True)
+            continue
+        t = r["roofline"]
+        print(f"dryrun (a) {arch} x {name}: dominant={t['dominant']} "
+              f"compute_s={t['compute_s']:.6g} memory_s={t['memory_s']:.6g}"
+              f" total_device_bytes={r['memory']['total_device_bytes']:.6g}"
+              f" fits_hbm={r['fits_hbm']} (walk {r['walk_s']} s)",
+              flush=True)
+    row = rows[(ARCH, DRYRUN_CELL)]
+    check(row["status"] == "ok" and row["fits_hbm"],
+          f"dryrun (a) {ARCH} x {DRYRUN_CELL}: {row}")
+    check(rows[(ARCH, "decode_32k")]["status"] == "ok"
+          and not rows[(ARCH, "decode_32k")]["fits_hbm"],
+          f"dryrun (a) {ARCH} x decode_32k fits")
+
+    t = row["roofline"]
+    med = float(np.median(walls))
+    dom = max(t["compute_s"], t["memory_s"], t["collective_s"])
+    share = dom / med
+    check(share <= 1.0, f"dryrun (b) roofline share {share} > 1: the "
+                        f"count is wrong")
+    print(f"dryrun (b) {ARCH} x {DRYRUN_CELL} on the card ({CARD}): "
+          f"B={B} S={S}, warm-up (B=1) {warm:.6f} s, timed "
+          f"{[round(w, 6) for w in walls]}"
+          f", median wall {med:.6f} s; flash_attention launches "
+          f"{launches['flash_attention']}; peak memory "
+          f"(max_memory_allocated) {peak} bytes against the row's "
+          f"total_device_bytes {row['memory']['total_device_bytes']:.0f} "
+          f"({peak / row['memory']['total_device_bytes']:.4f}x; card "
+          f"{HBM_PER_CHIP:.0f}); counted FLOPs {t['hlo_flops']:.6g} (of "
+          f"which attention {row['attention_flops']:.6g}), dominant "
+          f"{t['dominant']} {dom:.6f} s: roofline share {share:.4f} of "
+          f"{BF16_FLOPS:.3g} FLOP/s; layer 0 against the plain version "
+          f"(over FLASH_TOL x the row's largest |plain|; largest |plain|):"
+          f" " + ", ".join(f"{k} {x:.4f} ({m:.4g})"
+                           for k, (x, m) in over.items()),
+          flush=True)
+    print(f"dryrun (b) flash_attention {kshape} bf16 causal ({CARD}): "
+          f"{ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}; {b_ms / ms:.3f} of "
+          f"it), SDPA (enable_gqa) {sdpa_ms:.6f} ms (the kernel "
+          f"{ms / sdpa_ms:.2f}x), plain version not measured (its scores "
+          f"would take {B * scfg.n_heads * S * S * 4 / 1e12:.1f} TB)",
+          flush=True)
+
+    # (c) the train step's share against its count
+    tcfg = dataclasses.replace(get_config(ARCH), param_dtype="bfloat16")
+    mmodel = init_model(tcfg, device="meta")
+    tshape = ShapeSpec("smoke_train", "train", TRAIN_S, TRAIN_B)
+    flops = count_flops(make_train_step(tcfg), mmodel,
+                        init_opt_state(dict(mmodel.named_parameters())),
+                        zoo.input_specs(tcfg, tshape),
+                        tiling=tiling_of(tcfg))
+    six_nd = model_flops_estimate(tcfg, tshape)
+    check(0 < flops / train_med / BF16_FLOPS <= 1.0,
+          f"dryrun (c) share of {flops} FLOPs in {train_med} s")
+    print(f"dryrun (c) train (a)'s step, {ARCH} B={TRAIN_B} S={TRAIN_S}, "
+          f"median {train_med:.6f} s ({CARD}): counted FLOPs {flops:.6g}, "
+          f"roofline share {flops / train_med / BF16_FLOPS:.4f} of "
+          f"{BF16_FLOPS:.3g} FLOP/s; 6·N·D {six_nd:.6g}, share "
+          f"{six_nd / train_med / BF16_FLOPS:.4f}", flush=True)
+    return launches["flash_attention"]
+
+
 def _phase(name: str, fn, *args):
     """``fn(*args)``, with its wall time printed."""
     t0 = time.perf_counter()
@@ -5039,7 +5345,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     print(f"build_s={build_all():.3f}", flush=True)
@@ -5077,7 +5385,7 @@ def main() -> int:
     # the server drill of scripts/server_smoke_torch.py and the family
     # train phase's launch.train (d), beside train (c)-(e)
     with tempfile.TemporaryDirectory() as ckdir:
-        train, (_, family_out) = _phase(
+        train, (_, family_out), train_med = _phase(
             "train", train_phase, args.seed, [
                 ("entry point", str(ROOT / "scripts" /
                                     "server_smoke_torch.py"),
@@ -5085,6 +5393,7 @@ def main() -> int:
                 family_launch_args(ckdir)])
     families = _phase("family train", family_train_phase, args.seed,
                       family_out)
+    prefill_32k = _phase("dryrun", dryrun_phase, args.seed, train_med)
 
     now = {"decode_gop_blocks F=16 M=32768":
            numbers["decode_gop_blocks"]["ms"],
@@ -5110,6 +5419,7 @@ def main() -> int:
                 "flash_attention": encdec,
                 "sad_search": motion, "flash_attention_bwd": train}
     by_path = {"flash_attention": {"seamless_prefill": encdec,
+                                   "smollm_prefill_32k": prefill_32k,
                                    "internvl2_prefill": vlm,
                                    "pipeline": pipe["flash_attention"],
                                    "mla_prefill": mla,

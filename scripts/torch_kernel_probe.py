@@ -6,7 +6,8 @@ strip of candidates per thread).
 
     python3 scripts/torch_kernel_probe.py [--baseline DIR] [--seeds 0 1 2 3]
                                           [--ptxas-only | --sad-only |
-                                           --bwd-only | --flash-only]
+                                           --bwd-only | --flash-only |
+                                           --host-only]
 
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
@@ -84,6 +85,9 @@ it against the plain version with keys of another length than the
 queries (``chip_smoke.FLASH_CROSS_SHAPES``, not causal), timed at
 seamless-m4t-medium's cross-attention shape beside the plain version,
 SDPA and the byte bound (about 2.5 minutes of command time).
+``--host-only --baseline DIR`` times the serving call
+``flash_attention_op`` of DIR's ``kernels/flash_attention/ops.py``
+against this tree's host cost per call, in turns (about a minute).
 
 Imports neither JAX nor the reference package.  Exits non-zero without a
 CUDA device.
@@ -93,6 +97,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -879,6 +884,39 @@ def logits_margins(seed: int, base) -> None:
                     for n, x in runs.items()), flush=True)
 
 
+def op_host_costs(baseline: pathlib.Path) -> None:
+    """The serving call's host cost: ``flash_attention_op`` (no grad, as
+    serving calls it) of the baseline tree's
+    ``kernels/flash_attention/ops.py`` (loaded by path; its imports are
+    this tree's wrappers) against this tree's, at a launch-bound shape and
+    at smollm-135m's prefill, each run of 2,000 calls in turns (baseline,
+    current, current, baseline, twice), after checking that both give the
+    same output."""
+    spec = importlib.util.spec_from_file_location(
+        "baseline_flash_ops", baseline / "src" / "repro_torch" / "kernels" /
+        "flash_attention" / "ops.py")
+    base = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base)
+    from repro_torch.kernels.flash_attention import ops
+
+    fmod.LIBRARY.build()
+    for b, h, kv, s, d in ((1, 9, 3, 16, 64), cs.FLASH_MAIN):
+        q, k, v = cs._qkv(np.random.default_rng(s), b, h, kv, s, d,
+                          torch.bfloat16)
+        runs = {"baseline": [], "current": []}
+        with torch.no_grad():
+            cs.check(torch.equal(base.flash_attention_op(q, k, v),
+                                 ops.flash_attention_op(q, k, v)),
+                     "flash_attention_op: the two trees differ")
+            for turn in ("baseline", "current", "current", "baseline") * 2:
+                op = (base if turn == "baseline" else ops).flash_attention_op
+                runs[turn].append(cs.host_us(lambda: op(q, k, v), 2000))
+        print(f"flash_attention_op host us/call at {(b, h, kv, s, d)} bf16, "
+              f"no grad, in turns: " + "; ".join(
+                  f"{name} {sorted(round(x, 3) for x in xs)}"
+                  for name, xs in runs.items()), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=pathlib.Path)
@@ -894,7 +932,12 @@ def main() -> int:
     only.add_argument("--flash-only", action="store_true",
                       help="the forward's ptxas reports, versions, digests "
                            "and MLA shape alone")
+    only.add_argument("--host-only", action="store_true",
+                      help="with --baseline: flash_attention_op's host cost "
+                           "against the baseline's, alone")
     args = ap.parse_args()
+    if args.host_only and not args.baseline:
+        ap.error("--host-only needs --baseline")
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device available",
               file=sys.stderr)
@@ -905,6 +948,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if args.host_only:
+        op_host_costs(args.baseline)
+        return 0
     if args.bwd_only:
         for source in (fmod.SOURCE, bwd_mod.SOURCE):
             ptxas_report(source)

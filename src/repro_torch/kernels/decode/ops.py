@@ -34,17 +34,21 @@ def pad_bucket(n: int, lo: int = 8) -> int:
     return 1 << (int(n) - 1).bit_length()
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, *, meta: bool = False) -> torch.device:
     """The device of a store's decode and encode, or of a model; raises if
     it names a CUDA device this process cannot reach (there is no silent
-    CPU fallback)."""
+    CPU fallback).  ``meta`` is taken only where the caller says it takes
+    it (``meta=True``: a model and its steps, built and walked without
+    memory or work for a FLOP count); it is never a fallback."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but no CUDA device is "
             f"available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    allowed = ("cuda", "cpu", "meta") if meta else ("cuda", "cpu")
+    if dev.type not in allowed:
+        raise ValueError(f"device must be one of {', '.join(allowed)}, got "
+                         f"{dev}")
     return dev
 
 

@@ -231,8 +231,12 @@ def init_model(cfg: ArchConfig,
     card), which a full-width MoE model needs to be built in seconds.
     The draws differ from ``jax.random``'s, and the CPU's from the
     card's; carry the reference's weights across with
-    :func:`repro_torch.models.convert.params_from_numpy`."""
-    dev = resolve_device(device)
+    :func:`repro_torch.models.convert.params_from_numpy`.  On
+    ``device="meta"`` nothing is drawn: the model has its shapes and
+    dtypes only, for a FLOP count (``launch/analytic_cost.py``)."""
+    dev = resolve_device(device, meta=True)
+    if dev.type == "meta":
+        return Model(cfg, device=dev)
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator().manual_seed(int(generator or 0))
     return Model(cfg, device=dev, generator=generator)
@@ -467,7 +471,7 @@ def init_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     return {key: {n: torch.zeros(t.shape, dtype=t.dtype, device=dev)
                   for n, t in stack.items()}
             for key, stack in init_cache_specs(cfg, batch, max_len).items()}

@@ -5,7 +5,9 @@ Counterpart of the reference's ``serve/serve_step.py``, run eagerly (no
 jit).  Both go through ``zoo.decode_step``: prefill is the S=prompt_len
 case with cache_index=0, whose attention is one ``flash_attention`` launch
 per layer on a CUDA device.  Every entry point takes ``device`` (default
-``"cuda"``, which raises without a card) and needs the model there.
+``"cuda"``, which raises without a card) and needs the model there; the
+two steps also take ``"meta"``, where they run on shapes alone for a FLOP
+count (``launch/analytic_cost.py``).
 
 The encoder-decoder family: the prefill encodes ``batch["frames"]``
 first (``zoo.encode_frames``: one more launch per encoder layer, and the
@@ -31,7 +33,7 @@ from repro_torch.models import zoo
 def check_device(params: zoo.Model, device) -> torch.device:
     """``device`` resolved (raising if it names an unreachable card), and
     the model's own device."""
-    dev = zoo.resolve_device(device)
+    dev = zoo.resolve_device(device, meta=True)
     have = params.device
     if have.type != dev.type or (dev.index is not None
                                  and have.index != dev.index):
@@ -68,7 +70,7 @@ def make_prefill_step(cfg: ArchConfig, max_len: int, *, device="cuda"):
     ``tokens`` [B, S], the VLM's ``patch_embeds`` where given, the
     encoder-decoder's ``frames`` [B, Se, d_model]."""
     zoo.check_family(cfg)
-    zoo.resolve_device(device)
+    zoo.resolve_device(device, meta=True)
 
     def prefill(params, batch):
         dev = check_device(params, device)
@@ -89,7 +91,7 @@ def make_decode_step(cfg: ArchConfig, *, device="cuda"):
     """decode(params, caches, batch, index) -> (logits [B,1,V], caches).
     The encoder-decoder's batch carries ``enc_out`` [B, Se, d_model]."""
     zoo.check_family(cfg)
-    zoo.resolve_device(device)
+    zoo.resolve_device(device, meta=True)
 
     def decode(params, caches, batch, index):
         dev = check_device(params, device)

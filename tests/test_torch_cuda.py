@@ -1819,3 +1819,82 @@ def test_cluster_smoke_on_the_card(cuda):
     out = run("cluster_smoke_torch", "--device", "cuda", timeout=900)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.splitlines()[-1] == "cluster_smoke_torch,0.0,ok"
+
+
+# ------------------------------------------------ the FLOP count on the card
+def _count_step(kind: str, device):
+    """The reference-rule FLOP count of reduced smollm-135m's bf16 train
+    step (B=2, S=64) or prefill (B=2, S=64) on ``device`` (``meta``: shapes
+    only; the card: the step runs, through the kernels)."""
+    from repro_torch.configs.base import ShapeSpec, reduce_config
+    from repro_torch.launch.analytic_cost import count_flops, tiling_of
+    from repro_torch.models import zoo
+
+    cfg = dataclasses.replace(reduce_config(get_config("smollm-135m")),
+                              head_dim=64, param_dtype="bfloat16")
+    model = init_model(cfg, 0, device=device)
+    spec = ShapeSpec("s", kind, 64, 2)
+    batch = {k: (torch.empty(v.shape, dtype=v.dtype, device="meta")
+                 if device == "meta" else torch.randint(
+                     0, cfg.vocab, v.shape, dtype=v.dtype, device=device))
+             for k, v in zoo.input_specs(cfg, spec).items()}
+    if kind == "train":
+        step = make_train_step(cfg)
+        return count_flops(step, model,
+                           init_opt_state(dict(model.named_parameters())),
+                           batch, tiling=tiling_of(cfg))
+    return count_flops(make_prefill_step(cfg, 64, device=device), model,
+                       batch, tiling=tiling_of(cfg))
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_count_on_meta_equals_count_on_the_card(cuda, kind):
+    before = flash_kernel.LAUNCHES.count
+    on_card = _count_step(kind, cuda)
+    assert flash_kernel.LAUNCHES.count > before  # the kernels ran
+    assert on_card == _count_step(kind, "meta") > 0
+
+
+def test_flash_attention_at_the_32k_prefill_rows(cuda):
+    """(1, 9, 3, 32,768, 64) bf16 causal, smollm-135m's prefill_32k
+    heads: the first and the last 256 query rows against the plain
+    version over all 32,768 keys (the plain scores of those rows only),
+    each element within FLASH_TOL of its row's largest |plain| value: a
+    last row averages about 32k keys, so its values are a few hundredths
+    and an absolute limit of 2e-2 would hold nothing."""
+    b, h, kv, s, d = 1, 9, 3, 32768, 64
+    q, k, v = _qkv(s, b, h, kv, s, d, torch.bfloat16, cuda)
+    got = flash_kernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    g = h // kv
+    kr, vr = (x.float().repeat_interleave(g, 1) for x in (k, v))
+    for start in (0, s - 256):
+        rows = slice(start, start + 256)
+        sc = q[:, :, rows].float() @ kr.transpose(-1, -2) / d ** 0.5
+        pos = torch.arange(s, device=cuda)
+        sc = sc.masked_fill(pos[None, :] > pos[rows][:, None], float("-inf"))
+        want = torch.softmax(sc, dim=-1) @ vr
+        scale = want.abs().amax(-1, keepdim=True)
+        over = float(((got[:, :, rows].float() - want).abs() /
+                      (FLASH_TOL[torch.bfloat16] * scale)).max())
+        print(f"rows {start}-{start + 255}: over {over:.4f}, largest "
+              f"|plain| {float(scale.max()):.4g}, smallest row's largest "
+              f"{float(scale.min()):.4g}")
+        assert over <= 1.0, (start, over)
+
+
+@pytest.mark.parametrize("dims", [(2, 9, 3, 100, 64, 64, 64),
+                                  (2, 16, 16, 64, 64, 192, 128),
+                                  (2, 4, 2, 48, 17, 64, 64)])
+def test_flash_attention_fn_on_meta_has_the_cards_shapes(cuda, dims):
+    b, h, kv, s, skv, dqk, dv = dims
+    causal = s == skv
+    shapes = ((b, h, s, dqk), (b, kv, skv, dqk), (b, kv, skv, dv))
+    out = {}
+    for dev in (cuda, "meta"):
+        q, k, v = (torch.randn(x, dtype=torch.bfloat16, device=dev)
+                   .requires_grad_() for x in shapes)
+        o = flash_kernel.flash_attention_op(q, k, v, causal=causal)
+        grads = torch.autograd.grad(o.float().sum(), (q, k, v))
+        out[str(dev)] = [(t.shape, t.dtype) for t in (o, *grads)]
+    assert out["meta"] == out[str(cuda)]

@@ -18,6 +18,8 @@ reference's chunked attention at rtol 1e-5 and atol 1e-6 x max|g|, and
 backward kernel's bf16 design (``attention_bwd_bf16_mma_ref``: P and dS
 as two bf16 parts before the second products) is held against
 ``attention_bwd_ref`` with the card's per-row rule."""
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,7 @@ from repro_torch.kernels.flash_attention import (LAUNCHES, FlashAttentionFn,
                                                  attention_ref,
                                                  flash_attention,
                                                  flash_attention_op)
+from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.kernels.flash_attention.ref import (
     attention_bf16_mma_ref, attention_bwd_bf16_mma_ref)
 from repro_torch.models import attention
@@ -124,8 +127,10 @@ def test_wrapper_needs_cuda_tensors():
     before = LAUNCHES.count
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention_op(q.to("meta"), k.to("meta"), v.to("meta"))
+    out = flash_attention_op(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        attention_ops._device(SimpleNamespace(device=torch.device("xpu")))
     assert LAUNCHES.count == before
 
 
