@@ -417,6 +417,31 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    (``enable_gqa``) and its bound; (c) train (a)'s median step against
    the port's FLOP count of that step (``count_flops`` on ``meta``) and
    6·N·D, each as a share of the card's bf16 peak;
+22d. distributed phase (``distributed/``, one rank of NCCL on the one
+   card, a 1x1 mesh), its collectives in a process of its own
+   (``--distributed-worker``, so no NCCL state reaches the other phases):
+   (a) ``ring_step`` driven over 4 blocks of a sequence on one device at
+   smollm-135m's widths (B=2, S=4096, KV=3, G=3, D=64), f32 and bf16,
+   causal and not, each block through the ``flash_attention`` kernel with
+   its row logsumexp, and the real ``ring_attention`` on the 1x1 mesh,
+   against the plain ``ring_attention_ref`` (f32 within 3e-5, bf16 each
+   row within 2e-2 of its largest |plain| value), with the counts set to
+   0 just before and read just after (10 launches a causal drive, 16 a
+   full one, 1 each ``ring_attention``: 56), the bf16 causal drive timed
+   beside the plain ring; (b) smollm-135m at full width, bf16, B=8,
+   S=512: ``choose_policy`` picks ``dp_train``, and step 1's loss and
+   every gradient leaf of the sharded model equal the unsharded model's
+   bit for bit, then 3 steps of each, the same losses, the median steps
+   side by side; (c) ``launch.serve``'s weights and prompts (B=8, 512
+   tokens, 16 new) unsharded and sharded with the cache placed by
+   sequence: the same tokens, prefill and decode times side by side; (d)
+   one ``compressed_psum`` and one checkpoint save / restore of a DTensor
+   on the NCCL group; beside it, (e) ``python -m repro_torch.launch.train
+   --arch smollm-135m --mesh 1,1`` at B=8, S=512 for 3 steps (policy
+   ``dp_train``) and (f) ``python -m repro_torch.launch.serve --mesh 1,1
+   --kv-shard seq`` at B=8, 512-token prompts, 16 new tokens, whose
+   tokens' digest must be (c)'s; the three processes run beside train
+   (e)'s ``--resume`` launcher, and the phase checks what they printed;
 23. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
    the redesign (``BEFORE_REDESIGN``, from PERF.md),
@@ -425,7 +450,8 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    timed at its cross-attention shape, with the internvl2-26b prefill's,
    the pipeline's, the earlier prefills' and the LM entry points'
    launches beside it in ``launches_by_path`` (the dryrun phase's 32k
-   prefill's among them), and the pipeline's, the
+   prefill's and the distributed phase's ring's among them), and the
+   pipeline's, the
    tuner race's and the video entry points' ``dct_quant``,
    ``idct_dequant`` and ``decode_gop_blocks`` launches beside theirs,
    and ``flash_attention_bwd``'s by training path: smollm-135m's and
@@ -444,6 +470,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -4723,11 +4750,13 @@ def _train_launcher(ckdir: str, steps: int, *extra: str) -> _Launcher:
                      *extra)
 
 
-def train_phase(seed: int, beside_e=()) -> tuple:
+def train_phase(seed: int, beside_e=(), beside_resume=()) -> tuple:
     """The training slice at full width; returns the backward kernel's
-    launches over the main path's run, and the standard output of each
-    process of ``beside_e``: ``_Launcher`` arguments of processes run
-    beside (c)-(e), which leave the card mostly idle."""
+    launches over the main path's run, the standard output of each
+    process of ``beside_e`` (``_Launcher`` arguments of processes run
+    beside (c)-(e), which leave the card mostly idle), then that of each
+    process of ``beside_resume`` (run beside (e)'s ``--resume`` launcher,
+    the phase's last and idlest part), and the median step."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_model
     from repro_torch.train.data import synthetic_token_batches
@@ -4800,13 +4829,17 @@ def train_phase(seed: int, beside_e=()) -> tuple:
         beside = [_Launcher(*a) for a in beside_e]
         _f32_step_card_vs_cpu(seed)
         _recovery(seed)
-        outs = [first.finish(), _train_launcher(ckdir, 5, "--resume").finish()]
+        outs = [first.finish()]
+        resume = _train_launcher(ckdir, 5, "--resume")
+        later = [_Launcher(*a) for a in beside_resume]
+        outs.append(resume.finish())
         beside_outs = [launcher.finish() for launcher in beside]
+        later_outs = [launcher.finish(echo=False) for launcher in later]
     check(f"device={DEVICE}" in outs[0] and "done: 3 steps" in outs[0],
           f"launch.train: {outs[0]}")
     check("resumed from step 3" in outs[1] and "done: 5 steps" in outs[1],
           f"launch.train --resume: {outs[1]}")
-    return launches["flash_attention_bwd"], beside_outs, med
+    return launches["flash_attention_bwd"], beside_outs, later_outs, med
 
 
 # ------------------------------------------------- training of the families
@@ -5323,6 +5356,325 @@ def dryrun_phase(seed: int, train_med: float) -> int:
     return launches["flash_attention"]
 
 
+# ------------------------------------------------------------ distributed
+#: the ring on the card at smollm-135m's widths, (B, S, KV, G, D), in
+#: RING_BLOCKS blocks of the sequence; f32 within the reference test's
+#: bound, bf16 each row within RING_ROW_TOL of its largest |plain| value
+RING_SHAPE = (2, 4096, 3, 3, 64)
+RING_BLOCKS = 4
+RING_TOL32, RING_ROW_TOL = 3e-5, 2e-2
+#: the sharded train and serve at smollm-135m's full width
+DIST_B, DIST_S, DIST_STEPS, DIST_NEW = 8, 512, 3, 16
+
+
+def _ring_blocks(q, k, v, causal: bool) -> torch.Tensor:
+    """``ring_step`` over ``RING_BLOCKS`` blocks of the sequence on one
+    device: each query block over the key blocks in the ring's order (its
+    own first, then the ones before it; those after it only when not
+    causal), as a rank of a ring of that many would."""
+    from repro_torch.distributed.ring_attention import ring_step
+
+    B, S, KV, G, D = q.shape
+    s = S // RING_BLOCKS
+    out = []
+    for i in range(RING_BLOCKS):
+        qh = q[:, i * s:(i + 1) * s].permute(0, 2, 3, 1, 4).reshape(
+            B, KV * G, s, D).contiguous()
+        carry = None
+        for hop in range(RING_BLOCKS):
+            j = (i - hop) % RING_BLOCKS
+            if causal and j > i:
+                continue
+            kb = k[:, j * s:(j + 1) * s].transpose(1, 2).contiguous()
+            vb = v[:, j * s:(j + 1) * s].transpose(1, 2).contiguous()
+            carry = ring_step(carry, qh, kb, vb, causal=causal and j == i)
+        out.append(carry[0].reshape(B, KV, G, s, D).permute(0, 3, 1, 2, 4))
+    return torch.cat(out, dim=1)
+
+
+def _ring_err(got, want, dtype) -> tuple:
+    """(max |err|, passes): f32 within RING_TOL32; bf16 each row within
+    RING_ROW_TOL of its own largest |plain| value."""
+    err = (got.float() - want).abs()
+    if dtype == torch.float32:
+        return err.max().item(), err.max().item() < RING_TOL32
+    ok = (err.amax(-1) <= RING_ROW_TOL * want.abs().amax(-1)).all().item()
+    return err.max().item(), ok
+
+
+def _dist_ring(mesh, seed: int) -> dict:
+    """(a): the ring's blocks through the kernel, against the plain ring."""
+    from repro_torch.distributed.ring_attention import (ring_attention,
+                                                        ring_attention_ref)
+
+    B, S, KV, G, D = RING_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    base = [torch.randn(shape, device=DEVICE, generator=g) for shape in (
+        (B, S, KV, G, D), (B, S, KV, D), (B, S, KV, D))]
+    errs, times = {}, {}
+    reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (x.to(dtype) for x in base)
+        for causal in (True, False):
+            want = ring_attention_ref(q.float(), k.float(), v.float(),
+                                      causal=causal)
+            before = read_counts()["flash_attention"]
+            got = _ring_blocks(q, k, v, causal)
+            n = read_counts()["flash_attention"] - before
+            check(n == (RING_BLOCKS * (RING_BLOCKS + 1) // 2 if causal
+                        else RING_BLOCKS ** 2), f"ring blocks launched {n}")
+            err, ok = _ring_err(got, want, dtype)
+            tag = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+            check(ok, f"ring_step x{RING_BLOCKS} {tag}: max err {err}")
+            whole = ring_attention(q, k, v, mesh=mesh,
+                                   causal=causal).to_local()
+            err1, ok1 = _ring_err(whole, want, dtype)
+            check(ok1, f"ring_attention 1x1 {tag}: max err {err1}")
+            errs[tag] = (err, err1)
+    launches = read_counts()["flash_attention"]
+    q, k, v = (x.to(torch.bfloat16) for x in base)
+    times["ring_ms"] = cuda_ms(lambda: _ring_blocks(q, k, v, True), 3)
+    times["plain_ms"] = cuda_ms(lambda: ring_attention_ref(
+        q.float(), k.float(), v.float(), causal=True), 3)
+    print(f"distributed (a) ring_step over {RING_BLOCKS} blocks of "
+          f"{RING_SHAPE} and ring_attention on the 1x1 mesh, against the "
+          f"plain ring (max |err|, blocks and 1x1): " + "; ".join(
+              f"{k} {a:.3g} {b:.3g}" for k, (a, b) in errs.items()) +
+          f"; flash_attention launches {launches}; bf16 causal "
+          f"{RING_BLOCKS}-block ring {times['ring_ms']:.6f} ms, plain "
+          f"ring {times['plain_ms']:.6f} ms", flush=True)
+    return {"launches": launches, **times}
+
+
+def _dist_grads(model, cfg, batch, scope):
+    from repro_torch.models import loss_fn
+
+    params = dict(model.named_parameters())
+    with scope:
+        model.requires_grad_(True)
+        loss, _ = loss_fn(model, cfg, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        model.requires_grad_(False)
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _dist_train(mesh, seed: int) -> dict:
+    """(b): step 1's loss and every gradient leaf of the sharded model
+    (``choose_policy``'s layout on the 1x1 mesh) bit for bit the
+    unsharded model's, then both trained DIST_STEPS steps, timed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.ctx import dp_rules, use_sharding
+    from repro_torch.train.data import synthetic_token_batches
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config(ARCH), param_dtype="bfloat16")
+    mode = shd.choose_policy(cfg, mesh, "train")
+    check(mode == "dp_train", f"choose_policy picked {mode}")
+    scope = functools.partial(use_sharding, dp_rules(mesh.axis_names), mesh)
+    data = synthetic_token_batches(cfg.vocab, DIST_B, DIST_S, seed=seed)
+    batches = [{k: torch.as_tensor(v).to(DEVICE) for k, v in
+                next(data).items()} for _ in range(DIST_STEPS)]
+    plain = _init_on_card(cfg, seed)
+    sharded = shd.shard_model(_init_on_card(cfg, seed), cfg, mesh, mode=mode)
+    lp, gp = _dist_grads(plain, cfg, batches[0], contextlib.nullcontext())
+    ls, gs = _dist_grads(sharded, cfg, batches[0], scope())
+    check(torch.equal(lp, ls), f"sharded loss {ls.item()} != {lp.item()}")
+    differ = [n for n, g in gp.items() if not torch.equal(g, gs[n].to_local())]
+    check(not differ, f"gradient leaves not bit for bit: {differ[:4]}")
+    del gp, gs
+    out = {"loss": lp.item(), "leaves": len(dict(plain.named_parameters()))}
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=DIST_STEPS)
+    for name, model, ctx in (("unsharded", plain, contextlib.nullcontext),
+                             ("sharded", sharded, scope)):
+        step = make_train_step(cfg, opt_cfg)
+        opt = init_opt_state(dict(model.named_parameters()))
+        times, losses = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx():
+                model, opt, m = step(model, opt, batch)
+            losses.append(m["loss"].item())  # synchronises
+            times.append(time.perf_counter() - t0)
+        out[name] = {"median_s": float(np.median(times[1:])),
+                     "losses": losses}
+        del opt
+    check(out["sharded"]["losses"] == out["unsharded"]["losses"],
+          f"losses {out['sharded']['losses']} != "
+          f"{out['unsharded']['losses']}")
+    print(f"distributed (b) {cfg.name} B={DIST_B} S={DIST_S} bf16, "
+          f"policy {mode} on the 1x1 NCCL mesh: step 1's loss "
+          f"{out['loss']:.6f} and all {out['leaves']} gradient leaves bit "
+          f"for bit the unsharded step's; {DIST_STEPS} steps, losses equal "
+          f"{[round(x, 4) for x in out['sharded']['losses']]}; median step "
+          f"sharded {out['sharded']['median_s']:.6f} s, unsharded "
+          f"{out['unsharded']['median_s']:.6f} s", flush=True)
+    return out
+
+
+def _serve_tokens(model, cfg, scope) -> tuple:
+    """``launch.serve``'s loop: DIST_B prompts of DIST_S tokens from a CPU
+    generator seeded with 1, a prefill and DIST_NEW greedy decode steps;
+    (tokens [B, 1 + DIST_NEW], prefill s, decode s)."""
+    from repro_torch.serve.serve_step import (make_decode_step,
+                                              make_prefill_step)
+
+    max_len = DIST_S + DIST_NEW + 8
+    prompts = torch.randint(0, cfg.vocab, (DIST_B, DIST_S),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(DEVICE)
+    prefill = make_prefill_step(cfg, max_len, device=DEVICE)
+    decode = make_decode_step(cfg, device=DEVICE)
+    with torch.no_grad(), scope:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, {"tokens": prompts})
+        tok = torch.argmax(logits[:, -1:], -1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new = [tok]
+        for i in range(DIST_NEW):
+            logits, caches = decode(model, caches, {"tokens": tok},
+                                    DIST_S + i)
+            tok = torch.argmax(logits[:, -1:], -1)
+            new.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return torch.cat(new, dim=1).cpu(), t1 - t0, t2 - t1
+
+
+def _dist_serve(mesh) -> dict:
+    """(c): ``launch.serve``'s weights (a CUDA generator seeded with 0)
+    and prompts, unsharded and sharded (``mode="serve"``, the cache placed
+    by sequence): the same tokens."""
+    from repro_torch.configs.base import get_config, make_serve_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.ctx import SERVE_RULES_1POD, use_sharding
+
+    cfg = dataclasses.replace(make_serve_config(get_config(ARCH), 1),
+                              kv_cache_shard="seq")
+    plain = _init_on_card(cfg, 0)
+    want, pre_p, dec_p = _serve_tokens(plain, cfg, contextlib.nullcontext())
+    del plain
+    sharded = shd.shard_model(_init_on_card(cfg, 0), cfg, mesh, mode="serve")
+    got, pre_s, dec_s = _serve_tokens(
+        sharded, cfg, use_sharding(SERVE_RULES_1POD, mesh))
+    check(torch.equal(got, want), "sharded serve tokens differ")
+    digest = hashlib.sha256(want.to(torch.int64).numpy().tobytes()
+                            ).hexdigest()[:16]
+    print(f"distributed (c) {cfg.name} serve B={DIST_B} prompts of {DIST_S}"
+          f", {DIST_NEW} new tokens, cache placed by sequence on the 1x1 "
+          f"mesh: tokens equal the unsharded serve's (sha256={digest}); "
+          f"prefill sharded {pre_s:.6f} s, unsharded {pre_p:.6f} s; decode "
+          f"tokens/s sharded {DIST_B * DIST_NEW / dec_s:.1f}, unsharded "
+          f"{DIST_B * DIST_NEW / dec_p:.1f}", flush=True)
+    return {"digest": digest, "prefill_s": [pre_s, pre_p],
+            "decode_tok_s": [DIST_B * DIST_NEW / dec_s,
+                             DIST_B * DIST_NEW / dec_p]}
+
+
+def _dist_sync_and_checkpoint(mesh, seed: int) -> None:
+    """(d): one int8 error-feedback all-reduce and one checkpoint save /
+    restore of a DTensor on the NCCL group."""
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.distributed.ctx import P
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    grad = torch.randn(1 << 20, device=DEVICE, generator=g)
+    synced, res = compressed_psum(grad, torch.zeros_like(grad),
+                                  group=mesh.device_mesh.get_group("data"))
+    sent = dequantize_int8(*quantize_int8(grad))
+    check(torch.equal(synced, sent) and torch.equal(res, grad - sent),
+          "compressed_psum on one rank is not its own dequantized payload")
+    w = NamedSharding(mesh, P("data", None)).distribute(
+        torch.randn(256, 512, device=DEVICE, generator=g))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(1, {"w": w})
+        got, _ = mgr.restore({"w": torch.zeros(256, 512)}, shardings={
+            "w": NamedSharding(mesh, P(None, "model"))})
+    check(torch.equal(got["w"].to_local(), w.to_local()),
+          "checkpoint restore differs")
+    print(f"distributed (d) compressed_psum of {grad.numel()} values on the "
+          f"NCCL group: the dequantized int8 payload, residual exact; "
+          f"checkpoint of a DTensor saved and restored onto another "
+          f"placement, bit for bit", flush=True)
+
+
+def distributed_worker(out_path: str, seed: int) -> int:
+    """The distributed phase's own process (NCCL state stays in it): a
+    one-rank NCCL group and the 1x1 mesh over it, (a)-(d), a JSON summary
+    to ``out_path``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_mesh((1, 1), "cuda")
+    check(dist.get_backend() == "nccl" and mesh.device_mesh is not None,
+          f"the mesh's group runs {dist.get_backend()}")
+    walls, t0 = [], time.perf_counter()
+    out = {"ring": _dist_ring(mesh, seed)}
+    walls.append(time.perf_counter())
+    out["train"] = _dist_train(mesh, seed)
+    walls.append(time.perf_counter())
+    out["serve"] = _dist_serve(mesh)
+    walls.append(time.perf_counter())
+    _dist_sync_and_checkpoint(mesh, seed)
+    walls.append(time.perf_counter())
+    print("distributed (a)-(d) wall_s " + " ".join(
+        f"{k}={b - a:.3f}" for k, a, b in zip("abcd", [t0] + walls, walls)),
+        flush=True)
+    pathlib.Path(out_path).write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def distributed_launch_args(out_dir: str, seed: int) -> list:
+    """The distributed phase's processes, as ``_Launcher`` arguments: its
+    own (a)-(d) (``distributed_worker``, writing its summary to
+    ``<out_dir>/distributed.json``) and, beside it, (e) ``launch.train
+    --mesh 1,1`` and (f) ``launch.serve --mesh 1,1 --kv-shard seq``.  They
+    run beside train (e)'s ``--resume`` launcher."""
+    return [("distributed (a)-(d)", str(ROOT / "chip_smoke.py"),
+             "--distributed-worker", os.path.join(out_dir, "distributed.json"),
+             "--seed", str(seed)),
+            ("distributed (e)", "repro_torch.launch.train", "--arch", ARCH,
+             "--mesh", "1,1", "--device", DEVICE, "--batch", str(DIST_B),
+             "--seq", str(DIST_S), "--steps", str(DIST_STEPS),
+             "--checkpoint-dir", os.path.join(out_dir, "ckpt"),
+             "--checkpoint-every", str(DIST_STEPS)),
+            ("distributed (f)", "repro_torch.launch.serve", "--arch", ARCH,
+             "--mesh", "1,1", "--kv-shard", "seq", "--batch", str(DIST_B),
+             "--prompt-len", str(DIST_S), "--max-new", str(DIST_NEW),
+             "--device", DEVICE)]
+
+
+def distributed_phase(out_dir: str, outs: list) -> int:
+    """``distributed/`` on the card, from the processes of
+    ``distributed_launch_args`` (their standard outputs ``outs``): (a)-(d)
+    printed, (e) trained under ``dp_train``, (f)'s tokens those of (c)'s
+    unsharded serve; the ring's ``flash_attention`` launches."""
+    worker, train, serve = outs
+    print(worker, end="", flush=True)
+    for label, out in (("distributed (e)", train), ("distributed (f)", serve)):
+        print(f"{label}: " + " | ".join(out.strip().splitlines()), flush=True)
+    res = json.loads(pathlib.Path(out_dir, "distributed.json").read_text())
+    check("policy dp_train" in train and f"done: {DIST_STEPS} steps" in train,
+          f"launch.train --mesh 1,1: {train}")
+    check(f"sha256={res['serve']['digest']}" in serve,
+          f"launch.serve --mesh 1,1 --kv-shard seq: tokens differ from the "
+          f"unsharded serve's ({res['serve']['digest']}): {serve}")
+    return res["ring"]["launches"]
+
+
 def _phase(name: str, fn, *args):
     """``fn(*args)``, with its wall time printed."""
     t0 = time.perf_counter()
@@ -5334,10 +5686,14 @@ def _phase(name: str, fn, *args):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--distributed-worker", default="",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.distributed_worker:
+        return distributed_worker(args.distributed_worker, args.seed)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.data.video_gen import generate, sparse_spec
@@ -5383,14 +5739,18 @@ def main() -> int:
     vlm, pipe = _phase("vlm serve", vlm_serve_phase, args.seed)
     numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
     # the server drill of scripts/server_smoke_torch.py and the family
-    # train phase's launch.train (d), beside train (c)-(e)
-    with tempfile.TemporaryDirectory() as ckdir:
-        train, (_, family_out), train_med = _phase(
+    # train phase's launch.train (d), beside train (c)-(e); the
+    # distributed phase's processes beside train (e)'s resume
+    with tempfile.TemporaryDirectory() as ckdir, \
+            tempfile.TemporaryDirectory() as dist_dir:
+        train, (_, family_out), dist_outs, train_med = _phase(
             "train", train_phase, args.seed, [
                 ("entry point", str(ROOT / "scripts" /
                                     "server_smoke_torch.py"),
                  "--transport", "shm", "--device", DEVICE),
-                family_launch_args(ckdir)])
+                family_launch_args(ckdir)],
+            distributed_launch_args(dist_dir, args.seed))
+        ring = _phase("distributed", distributed_phase, dist_dir, dist_outs)
     families = _phase("family train", family_train_phase, args.seed,
                       family_out)
     prefill_32k = _phase("dryrun", dryrun_phase, args.seed, train_med)
@@ -5420,6 +5780,7 @@ def main() -> int:
                 "sad_search": motion, "flash_attention_bwd": train}
     by_path = {"flash_attention": {"seamless_prefill": encdec,
                                    "smollm_prefill_32k": prefill_32k,
+                                   "ring_attention": ring,
                                    "internvl2_prefill": vlm,
                                    "pipeline": pipe["flash_attention"],
                                    "mla_prefill": mla,

@@ -5,7 +5,8 @@ forward launches the forward kernel (``flash.py``), asking for the row
 logsumexp only when a gradient will be taken, and its backward launches
 the backward kernel (``flash_attention_bwd.py``); on CPU tensors both run
 the plain PyTorch versions (``ref.py``).  Nothing falls back from one to
-the other.  On ``meta`` tensors both return empty outputs of the shapes
+the other, and a ``DTensor`` raises ``TypeError``: a kernel takes a
+rank's local tensors only.  On ``meta`` tensors both return empty outputs of the shapes
 and dtypes the card returns, so a step can be walked without memory or
 work (``repro_torch.launch.analytic_cost``).  Keys may be of another
 length than the queries when not causal (cross-attention), and v may be
@@ -27,6 +28,19 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
 
+def _no_dtensor(*xs: torch.Tensor) -> None:
+    for x in xs:
+        if type(x) is torch.Tensor:
+            continue
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            raise TypeError(
+                "flash_attention_op takes a rank's local tensors, not a "
+                "DTensor: the kernels read raw pointers (run the model "
+                "under distributed.parallel.local_params)")
+
+
 def _device(q: torch.Tensor) -> str:
     if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash_attention_op runs on cuda, cpu or meta, "
@@ -46,6 +60,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, save: bool):
+        _no_dtensor(q, k, v)
         dev = _device(q)
         if dev == "cuda":
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -85,6 +100,21 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True) -> tuple:
+    """``(o, lse)``: the forward with its f32 row logsumexp [B, H, S], for
+    a caller that merges attention over blocks of keys (ring attention,
+    ``distributed/ring_attention.py``): the kernel on CUDA tensors, the
+    plain versions on the CPU; no gradient."""
+    _no_dtensor(q, k, v)
+    dev = _device(q)
+    if dev == "cuda":
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, return_lse=True)
+    return (attention_ref(q, k, v, causal=causal),
+            attention_lse_ref(q, k, causal=causal))
+
+
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True) -> torch.Tensor:
     """q: [B, H, S, Dqk]; k: [B, KV, Skv, Dqk]; v: [B, KV, Skv, Dv] ->
@@ -93,6 +123,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     autograd records the call.  (A FLOP count,
     ``launch.analytic_cost.StepCount``, puts a charging subclass in
     ``FlashAttentionFn``'s place here while it is open.)"""
+    _no_dtensor(q, k, v)
     save = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
     return FlashAttentionFn.apply(q, k, v, causal, save)

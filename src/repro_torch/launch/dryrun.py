@@ -18,13 +18,15 @@ the card's published peaks (``launch/mesh.py``) and whether the step fits
 the card's 80 GB, and is appended to ``<out>/1xh100.jsonl`` (default
 ``results/dryrun_torch/``).  A cell already ``ok`` or ``skipped`` there
 is not run again unless ``--force`` is given.  ``--mesh multi`` exits 1:
-sharding is not ported (ROADMAP, queue 1 item 9).
+walking a step over a multi-card mesh is what is left of ROADMAP queue 1
+item 9 (``distributed/`` runs sharded steps, but the dry run walks one
+card).
 
 The reference's adjustments are kept: training params in bf16 unless
 ``REPRO_TORCH_VARIANT`` holds ``f32w``; the prefill's chunks widened to S
 // 16 and S // 32; the serving config of a one-device model axis.  The
 reference's ``plainkv`` variant chooses the cache's placement over a mesh,
-which is sharding's (item 9), and has no meaning here.
+which has no meaning for a walk of one card.
 """
 from __future__ import annotations
 

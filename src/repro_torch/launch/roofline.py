@@ -14,7 +14,8 @@ and issues no collective: its collective bytes are the zero dict
 (:func:`no_collectives`).  ``collective_bytes_from_hlo`` and its helpers
 are the reference's, verbatim: a parser of XLA's optimized HLO text that
 multiplies while-loop bodies by their trip count, kept for the tests'
-parity and for sharding (ROADMAP, queue 1 item 9).
+parity and for a dry run over a multi-card mesh, which is what is left of
+ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 

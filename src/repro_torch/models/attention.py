@@ -20,33 +20,57 @@ The int8 KV cache (``kv_cache_quant``) stores per-row int8 codes and bf16
 scales, for GQA's k and v and for MLA's latent, and attends over the
 dequantised rows, as the reference does.
 
-The sequence-sharded cache (``kv_cache_shard="seq"``, a sharding placement:
-ROADMAP queue 1 item 9) is not ported yet and raises
-``NotImplementedError``.
+On a mesh (``distributed/``) a GQA attention whose effective KV heads
+divide the model axis runs over this rank's heads: q, k and v from this
+rank's columns, its heads' attention through the kernel, the output
+projection from its rows, the partial outputs summed over the model axis
+(``parallel.attention_group``).  ``kv_cache_shard="seq"`` is, as in the
+reference, a placement of the cache: its sequence axis split over the
+model axis.  Then every rank computes every head, writes the cache rows
+it owns, and a decode step combines the ranks' softmax statistics over
+their positions (flash-decode: the maximum, then the rescaled sums and
+outputs, each one all-reduce).  A cache whose head width is split (the
+reference's fallback when KV heads do not divide the model axis) sums
+the scores' partial products over the model axis and gathers the
+outputs.  The local cache views carry their placement under
+:data:`KV_SHARD`.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models.layers import (Dense, Norm, apply_rope, dense_apply,
                                        norm_apply, torch_dtype)
 
 NEG_INF = -1e30
+#: the key of a local cache view's placement (:class:`KVShard`)
+KV_SHARD = "shard"
+CACHE_SHARDS = ("heads", "seq")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the attention variants the port does not have yet."""
-    if cfg.kv_cache_shard != "heads":
-        raise NotImplementedError(
-            f"kv_cache_shard={cfg.kv_cache_shard!r} places the cache's "
-            f"sequence axis over a mesh, which is not ported yet (ROADMAP, "
-            f"queue 1 item 9, distributed/)")
+    """Raise for a cache placement the reference does not have."""
+    if cfg.kv_cache_shard not in CACHE_SHARDS:
+        raise ValueError(f"kv_cache_shard={cfg.kv_cache_shard!r}: the "
+                         f"placements are {CACHE_SHARDS}")
+
+
+class KVShard(NamedTuple):
+    """How one rank's view of an attention cache is split over the model
+    axis ``group`` (a ``parallel.Group``): ``"heads"`` (this rank's KV
+    heads), ``"seq"`` (positions ``[rank * n, (rank + 1) * n)`` of the
+    cache's ``n * size``) or ``"hd"`` (a slice of every head's width; the
+    int8 scales whole)."""
+
+    dim: str
+    group: object
 
 
 # ==========================================================================
@@ -179,10 +203,70 @@ def _kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 def _cache_write(cache: dict, rows: dict, idx: int) -> None:
     """``cache[name][:, idx:idx + S] = rows[name]`` in the cache's dtype,
-    in place."""
+    in place.  A cache placed by sequence takes only the rows it owns, at
+    their local offsets; one placed by head width its slice of the k and
+    v rows."""
+    shard = cache.get(KV_SHARD)
     for name, x in rows.items():
         c = cache[name]
-        c[:, idx:idx + x.shape[1]] = x.to(c.dtype)
+        at = idx
+        if shard is not None and shard.dim == "seq":
+            n = c.shape[1]
+            lo, hi = max(idx, shard.group.rank * n), min(
+                idx + x.shape[1], (shard.group.rank + 1) * n)
+            if lo >= hi:
+                continue
+            x, at = x[:, lo - idx:hi - idx], lo - shard.group.rank * n
+        elif shard is not None:  # rows of every head, or the whole width
+            for d in range(2, x.dim()):
+                if x.shape[d] != c.shape[d]:
+                    x = parallel.local_slice(x, d, shard.group)
+        c[:, at:at + x.shape[1]] = x.to(c.dtype)
+
+
+def _decode_seq(q, ck, cv, shard: KVShard, cache_len):
+    """One query per row over a cache placed by sequence: this rank's
+    softmax statistics over its positions, combined over the model axis
+    (the maximum, then the rescaled sums and outputs).  q: [B,1,KV,G,D];
+    ck, cv: this rank's [B,n,KV,D] rows.  Returns [B,1,KV,G,D]."""
+    import torch.distributed as dist
+
+    g = shard.group
+    n = ck.shape[1]
+    kv_pos = torch.arange(n, device=q.device) + g.rank * n
+    s = torch.einsum("bqkgd,bpkd->bkgqp", q.float(), ck.float())
+    s = s * (1.0 / math.sqrt(q.shape[-1]))
+    s = torch.where(kv_pos < cache_len, s, torch.full_like(s, NEG_INF))
+    m_loc = s.amax(dim=-1)
+    m = m_loc.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g.group)
+    p = torch.exp(s - m[..., None])
+    acc = torch.cat([torch.einsum("bkgqp,bpkd->bkgqd", p, cv.float()),
+                     p.sum(-1)[..., None]], dim=-1)
+    dist.all_reduce(acc, group=g.group)
+    out = acc[..., :-1] / acc[..., -1:]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def _decode_hd(q, ck, cv, shard: KVShard, cache_len):
+    """One query per row over a cache whose head width is split: the
+    scores' partial products summed over the model axis, the softmax, and
+    each rank's slice of the output gathered.  q: [B,1,KV,G,D] whole;
+    ck, cv: [B,Skv,KV,D/M].  Returns [B,1,KV,G,D]."""
+    import torch.distributed as dist
+
+    g = shard.group
+    qs = parallel.local_slice(q, 4, g)
+    s = torch.einsum("bqkgd,bpkd->bkgqp", qs.float(), ck.float())
+    dist.all_reduce(s, group=g.group)
+    s = s * (1.0 / math.sqrt(q.shape[-1]))
+    kv_pos = torch.arange(ck.shape[1], device=q.device)
+    s = torch.where(kv_pos < cache_len, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqp,bpkd->bqkgd", w, cv.float()).contiguous()
+    parts = [torch.empty_like(out) for _ in range(g.size)]
+    dist.all_gather(parts, out, group=g.group)
+    return torch.cat(parts, dim=-1).to(q.dtype)
 
 
 # ==========================================================================
@@ -206,12 +290,17 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     check_supported(cfg)
     B, S, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = h // kvh
     cd = cfg.compute_dtype
+    g = parallel.attention_group(cfg)  # this rank's heads only
+    if g is not None:
+        x = parallel.copy_to(x, g)
 
-    q = dense_apply(p.wq, x, cd).reshape(B, S, kvh, G, hd)
-    k = dense_apply(p.wk, x, cd).reshape(B, S, kvh, hd)
-    v = dense_apply(p.wv, x, cd).reshape(B, S, kvh, hd)
+    q = dense_apply(p.wq, x, cd)
+    k = dense_apply(p.wk, x, cd)
+    v = dense_apply(p.wv, x, cd)
+    q = q.reshape(B, S, q.shape[-1] // hd, hd)
+    k = k.reshape(B, S, k.shape[-1] // hd, hd)
+    v = v.reshape(B, S, k.shape[2], hd)
     if cfg.qk_norm:
         q = norm_apply("rmsnorm", p.q_norm, q)
         k = norm_apply("rmsnorm", p.k_norm, k)
@@ -220,18 +309,19 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
         positions = torch.arange(S, device=x.device)
         if cache_index is not None:
             positions = positions + int(cache_index)
-    q = apply_rope(q.reshape(B, S, kvh * G, hd), positions, cfg.rope_theta)
-    q = q.reshape(B, S, kvh, G, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
     rep = cfg.kv_repeat
     if rep > 1:  # vLLM-style KV-head replication so TP divides the KV axis
-        assert G % rep == 0, (G, rep)
+        assert (h // kvh) % rep == 0, (h // kvh, rep)
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
-        q = q.reshape(B, S, kvh, rep, G // rep, hd).reshape(
-            B, S, kvh * rep, G // rep, hd)
-        kvh, G = kvh * rep, G // rep
+    k_all, v_all = k, v  # every effective KV head, where this rank has them
+    if g is not None and k.shape[2] == kvh * rep:
+        k, v = parallel.local_slice(k, 2, g), parallel.local_slice(v, 2, g)
+    # query head e * G' + j reads effective KV head e
+    q = q.reshape(B, S, k.shape[2], q.shape[2] // k.shape[2], hd)
 
     if kv_cache is None:
         out = grouped_attention(q, k, v, causal=causal, q_pos=positions,
@@ -239,35 +329,57 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     else:
         idx = int(cache_index)
+        shard = kv_cache.get(KV_SHARD)
         if "k_scale" in kv_cache:  # int8 rows + bf16 per-row scales
-            kq, ks = _kv_quant(k)
-            vq, vs = _kv_quant(v)
+            kq, ks = _kv_quant(k_all)
+            vq, vs = _kv_quant(v_all)
             _cache_write(kv_cache, {"k": kq, "v": vq, "k_scale": ks,
                                     "v_scale": vs}, idx)
 
             def rows(n: int):
-                return tuple(_kv_dequant(kv_cache[c][:, :n],
-                                         kv_cache[f"{c}_scale"][:, :n],
-                                         k.dtype) for c in ("k", "v"))
+                out = []
+                for c in ("k", "v"):
+                    codes = kv_cache[c][:, :n]
+                    scale = kv_cache[f"{c}_scale"][:, :n]
+                    if scale.shape[2] != codes.shape[2]:  # scales whole
+                        scale = parallel.local_slice(scale, 2, shard.group)
+                    out.append(_kv_dequant(codes, scale, k.dtype))
+                return tuple(out)
+
+            def prompt_rows():
+                return (_kv_dequant(kq, ks, k.dtype),
+                        _kv_dequant(vq, vs, k.dtype))
         else:
             _cache_write(kv_cache, {"k": k, "v": v}, idx)
 
             def rows(n: int):
                 return kv_cache["k"][:, :n], kv_cache["v"][:, :n]
+
+            def prompt_rows():
+                return k, v
         if S == 1:  # decode: the naive path over the cache, as the reference
             ck, cv = rows(kv_cache["k"].shape[1])
-            kv_pos = torch.arange(ck.shape[1], device=x.device)
-            out = grouped_attention(q, ck, cv, causal=False, q_pos=positions,
-                                    kv_pos=kv_pos, impl=cfg.attention_impl,
-                                    kv_len=cache_len)
+            if shard is not None and shard.dim == "seq":
+                out = _decode_seq(q, ck, cv, shard, cache_len)
+            elif shard is not None and shard.dim == "hd":
+                out = _decode_hd(q, ck, cv, shard, cache_len)
+            else:
+                kv_pos = torch.arange(ck.shape[1], device=x.device)
+                out = grouped_attention(q, ck, cv, causal=False,
+                                        q_pos=positions, kv_pos=kv_pos,
+                                        impl=cfg.attention_impl,
+                                        kv_len=cache_len)
         elif idx == 0:
             # Prefill from an empty cache.  The reference attends over the
             # whole max_len cache with a causal mask and kv_len = S; every
             # key at a position >= S is masked there by both, so that is
             # causal attention over the cache's first S rows (the prompt's
             # k and v as just written, dequantised from an int8 cache),
-            # which is what the kernel takes.
-            ck, cv = rows(S)
+            # which is what the kernel takes.  A cache placed by sequence
+            # or head width holds only a part of them; every rank computed
+            # them all, and attends over them as they were written.
+            whole = shard is not None and shard.dim in ("seq", "hd")
+            ck, cv = prompt_rows() if whole else rows(S)
             out = grouped_attention(q, ck, cv, causal=True, q_pos=positions,
                                     kv_pos=positions, impl=cfg.attention_impl,
                                     q_chunk=cfg.q_chunk,
@@ -277,8 +389,11 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
                 "prefill at cache_index > 0 (a chunked prefill) has no "
                 "caller in the reference and is not ported")
 
-    out = out.reshape(B, S, h * hd)
-    return dense_apply(p.wo, out, cd), kv_cache
+    out = out.reshape(B, S, -1)
+    out = dense_apply(p.wo, out, cd)
+    if g is not None:  # the heads' partial outputs
+        out = parallel.reduce_from(out, g)
+    return out, kv_cache
 
 
 # ==========================================================================

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import parallel
 from repro_torch.models.attention import (Attention, MLAAttention,
                                           attention_apply, grouped_attention,
                                           mla_apply)
@@ -100,7 +101,8 @@ def block_apply(p: Block, h: torch.Tensor, cfg: ArchConfig, kind: str, *,
     if kind == "moe":
         f = moe_apply(p.moe, hn, cfg)
     else:
-        f = mlp_apply(p.mlp, hn, cfg.compute_dtype)
+        f = mlp_apply(p.mlp, hn, cfg.compute_dtype,
+                      tp=parallel.mlp_group(cfg.d_ff))
     return h + f, cache
 
 

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed import parallel
 
 def torch_dtype(name) -> torch.dtype:
     """The torch dtype of a config's dtype name (or the dtype itself)."""
@@ -167,11 +168,19 @@ class MLP(nn.Module):
         self.down = Dense(d_ff, d_model, **kw)
 
 
-def mlp_apply(p: MLP, x: torch.Tensor, compute_dtype="bfloat16"):
+def mlp_apply(p: MLP, x: torch.Tensor, compute_dtype="bfloat16", *,
+              tp=None):
+    """The SwiGLU MLP.  With ``tp`` (a ``parallel.Group``: the mesh's
+    ``ff`` axis, ``parallel.mlp_group``) ``p`` holds this rank's
+    ``gate``/``up`` columns and ``down`` rows (``parallel.local_params``)
+    and the partial outputs are summed over the axis."""
+    if tp is not None:
+        x = parallel.copy_to(x, tp)
     g = dense_apply(p.gate, x, compute_dtype)
     u = dense_apply(p.up, x, compute_dtype)
     h = torch.nn.functional.silu(g) * u
-    return dense_apply(p.down, h, compute_dtype)
+    out = dense_apply(p.down, h, compute_dtype)
+    return parallel.reduce_from(out, tp) if tp is not None else out
 
 
 # --------------------------------------------------------------------------

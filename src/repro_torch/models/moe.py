@@ -1,12 +1,22 @@
 """Mixture-of-Experts FFN with top-k routing and capacity-bounded dispatch.
 
-Counterpart of the reference's ``models/moe.py``, its ``local`` schedule:
-one device holds every expert and runs the whole dispatch.  The
-reference's ``tp_psum`` schedule (``_moe_tp_psum``: experts sharded over
-a mesh axis with ``shard_map``, partial outputs summed with ``psum``) has
-no meaning on one card; it comes with sharding (ROADMAP, queue 1 item 9).
-``moe_ffn_local`` keeps its ``expert_slice`` argument, so a caller can
-compute one shard's partial output, as the reference's ``shard_fn`` does.
+Counterpart of the reference's ``models/moe.py``, with both of its
+schedules, chosen by ``moe_apply`` on the reference's conditions:
+
+- ``local``: one device holds every expert and runs the whole dispatch;
+- ``tp_psum`` (``_moe_tp_psum``), under a mesh whose experts' axis
+  (``parallel.moe_group``) has size M > 1 dividing the routed experts:
+  every rank of that axis routes all of its tokens (its rows of the
+  batch, so the capacity comes from all of them, as in the reference's
+  ``shard_fn``), computes the partial output of its ``E / M`` experts
+  (``moe_ffn_local(..., expert_slice=(rank * E / M, E / M))``), and the
+  partial outputs are summed over the axis (``all_reduce``; its gradient
+  passes through, and the tokens' gradient is summed on the way in).
+  The partial outputs stay in f32 through the sum, which is rounded to
+  the compute dtype once, where the local schedule rounds; the
+  reference rounds each partial output before its ``psum``, so in bf16
+  its two schedules differ by that rounding and the port's do not.
+
 The reference's ``_aux_load_balance_loss`` has no caller there and is not
 ported.
 
@@ -35,6 +45,7 @@ card.
 from __future__ import annotations
 
 import math
+import types
 from typing import Optional
 
 import numpy as np
@@ -42,6 +53,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.distributed import parallel
 from repro_torch.models.layers import (MLP, Dense, _normal, dense_apply,
                                        mlp_apply, torch_dtype)
 
@@ -173,19 +185,20 @@ def combine(out_buf: torch.Tensor, plan: dict, cd: torch.dtype
 # Local (per-shard) dispatch + expert compute
 # --------------------------------------------------------------------------
 def moe_ffn_local(p, x: torch.Tensor, cfg: ArchConfig, *,
-                  expert_slice: Optional[tuple[int, int]] = None
-                  ) -> torch.Tensor:
+                  expert_slice: Optional[tuple[int, int]] = None,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: [T, d] tokens.  Computes the routed-expert output.
 
     ``expert_slice=(start, count)``: only experts in [start, start+count)
     are computed (partial outputs of the shards sum to the whole).  The
     expert weights of ``p`` are then the *local* slice, as in the
-    reference; the router stays whole."""
+    reference; the router stays whole.  The output is in ``out_dtype``
+    (the compute dtype unless given: a partial output kept in f32)."""
     cd = torch_dtype(cfg.compute_dtype)
     logits = dense_apply(p.router, x, torch.float32)  # router in fp32
     plan = route(logits, cfg, expert_slice=expert_slice)
     out_buf = experts_apply(p, dispatch(x, plan, cd), cd)
-    return combine(out_buf, plan, cd)
+    return combine(out_buf, plan, out_dtype or cd)
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -193,7 +206,34 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     experts."""
     m: MoEConfig = cfg.moe
     B, S, d = x.shape
-    out = moe_ffn_local(p, x.reshape(B * S, d), cfg).reshape(B, S, d)
+    xt = x.reshape(B * S, d)
+    g = parallel.moe_group(cfg)
+    if g is not None:
+        out = _moe_tp_psum(p, xt, cfg, g)
+    else:
+        out = moe_ffn_local(p, xt, cfg)
+    out = out.reshape(B, S, d)
     if m.n_shared:
-        out = out + mlp_apply(p.shared, x, cfg.compute_dtype)
+        out = out + mlp_apply(p.shared, x, cfg.compute_dtype,
+                              tp=parallel.mlp_group(m.d_shared_ff
+                                                    * m.n_shared))
     return out
+
+
+def _moe_tp_psum(p: MoE, xt: torch.Tensor, cfg: ArchConfig,
+                 g: parallel.Group) -> torch.Tensor:
+    """This rank's experts over all of its tokens, the partial outputs
+    summed over the experts' axis ``g``.  ``p``'s expert weights are this
+    rank's ``E / M`` (``parallel.local_params``), or all E on every rank
+    (a layer built without ``shard_model``), of which it takes its own."""
+    m: MoEConfig = cfg.moe
+    e_per = m.n_routed // g.size
+    experts = {n: getattr(p, n) for n in ("w_gate", "w_up", "w_down")}
+    if experts["w_gate"].shape[0] == m.n_routed:
+        experts = {n: parallel.local_slice(w, 0, g)
+                   for n, w in experts.items()}
+    local = types.SimpleNamespace(router=p.router, **experts)
+    out = moe_ffn_local(local, parallel.copy_to(xt, g), cfg,
+                        expert_slice=(g.rank * e_per, e_per),
+                        out_dtype=torch.float32)
+    return parallel.reduce_from(out, g).to(torch_dtype(cfg.compute_dtype))

@@ -35,6 +35,16 @@ per-row scales "k_scale", "v_scale" (or "c_kv_scale"), {"layers":
 {"k", "v"}} stacked over its call sites.  Each layer writes its slice in
 place.
 
+On a mesh (``ctx.use_sharding(rules, mesh)`` with ``mesh`` built by
+``launch.mesh.init_mesh``, the parameters made DTensors by
+``distributed.sharding.shard_model``) these functions take this rank's
+rows of the batch, each layer computes with its parameters' local tensors
+(``parallel.local_params``: gathered, or this rank's heads, ``d_ff``
+columns or experts), a DTensor cache is read and written through its
+local blocks, and ``loss_fn`` returns the loss of the whole batch (summed
+over the batch axes, its chunk count the reference's for the mesh's
+chips).  The logits a decode step returns are this rank's rows.
+
 The encoder-decoder family has ``enc_layers`` (run unmasked over the
 frame embeddings, positions ``arange(Se)``), ``enc_norm`` and
 ``dec_layers`` (causal self-attention, then cross-attention over the
@@ -48,6 +58,7 @@ positions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional, Union
@@ -57,9 +68,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import parallel
+from repro_torch.distributed.ctx import (current_mesh, current_rules,
+                                         use_sharding)
 from repro_torch.kernels.decode.ops import resolve_device
-from repro_torch.models.attention import (Attention, attention_apply,
-                                          check_supported)
+from repro_torch.models.attention import (KV_SHARD, Attention, KVShard,
+                                          attention_apply, check_supported)
 from repro_torch.models.blocks import SSM_KINDS, block_apply, init_block
 from repro_torch.models.layers import (MLP, Dense, Embedding, Norm,
                                        dense_apply, embedding_apply, gelu,
@@ -275,13 +289,16 @@ def _run_layers(params: Model, cfg: ArchConfig, h, *, positions,
         for i, layer in enumerate(stack):
             if remat:
                 h = checkpoint(_layer, layer, h, scfg, kind, positions,
-                               enc_out, use_reentrant=False)
+                               enc_out, True, _sharding(),
+                               use_reentrant=False)
             else:
                 cache = _cache_slice(caches, key, i)
-                h, new = block_apply(layer, h, scfg, kind,
-                                     positions=positions, cache=cache,
-                                     cache_index=cache_index,
-                                     cache_len=cache_len, enc_out=enc_out)
+                with _layer_params(layer, scfg):
+                    h, new = block_apply(layer, h, scfg, kind,
+                                         positions=positions, cache=cache,
+                                         cache_index=cache_index,
+                                         cache_len=cache_len,
+                                         enc_out=enc_out)
                 if cache is not None and kind in SSM_KINDS:
                     for n, t in new.items():  # the new state, in place
                         cache[n].copy_(t)
@@ -296,16 +313,67 @@ def _run_layers(params: Model, cfg: ArchConfig, h, *, positions,
 
 def _cache_slice(caches, key: str, i: int):
     """Entry ``i`` of each stacked tensor of ``caches[key]`` (views), or
-    None without caches."""
+    None without caches.  Of a DTensor cache the views are of this rank's
+    block, and an attention cache split over a mesh axis says how under
+    :data:`KV_SHARD`."""
     if caches is None:
         return None
-    return {n: c[i] for n, c in caches[key].items()}
+    out = {n: parallel.local_tensor(c)[i] for n, c in caches[key].items()}
+    shard = _kv_shard(caches[key].get("k"))
+    if shard is not None:
+        out[KV_SHARD] = shard
+    return out
+
+
+def _kv_shard(k) -> Optional[KVShard]:
+    """The placement over the model axis of a stacked DTensor k cache
+    [L, B, S, KV, D] (``sharding.cache_pspec``): by sequence, KV heads or
+    head width; None for a cache whole on every rank of that axis."""
+    from torch.distributed.tensor import Shard
+
+    if not parallel.is_dtensor(k):
+        return None
+    names = k.device_mesh.mesh_dim_names
+    for axis, pl in zip(names, k.placements):
+        g = parallel.axis_group(axis)
+        if g is not None and isinstance(pl, Shard) and pl.dim >= 2:
+            return KVShard({2: "seq", 3: "heads", 4: "hd"}[pl.dim], g)
+    return None
+
+
+def _layer_params(layer, cfg: ArchConfig):
+    """``parallel.local_params`` of one layer under a mesh; nothing
+    without one."""
+    if current_mesh() is None:
+        return contextlib.nullcontext()
+    return parallel.local_params(layer, cfg)
+
+
+def _top_params(params):
+    """The parameters outside the layer stacks, swapped for their local
+    tensors under a mesh (the layers are swapped one at a time)."""
+    if current_mesh() is None:
+        return contextlib.nullcontext()
+    return parallel.local_params(params, skip=(
+        "layers", "dense_layers", "enc_layers", "dec_layers"))
+
+
+def _sharding() -> Optional[tuple]:
+    """The installed ``(rules, mesh)``, or None: a checkpointed layer
+    takes it along, since its recomputation runs in the backward, which
+    autograd may run on another thread (a CUDA device's), where the
+    thread-local context is not installed."""
+    mesh = current_mesh()
+    return None if mesh is None else (current_rules(), mesh)
 
 
 def _layer(layer, h, cfg: ArchConfig, kind: str, positions, enc_out=None,
-           causal: bool = True):
-    return block_apply(layer, h, cfg, kind, positions=positions,
-                       enc_out=enc_out, causal=causal)[0]
+           causal: bool = True, sharding: Optional[tuple] = None):
+    scope = (contextlib.nullcontext() if sharding is None
+             else use_sharding(*sharding))
+    with scope, _layer_params(layer, cfg):
+        return block_apply(layer, h, cfg, kind, positions=positions,
+                           enc_out=enc_out, causal=causal)[0]
 
 
 def encode_frames(params: Model, cfg: ArchConfig, frames: torch.Tensor, *,
@@ -319,11 +387,11 @@ def encode_frames(params: Model, cfg: ArchConfig, frames: torch.Tensor, *,
     for layer in params.enc_layers:
         if remat:
             h = checkpoint(_layer, layer, h, cfg, "enc", positions, None,
-                           False, use_reentrant=False)
+                           False, _sharding(), use_reentrant=False)
         else:
-            h = block_apply(layer, h, cfg, "enc", positions=positions,
-                            causal=False)[0]
-    return norm_apply(cfg.norm, params.enc_norm, h)
+            h = _layer(layer, h, cfg, "enc", positions, None, False)
+    with _top_params(params):
+        return norm_apply(cfg.norm, params.enc_norm, h)
 
 
 def forward(params: Model, cfg: ArchConfig, batch: dict, *,
@@ -333,11 +401,12 @@ def forward(params: Model, cfg: ArchConfig, batch: dict, *,
     encoder-decoder the decoder's over ``batch["frames"]`` encoded."""
     enc_out = (encode_frames(params, cfg, batch["frames"], remat=remat)
                if cfg.is_encdec else None)
-    h = _embed_inputs(params, cfg, batch)
-    positions = torch.arange(h.shape[1], device=h.device)
-    h = _run_layers(params, cfg, h, positions=positions, enc_out=enc_out,
-                    remat=remat)
-    return norm_apply(cfg.norm, params.final_norm, h)
+    with _top_params(params):
+        h = _embed_inputs(params, cfg, batch)
+        positions = torch.arange(h.shape[1], device=h.device)
+        h = _run_layers(params, cfg, h, positions=positions, enc_out=enc_out,
+                        remat=remat)
+        return norm_apply(cfg.norm, params.final_norm, h)
 
 
 # ==========================================================================
@@ -349,8 +418,9 @@ LOGITS_BUDGET = 256e6
 
 def loss_chunks(batch: int, seq: int, vocab: int, chips: float = 1.0) -> int:
     """The reference's chunk count: the f32 logits of the whole batch over
-    a 256e6-byte budget, rounded up to a power of two below S, then halved
-    until it divides S.  The port runs on one device (``chips`` 1)."""
+    a 256e6-byte budget per chip (``chips`` the mesh's size, 1 on one
+    device), rounded up to a power of two below S, then halved until it
+    divides S."""
     logits_bytes = batch * seq * vocab * 4.0 / chips
     want = max(1, int(-(-logits_bytes // LOGITS_BUDGET)))
     n_chunk = 1
@@ -378,24 +448,31 @@ def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
     (:func:`loss_chunks`), each under ``checkpoint``, so the backward
     holds one chunk's [B, S/n, V] f32 logits at a time; the reference
     sums its chunks in a ``lax.scan``.  With tied embeddings the table
-    takes its gradient from both uses."""
+    takes its gradient from both uses.  On a mesh ``batch`` is this
+    rank's rows and the loss is the whole batch's: each rank's sum over
+    its tokens, divided by all of them, summed over the batch axes."""
     h = forward(params, cfg, batch, remat=remat)
     targets = batch["targets"]
     if cfg.frontend == "patch":  # image tokens carry no LM loss
         h = h[:, h.shape[1] - targets.shape[1]:]
     B, S, _ = h.shape
     cd = torch_dtype(cfg.compute_dtype)
-    w = (params.embed.table.T if cfg.tie_embeddings
-         else params.lm_head.w).to(cd)  # [d, vocab]
-    n_chunk = loss_chunks(B, S, cfg.vocab)
+    mesh, dp = current_mesh(), parallel.batch_groups()
+    chips = 1.0 if mesh is None else float(mesh.size)
+    for g in dp:  # this rank's rows of the batch
+        B *= g.size
+    n_chunk = loss_chunks(B, S, cfg.vocab, chips)
     s_chunk = S // n_chunk
     acc = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(n_chunk):
-        cut = slice(i * s_chunk, (i + 1) * s_chunk)
-        acc = acc + checkpoint(_chunk_loss, h[:, cut], targets[:, cut], w,
-                               cd, use_reentrant=False)
+    with _top_params(params):
+        w = (params.embed.table.T if cfg.tie_embeddings
+             else params.lm_head.w).to(cd)  # [d, vocab]
+        for i in range(n_chunk):
+            cut = slice(i * s_chunk, (i + 1) * s_chunk)
+            acc = acc + checkpoint(_chunk_loss, h[:, cut], targets[:, cut],
+                                   w, cd, use_reentrant=False)
     T = B * S
-    loss = acc / T
+    loss = parallel.reduce_from(acc / T, *dp)
     return loss, {"loss": loss,
                   "tokens": torch.tensor(float(T), device=h.device)}
 
@@ -502,15 +579,17 @@ def decode_step(params: Model, cfg: ArchConfig, batch: dict, caches: dict,
     idx = int(cache_index)
     if cfg.is_encdec and enc_out is None:
         enc_out = batch["enc_out"].to(torch_dtype(cfg.compute_dtype))
-    h = _embed_inputs(params, cfg, batch)
-    S_in = h.shape[1]
-    positions = torch.arange(S_in, device=h.device) + idx
-    h = _run_layers(params, cfg, h, positions=positions, caches=caches,
-                    cache_index=idx, cache_len=idx + S_in, enc_out=enc_out)
-    h = norm_apply(cfg.norm, params.final_norm, h)
-    if S_in > 1:  # prefill: only the last position's logits are needed
-        h = h[:, -1:]
-    return logits_fn(params, cfg, h), caches
+    with _top_params(params):
+        h = _embed_inputs(params, cfg, batch)
+        S_in = h.shape[1]
+        positions = torch.arange(S_in, device=h.device) + idx
+        h = _run_layers(params, cfg, h, positions=positions, caches=caches,
+                        cache_index=idx, cache_len=idx + S_in,
+                        enc_out=enc_out)
+        h = norm_apply(cfg.norm, params.final_norm, h)
+        if S_in > 1:  # prefill: only the last position's logits are needed
+            h = h[:, -1:]
+        return logits_fn(params, cfg, h), caches
 
 
 # ==========================================================================

@@ -18,6 +18,13 @@ the reference.  The VLM family: a prefill's batch may lead with
 cache positions, so the decode index that follows it is n_img + the
 prompt's length; ``greedy_generate`` takes text prompts only, as the
 reference's.
+
+Under a mesh (``ctx.use_sharding(rules, mesh)``, the model's parameters
+placed by ``sharding.shard_model(..., mode="serve")``) the two steps take
+the whole batch and return every row's logits: each rank runs its rows
+(``parallel.batch_rows``), its caches are DTensors placed by
+``sharding.cache_pspec`` (``shard_cache``), and the logits are gathered
+over the batch axes.
 """
 from __future__ import annotations
 
@@ -27,6 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import parallel
+from repro_torch.distributed.ctx import current_mesh
+from repro_torch.distributed.sharding import shard_cache
 from repro_torch.models import zoo
 
 
@@ -57,12 +67,22 @@ def _floats(x, device: torch.device) -> torch.Tensor:
 
 def _inputs(batch: dict, device: torch.device) -> dict:
     """``tokens`` and, where given, ``patch_embeds`` and ``enc_out`` of
-    ``batch`` on ``device``."""
+    ``batch`` on ``device`` (this rank's rows under a mesh)."""
     out = {"tokens": _tokens(batch["tokens"], device)}
     for name in ("patch_embeds", "enc_out"):
         if name in batch:
             out[name] = _floats(batch[name], device)
-    return out
+    return {k: parallel.batch_rows(v) for k, v in out.items()}
+
+
+def _caches(cfg: ArchConfig, batch: int, max_len: int, dev) -> dict:
+    """Zeroed decode caches for ``batch`` rows: DTensors placed by
+    ``cache_pspec`` under a built mesh."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.device_mesh is not None:
+        return shard_cache(zoo.init_cache_specs(cfg, batch, max_len), cfg,
+                           mesh)
+    return zoo.init_cache(cfg, batch, max_len, device=dev)
 
 
 def make_prefill_step(cfg: ArchConfig, max_len: int, *, device="cuda"):
@@ -75,14 +95,15 @@ def make_prefill_step(cfg: ArchConfig, max_len: int, *, device="cuda"):
     def prefill(params, batch):
         dev = check_device(params, device)
         inputs = _inputs(batch, dev)
-        caches = zoo.init_cache(cfg, inputs["tokens"].shape[0], max_len,
-                                device=dev)
+        caches = _caches(cfg, len(batch["tokens"]), max_len, dev)
         enc_out = None
         if cfg.is_encdec:
-            enc_out = zoo.encode_frames(params, cfg,
-                                        _floats(batch["frames"], dev))
-        return zoo.decode_step(params, cfg, inputs, caches, cache_index=0,
-                               enc_out=enc_out)
+            enc_out = zoo.encode_frames(
+                params, cfg,
+                parallel.batch_rows(_floats(batch["frames"], dev)))
+        logits, caches = zoo.decode_step(params, cfg, inputs, caches,
+                                         cache_index=0, enc_out=enc_out)
+        return parallel.gather_rows(logits), caches
 
     return prefill
 
@@ -95,8 +116,9 @@ def make_decode_step(cfg: ArchConfig, *, device="cuda"):
 
     def decode(params, caches, batch, index):
         dev = check_device(params, device)
-        return zoo.decode_step(params, cfg, _inputs(batch, dev), caches,
-                               cache_index=index)
+        logits, caches = zoo.decode_step(params, cfg, _inputs(batch, dev),
+                                         caches, cache_index=index)
+        return parallel.gather_rows(logits), caches
 
     return decode
 

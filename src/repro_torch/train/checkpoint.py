@@ -20,9 +20,18 @@ dtype in the manifest, and restored bit for bit.
 ``save_async`` copies every leaf to host memory before it returns (the
 port's training step updates its tensors in place, so a later copy would
 catch the next step's values) and writes in a worker thread.  ``restore``
-takes ``device=`` where the reference takes ``shardings=``: leaves go to
-that device, or to the target leaf's own; a module in the target receives
-the values in place.
+takes ``device=`` (leaves go to that device, or to the target leaf's
+own) and, as the reference, ``shardings=``: a tree of
+``distributed.sharding.NamedSharding`` matching the target, over any mesh,
+so a checkpoint saved on 8 ranks restores onto 4 (elastic reshard).  A
+module in the target receives the values in place.
+
+A ``DTensor`` leaf (a sharded model or optimizer state) is gathered whole
+for the save, on every rank of its mesh (a collective), and only rank 0
+of the world writes; ``save`` returns once the write is visible to every
+rank.  A ``DTensor`` target leaf is restored with its own placements
+unless ``shardings`` names others; each rank keeps its block of the
+saved array.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed.parallel import is_dtensor
 from repro_torch.utils.tree import children, flatten_names
 
 
@@ -53,10 +63,27 @@ def _dtype_name(leaf: Any) -> str:
     return str(np.asarray(leaf).dtype)
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the world, or the process
+    itself outside one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _to_host(leaf: Any) -> np.ndarray:
     """A host copy of ``leaf`` that later in-place updates cannot reach;
-    bf16 as its int16 bit pattern."""
+    bf16 as its int16 bit pattern; a DTensor gathered whole."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -64,12 +91,23 @@ def _to_host(leaf: Any) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
-def _from_host(arr: np.ndarray, dtype: str, like: Any, device) -> Any:
+def _from_host(arr: np.ndarray, dtype: str, like: Any, device,
+               sharding=None) -> Any:
     if not isinstance(like, torch.Tensor):
         return arr
     t = torch.from_numpy(np.array(arr))
     if dtype == "bfloat16":
         t = t.view(torch.bfloat16)
+    if sharding is None and is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(t.to(like.device), like.device_mesh,
+                                 like.placements, src_data_rank=None)
+    if sharding is not None:
+        dm = sharding.mesh.device_mesh
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dm.device_type == "cuda" else torch.device("cpu"))
+        return sharding.distribute(t.to(dev))
     return t.to(device if device is not None else like.device)
 
 
@@ -112,13 +150,19 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, *, extra: Optional[dict] = None,
              leaves_per_shard: int = 64) -> pathlib.Path:
         host = self._host(tree)
-        return self._write(step, host, extra or {}, leaves_per_shard)
+        final = self.root / f"step_{step:09d}"
+        if _writer():
+            final = self._write(step, host, extra or {}, leaves_per_shard)
+        _barrier()
+        return final
 
     def save_async(self, step: int, tree: Any, *, extra: Optional[dict] = None
                    ) -> None:
         """Snapshot to host memory synchronously, write in a worker thread."""
         self.wait()
         host = self._host(tree)
+        if not _writer():
+            return
 
         def work():
             try:
@@ -218,11 +262,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, target_tree: Any, *, step: Optional[int] = None,
-                device=None) -> tuple[Any, dict]:
+                device=None, shardings=None) -> tuple[Any, dict]:
         """Restore into the structure of ``target_tree``; tensor leaves go
         to ``device`` (default: each target leaf's device) with the saved
         dtype, so a checkpoint written on one device restores onto
-        another."""
+        another.  ``shardings`` (a tree like the target's, of
+        ``NamedSharding``) makes each leaf a DTensor over its mesh."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.root}")
@@ -231,6 +276,8 @@ class CheckpointManager:
         if manifest["fingerprint"] != _tree_structure_fingerprint(target_tree):
             raise ValueError("checkpoint tree structure mismatch")
         cache: dict[int, Any] = {}
+        placed = dict(flatten_names(shardings)) if shardings is not None \
+            else {}
 
         leaves = []
         for name, leaf in flatten_names(target_tree):
@@ -241,5 +288,6 @@ class CheckpointManager:
             arr = cache[shard][info["key"]]
             if list(arr.shape) != list(leaf.shape):
                 raise ValueError(f"shape mismatch for {name}")
-            leaves.append(_from_host(arr, info["dtype"], leaf, device))
+            leaves.append(_from_host(arr, info["dtype"], leaf, device,
+                                     placed.get(name)))
         return _unflatten(target_tree, leaves, device), manifest["extra"]

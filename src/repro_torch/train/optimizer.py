@@ -10,6 +10,13 @@ state is ``{"m", "v", "step"[, "master"]}``.
 The reference's arrays are immutable and its update returns new ones.
 Here the update writes in place: the params (so the model's own
 parameters move), and the moments and the master copy in the state.
+
+Sharded parameters (``DTensor``, ``distributed.sharding.shard_model``)
+give sharded moments and master copy, placed as the parameters are.  The
+update is elementwise, so each rank updates its local blocks; only the
+gradient norm spans the mesh: each leaf's local sum of squares, divided
+by the number of ranks that hold the same block, summed over every mesh
+axis, so every rank clips by the norm of the whole gradient.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.parallel import is_dtensor, local_tensor
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -39,7 +47,7 @@ def init_opt_state(params: dict, *, master: Optional[bool] = None) -> dict:
     update math stays fp32."""
     if master is None:
         master = any(p.dtype != torch.float32 for p in params.values())
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in params.items()}
     device = next(iter(params.values())).device
     state = {
@@ -65,10 +73,28 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """sqrt of the sum of squares of every leaf, in f32.  A ``DTensor``
+    leaf counts its local block once over the ranks that hold it, and the
+    sum runs over every axis of its mesh."""
+    from torch.distributed.tensor import Replicate
+
+    leaves, mesh = [], None
+    for x in tree.values():
+        sq = torch.sum(torch.square(local_tensor(x).to(torch.float32)))
+        if is_dtensor(x):
+            mesh = x.device_mesh
+            for i, pl in enumerate(x.placements):
+                if isinstance(pl, Replicate) and mesh.size(i) > 1:
+                    sq = sq / mesh.size(i)
+        leaves.append(sq)
+    total = torch.sum(torch.stack(leaves))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        for i in range(mesh.ndim):
+            if mesh.size(i) > 1:
+                dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -88,19 +114,21 @@ def adamw_update(grads: dict, opt_state: dict, params: dict,
                                      device=stepf.device), stepf)
 
     masters = opt_state.get("master", params)
-    for name, p in params.items():
-        w = masters[name]
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        g = grads[name].to(torch.float32) * scale
+    for name, param in params.items():
+        ndim = param.ndim  # of the whole leaf; the rest are local blocks
+        p, w = local_tensor(param), local_tensor(masters[name])
+        m = local_tensor(opt_state["m"][name])
+        v = local_tensor(opt_state["v"][name])
+        g = local_tensor(grads[name]).to(torch.float32) * scale
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)
         mh = m / bc1
         vh = v / bc2
         step_delta = mh / (torch.sqrt(vh) + cfg.eps)
-        if p.ndim >= 2:  # decay matrices only (norms/bias exempt)
+        if ndim >= 2:  # decay matrices only (norms/bias exempt)
             step_delta = step_delta + cfg.weight_decay * w.to(torch.float32)
         new_w = w.to(torch.float32) - lr * step_delta
-        if w is not p:
+        if masters is not params:
             w.copy_(new_w)
         p.copy_(new_w.to(p.dtype))
     opt_state["step"] = step

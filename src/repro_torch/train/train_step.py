@@ -7,6 +7,14 @@ the model, computes the gradients of its parameters with
 ``torch.autograd.grad`` and updates the model and the optimizer state in
 place (``train/optimizer.py``), returning them.  The microbatch loop is a
 Python loop where the reference scans.
+
+Under a mesh (``ctx.use_sharding(rules, mesh)``, the model's parameters
+``DTensor``s placed by ``sharding.shard_model`` in the mode
+``choose_policy`` picks) the step takes the whole batch, keeps this
+rank's rows (``parallel.batch_rows``), and its gradients come back
+placed as the parameters: FSDP's reduce-scatter over the batch axes, and
+``train`` mode's tensor parallelism over ``model``.  The loss it reports
+is the whole batch's.
 """
 from __future__ import annotations
 
@@ -15,13 +23,16 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import parallel
 from repro_torch.models import zoo
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 
 
 def _on(batch: dict, device: torch.device) -> dict:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """``batch`` on ``device``: this rank's rows of it under a mesh."""
+    return {k: parallel.batch_rows(torch.as_tensor(v).to(device))
+            for k, v in batch.items()}
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
@@ -43,10 +54,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
 
     def accumulated(model, params, batch):
         mb = next(iter(batch.values())).shape[0] // microbatches
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = {n: torch.zeros_like(p, dtype=torch.float32)
                for n, p in params.items()}
         loss_acc = torch.zeros((), dtype=torch.float32,
-                               device=next(iter(acc.values())).device)
+                               device=model.device)
         for i in range(microbatches):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, _, grads = grad_fn(model, params, micro)

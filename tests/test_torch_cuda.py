@@ -5,6 +5,7 @@ LM serving against the numpy oracles and the plain versions.  Marked
 ``cuda``; each test skips where no CUDA device is present.  This file
 imports no JAX, so it also runs where only the port is installed:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import contextlib
 import dataclasses
 import threading
 from unittest import mock
@@ -1898,3 +1899,152 @@ def test_flash_attention_fn_on_meta_has_the_cards_shapes(cuda, dims):
         grads = torch.autograd.grad(o.float().sum(), (q, k, v))
         out[str(dev)] = [(t.shape, t.dtype) for t in (o, *grads)]
     assert out["meta"] == out[str(cuda)]
+
+
+# ------------------------------------------------------------ distributed/
+RING_BLOCKS = 4
+
+
+def _ring_blocks(q, k, v, causal):
+    """``ring_step`` over ``RING_BLOCKS`` blocks of the sequence on one
+    device, each query block over the key blocks in the ring's order (its
+    own first, then the ones before it; those after it only when not
+    causal)."""
+    from repro_torch.distributed.ring_attention import ring_step
+
+    B, S, KV, G, D = q.shape
+    s = S // RING_BLOCKS
+    out = []
+    for i in range(RING_BLOCKS):
+        qh = q[:, i * s:(i + 1) * s].permute(0, 2, 3, 1, 4).reshape(
+            B, KV * G, s, D).contiguous()
+        carry = None
+        for hop in range(RING_BLOCKS):
+            j = (i - hop) % RING_BLOCKS
+            if causal and j > i:
+                continue
+            kb = k[:, j * s:(j + 1) * s].transpose(1, 2).contiguous()
+            vb = v[:, j * s:(j + 1) * s].transpose(1, 2).contiguous()
+            carry = ring_step(carry, qh, kb, vb, causal=causal and j == i)
+        out.append(carry[0].reshape(B, KV, G, s, D).permute(0, 3, 1, 2, 4))
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_step_blocks_match_plain_ring(cuda, dtype, causal):
+    from repro_torch.distributed.ring_attention import ring_attention_ref
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, S, KV, G, D = 2, 512, 3, 3, 64
+    q = torch.randn(B, S, KV, G, D, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, S, KV, D, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B, S, KV, D, device=cuda, generator=g).to(dtype)
+    before = flash_kernel.LAUNCHES.count
+    got = _ring_blocks(q, k, v, causal)
+    n = RING_BLOCKS * (RING_BLOCKS + 1) // 2 if causal else RING_BLOCKS ** 2
+    assert flash_kernel.LAUNCHES.count - before == n
+    want = ring_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() < 3e-5
+    else:  # each row within 2e-2 of its own largest |plain| value
+        err = (got - want).abs().amax(-1)
+        assert (err <= 2e-2 * want.abs().amax(-1)).all()
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_mesh
+
+    mesh = init_mesh((1, 1), "cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _sharded_copy(cfg, mode, mesh):
+    from repro_torch.distributed.sharding import shard_model
+
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda")
+    return shard_model(model, cfg, mesh, mode=mode)
+
+
+def test_nccl_1x1_train_step_equals_unsharded(nccl_mesh):
+    from repro_torch.configs.base import reduce_config
+    from repro_torch.distributed.ctx import dp_rules, use_sharding
+    from repro_torch.distributed.sharding import choose_policy
+
+    cfg = families.kernel_widths(reduce_config(get_config("smollm-135m")),
+                                 "bfloat16")
+    mode = choose_policy(cfg, nccl_mesh)
+    assert mode == "dp_train"
+    plain = init_model(cfg, torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda")
+    sharded = _sharded_copy(cfg, mode, nccl_mesh)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (4, 65))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    step = make_train_step(cfg, opt_cfg)
+    p_opt = init_opt_state(dict(plain.named_parameters()))
+    s_opt = init_opt_state(dict(sharded.named_parameters()))
+    for _ in range(2):
+        _, p_opt, pm = step(plain, p_opt, batch)
+        with use_sharding(dp_rules(nccl_mesh.axis_names), nccl_mesh):
+            _, s_opt, sm = step(sharded, s_opt, batch)
+        assert torch.equal(pm["loss"], sm["loss"])
+        assert torch.equal(pm["grad_norm"], sm["grad_norm"])
+    for (name, p), s in zip(plain.named_parameters(), sharded.parameters()):
+        assert torch.equal(p, s.to_local()), name
+
+
+@pytest.mark.parametrize("shard", ["heads", "seq"])
+def test_nccl_1x1_decode_equals_unsharded(nccl_mesh, shard):
+    from repro_torch.configs.base import reduce_config
+    from repro_torch.distributed.ctx import SERVE_RULES_1POD, use_sharding
+    from repro_torch.serve.serve_step import make_decode_step
+
+    cfg = dataclasses.replace(make_serve_config(families.kernel_widths(
+        reduce_config(get_config("smollm-135m")), "bfloat16"), 1),
+        kv_cache_shard=shard)
+    plain = init_model(cfg, torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda")
+    sharded = _sharded_copy(cfg, "serve", nccl_mesh)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (4, 16))
+    out = []
+    for model, scope in ((plain, contextlib.nullcontext()),
+                         (sharded, use_sharding(SERVE_RULES_1POD, nccl_mesh))):
+        prefill = make_prefill_step(cfg, 24)
+        decode = make_decode_step(cfg)
+        with torch.no_grad(), scope:
+            lg, caches = prefill(model, {"tokens": prompt})
+            logits = [lg]
+            for i in range(4):
+                tok = torch.argmax(lg[:, -1:], -1)
+                lg, caches = decode(model, caches, {"tokens": tok}, 16 + i)
+                logits.append(lg)
+        out.append(torch.cat(logits, dim=1))
+    assert torch.equal(out[0], out[1])
+
+
+def test_dtensor_never_reaches_a_kernel(nccl_mesh):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_lse_op, flash_attention_op)
+
+    q = torch.randn(1, 2, 64, 64, device="cuda")
+    dq = distribute_tensor(q, nccl_mesh.device_mesh,
+                           [Replicate(), Replicate()])
+    before = flash_kernel.LAUNCHES.count
+    for call in (flash_attention_op, flash_attention_lse_op):
+        with pytest.raises(TypeError, match="DTensor"):
+            call(dq, dq, dq, causal=True)
+    with pytest.raises(TypeError, match="DTensor"):
+        flash_kernel.FlashAttentionFn.apply(dq, dq, dq, True, False)
+    assert flash_kernel.LAUNCHES.count == before

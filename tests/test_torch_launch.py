@@ -3,8 +3,10 @@
 then ``--resume`` to 5 from its checkpoint, and the token-only families
 (MoE, SSM, hybrid, MLA) for 2 steps, then ``--resume`` to 3; ``python -m
 repro_torch.launch.serve`` (smollm, the SSM and hybrid families, and
-DeepSeek's MLA with and without ``--kv-quant``); the flags the port
-refuses (``--mesh``, ``--kv-shard seq``);
+DeepSeek's MLA with and without ``--kv-quant``); ``--mesh`` on one rank
+(1x1, the same tokens as without it, ``--kv-shard seq`` too) and on two
+ranks of a gloo world, and what it still refuses (a mesh that is not the
+world's size, a family past dense and MoE on a mesh past 1x1);
 ``--device cuda`` without a card (exit 1, "no CUDA device");
 ``examples/train_video_lm_torch.py`` through its simulated fault;
 ``examples/video_analytics_torch.py`` (the store feeding the reduced VLM)
@@ -139,15 +141,93 @@ def test_serve_runs_mla(quant):
 
 
 @pytest.mark.parametrize("args,names", [
-    (("-m", "repro_torch.launch.train", "--mesh", "2,2"), "queue 1 item 9"),
-    (("-m", "repro_torch.launch.serve", "--mesh", "2,2"), "queue 1 item 9"),
-    (("-m", "repro_torch.launch.serve", "--kv-shard", "seq"),
-     "queue 1 item 9"),
+    (("-m", "repro_torch.launch.train", "--mesh", "2,2"),
+     "mesh (2, 2) holds 4 ranks; the world has 1"),
+    (("-m", "repro_torch.launch.serve", "--mesh", "2,2"),
+     "mesh (2, 2) holds 4 ranks; the world has 1"),
+    (("-m", "repro_torch.launch.train", "--arch", "zamba2-1.2b", "--mesh",
+      "2,1"), "queue 1 item 9"),
 ])
 def test_refused_flags(args, names):
     out = _run(*args, "--device", "cpu")
     assert out.returncode == 2
-    assert names in out.stderr and "not ported" in out.stderr
+    assert names in out.stderr
+
+
+def _tokens_line(out) -> str:
+    assert out.returncode == 0, out.stderr
+    return [line for line in out.stdout.splitlines()
+            if line.startswith("tokens ")][-1]
+
+
+SERVE = ("-m", "repro_torch.launch.serve", "--reduced", "--device", "cpu",
+         "--batch", "2", "--prompt-len", "8", "--max-new", "4")
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("smollm-135m", ("--kv-shard", "seq")), ("qwen3-moe-30b-a3b", ())])
+def test_serve_on_a_one_rank_mesh(arch, extra):
+    plain = _run(*SERVE, "--arch", arch)
+    out = _run(*SERVE, "--arch", arch, "--mesh", "1,1", *extra)
+    assert "mesh {'data': 1, 'model': 1} on cpu" in out.stdout
+    assert _tokens_line(out) == _tokens_line(plain)
+
+
+def test_train_on_a_one_rank_mesh(tmp_path):
+    out = _run(*TRAIN, "--steps", "3", "--mesh", "1,1", "--checkpoint-dir",
+               str(tmp_path), "--checkpoint-every", "3")
+    assert out.returncode == 0, out.stderr
+    assert "policy dp_train" in out.stdout
+    assert "done: 3 steps, restarts=0" in out.stdout
+    assert (tmp_path / "LATEST").read_text() == "step_000000003"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(n: int, *args, timeout=240):
+    """``python *args`` as the n ranks of one world (the environment
+    ``torchrun`` gives its workers, on a free localhost port); their
+    results by rank."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    env.update(OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n))
+    procs = [subprocess.Popen([sys.executable, *args], cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              env={**env, "RANK": str(r),
+                                   "LOCAL_RANK": str(r)})
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    return [subprocess.CompletedProcess(p.args, p.returncode, o, e)
+            for p, (o, e) in zip(procs, outs)]
+
+
+@pytest.mark.parametrize("mesh,kw", [("2,1", ()), ("1,2", ("--kv-shard",
+                                                           "seq"))],
+                         ids=["data", "model_seq"])
+def test_launchers_on_two_ranks(mesh, kw, tmp_path):
+    train = _ranks(2, *TRAIN, "--steps", "2", "--mesh", mesh,
+                   "--checkpoint-dir", str(tmp_path), "--checkpoint-every",
+                   "2", "--arch", "qwen3-moe-30b-a3b")
+    assert [r.returncode for r in train] == [0, 0], train[0].stderr + \
+        train[1].stderr
+    assert "done: 2 steps" in train[0].stdout and not train[1].stdout
+    assert (tmp_path / "LATEST").read_text() == "step_000000002"
+    serve = _ranks(2, *SERVE, "--mesh", mesh, *kw)
+    assert [r.returncode for r in serve] == [0, 0], serve[0].stderr + \
+        serve[1].stderr
+    assert _tokens_line(serve[0]).startswith("tokens 2x5 sha256=")
 
 
 @pytest.mark.parametrize("module", ["repro_torch.launch.train",

@@ -113,11 +113,33 @@ def test_moe_family_builds_on_meta():
     assert cfg.param_count() == get_config("qwen3-moe-30b-a3b").param_count()
 
 
-@pytest.mark.parametrize("kw", [dict(kv_cache_shard="seq")])
+@pytest.mark.parametrize("kw", [dict(kv_cache_shard="rows")])
 def test_unported_cache_layouts_raise(kw):
     _, tcfg = f32(**kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="the placements are"):
         zoo.init_model(tcfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_sequence_placed_cache_decodes_alike_on_one_device(quant):
+    """``kv_cache_shard="seq"`` places the cache over a mesh; on one
+    device it is the same cache, and the decode the same, bit for bit."""
+    _, heads = f32(kv_cache_quant=quant)
+    seq = dataclasses.replace(heads, kv_cache_shard="seq")
+    model = zoo.init_model(heads, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, heads.vocab, (2, 6)))
+    out = []
+    for cfg in (heads, seq):
+        caches = zoo.init_cache(cfg, 2, 10, device="cpu")
+        with torch.no_grad():
+            lg, caches = zoo.decode_step(model, cfg, {"tokens": toks},
+                                         caches, cache_index=0)
+            lg2, _ = zoo.decode_step(model, cfg, {"tokens": toks[:, :1]},
+                                     caches, cache_index=6)
+        out.append((lg, lg2))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-lite-16b",

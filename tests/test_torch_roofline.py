@@ -455,15 +455,23 @@ def test_derive_terms_reads_the_cards_peaks():
     assert port_mesh.PEAK_FLOPS_FP32 == 67e12
 
 
-@pytest.mark.parametrize("make", [
-    lambda: port_mesh.make_production_mesh(multi_pod=True),
-    lambda: port_mesh.make_production_mesh(multi_pod=True, pods=4),
-    lambda: port_mesh.Mesh(("data", "model"), (2, 1)),
-    lambda: port_mesh.Mesh(("data", "model"), (16, 16))],
+@pytest.mark.parametrize("make,sizes", [
+    (lambda: port_mesh.make_production_mesh(multi_pod=True), None),
+    (lambda: port_mesh.make_production_mesh(multi_pod=True, pods=4), None),
+    (lambda: port_mesh.Mesh(("data", "model"), (2, 1)), (2, 1)),
+    (lambda: port_mesh.Mesh(("data", "model"), (16, 16)), (16, 16))],
     ids=["multi_pod", "4_pods", "2x1", "16x16"])
-def test_larger_meshes_are_refused(make):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        make()
+def test_larger_meshes_are_refused(make, sizes):
+    """A mesh over pods stays refused (the dry run walks one card: ROADMAP
+    queue 1 item 9, what is left of it); a larger mesh is described, for
+    the spec functions, and builds no device mesh."""
+    if sizes is None:
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            make()
+    else:
+        m = make()
+        assert m.shape == dict(zip(("data", "model"), sizes))
+        assert m.size == sizes[0] * sizes[1] and m.device_mesh is None
     m = port_mesh.make_production_mesh()
     assert m.shape == {"data": 1, "model": 1} and m.size == 1
     assert m.axis_names == ("data", "model")
