@@ -436,7 +436,19 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    tokens, 16 new) unsharded and sharded with the cache placed by
    sequence: the same tokens, prefill and decode times side by side; (d)
    one ``compressed_psum`` and one checkpoint save / restore of a DTensor
-   on the NCCL group; beside it, (e) ``python -m repro_torch.launch.train
+   on the NCCL group; (g) falcon-mamba-7b, zamba2-1.2b, seamless-m4t-medium
+   and internvl2-26b at full width in bf16, each at the fewest layers that
+   run each of its kinds of block once (``DIST_FAMILIES``), B=8, S=512,
+   FSDP + tensor parallelism (``train``): the loss and every gradient
+   leaf of the sharded model bit for bit the unsharded model's, the
+   backward launched once at each attention site; (h) their serve under
+   ``choose_serve_cache_policy`` (B=8 prompts of 512, 16 new; seamless
+   through ``greedy_generate(enc_out=...)``, which its launcher refuses):
+   the same tokens, the forward launched once at each site of the
+   prefill; (g) and (h) timed in turns, sharded beside unsharded (a
+   world of two gloo ranks on the card cannot run: gloo's functional
+   collectives, which ``DTensor.redistribute`` calls, fail on CUDA
+   tensors, ``scripts/gloo_cuda_probe_torch.py``); beside it, (e) ``python -m repro_torch.launch.train
    --arch smollm-135m --mesh 1,1`` at B=8, S=512 for 3 steps (policy
    ``dp_train``) and (f) ``python -m repro_torch.launch.serve --mesh 1,1
    --kv-shard seq`` at B=8, 512-token prompts, 16 new tokens, whose
@@ -455,7 +467,8 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    tuner race's and the video entry points' ``dct_quant``,
    ``idct_dequant`` and ``decode_gop_blocks`` launches beside theirs,
    and ``flash_attention_bwd``'s by training path: smollm-135m's and
-   each family's of 22b (b)),
+   each family's of 22b (b); and both kernels' launches in the
+   distributed phase's (g) and (h) by family),
    then as its last line ``{"ok": true, "device": {...}}``.
 
 f32 products on the card stay f32 (``allow_tf32`` is set False for
@@ -5575,6 +5588,166 @@ def _dist_serve(mesh) -> dict:
                              DIST_B * DIST_NEW / dec_p]}
 
 
+#: (g)-(h): the SSM, hybrid, encoder-decoder and VLM families at full
+#: width in bf16 on the 1x1 mesh, each at the fewest layers that run each
+#: kind of its blocks once (zamba2: the 6 Mamba-2 layers of one
+#: shared-block site; seamless: one encoder and one decoder layer)
+DIST_FAMILIES = {"falcon-mamba-7b": {"n_layers": 2},
+                 "zamba2-1.2b": {"n_layers": 6},
+                 "seamless-m4t-medium": {"n_layers": 1, "enc_layers": 1},
+                 "internvl2-26b": {"n_layers": 2}}
+
+
+def _dist_family_config(arch: str):
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(arch), param_dtype="bfloat16",
+                               **DIST_FAMILIES[arch])
+
+
+def _timed(fn) -> tuple:
+    """(fn(), seconds to its end on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _encdec_tokens(model, cfg, scope, frames) -> tuple:
+    """(h) for the encoder-decoder, which ``launch.serve`` refuses: the
+    encoder over ``frames`` and ``greedy_generate(enc_out=...)`` of
+    ``_serve_tokens``' prompts, 1 + DIST_NEW tokens; (tokens, encode s,
+    generate s)."""
+    from repro_torch.models import encode_frames
+    from repro_torch.serve import greedy_generate
+
+    prompts = torch.randint(0, cfg.vocab, (DIST_B, DIST_S),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(DEVICE)
+    with torch.no_grad(), scope:
+        enc, t_enc = _timed(lambda: encode_frames(model, cfg, frames))
+        toks, t_gen = _timed(lambda: greedy_generate(
+            model, cfg, prompts, max_new=DIST_NEW + 1, enc_out=enc,
+            device=DEVICE))
+    return toks.cpu(), t_enc, t_gen
+
+
+def _dist_family(mesh, arch: str, seed: int) -> dict:
+    """(g) and (h) for ``arch``: FSDP + TP (``train``) loss and every
+    gradient leaf of the sharded model bit for bit the unsharded model's;
+    then the serve path under ``choose_serve_cache_policy`` (the parameters
+    placed for ``serve``): the same greedy tokens.  Returns the sharded
+    runs' launches and the times, sharded beside unsharded."""
+    import gc
+
+    from repro_torch.configs.base import make_serve_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.ctx import (SERVE_RULES_1POD,
+                                             TRAIN_RULES_1POD, use_sharding)
+
+    cfg = _dist_family_config(arch)
+    batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in _families().batch(
+        cfg, DIST_B, DIST_S, np.random.default_rng(seed)).items()}
+    plain = _init_on_card(cfg, seed)
+    sharded = shd.shard_model(_init_on_card(cfg, seed), cfg, mesh,
+                              mode="train")
+    def grads(model, scope):
+        return _timed(lambda: _dist_grads(model, cfg, batch, scope))
+
+    train_scope = functools.partial(use_sharding, TRAIN_RULES_1POD, mesh)
+    (lp, gp), t_plain = grads(plain, contextlib.nullcontext())
+    reset_counts()
+    (ls, gs), t_shard = grads(sharded, train_scope())
+    bwd = read_counts()["flash_attention_bwd"]
+    sites = _families().attention_sites(cfg)
+    check(bwd == sites, f"(g) {arch}: {bwd} backward launches, not one at "
+          f"each of its {sites} attention sites")
+    check(torch.equal(lp, ls), f"(g) {arch} sharded loss {ls.item()} != "
+          f"{lp.item()}")
+    differ = [n for n, g in gp.items() if not torch.equal(g, gs[n].to_local())]
+    check(not differ, f"(g) {arch} gradient leaves not bit for bit: "
+          f"{differ[:4]}")
+    out = {"loss": lp.item(), "leaves": len(gp), "bwd_launches": bwd,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del gp, gs
+    # timed again in turns (plain, sharded, sharded, plain): the faster
+    # of each pair, so neither pays the other's first call alone
+    t_shard = min(t_shard, grads(sharded, train_scope())[1])
+    t_plain = min(t_plain, grads(plain, contextlib.nullcontext())[1])
+    out["train_s"] = [t_shard, t_plain]
+    del sharded, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    scfg = make_serve_config(cfg, 1)
+    scfg = dataclasses.replace(scfg, **shd.choose_serve_cache_policy(
+        scfg, mesh))
+    sharded = shd.shard_model(_init_on_card(scfg, seed), scfg, mesh,
+                              mode="serve")
+    scope = functools.partial(use_sharding, SERVE_RULES_1POD, mesh)
+    if scfg.is_encdec:
+        frames = torch.randn(DIST_B, DIST_S // 4, scfg.d_model, device=DEVICE,
+                             generator=torch.Generator(device=DEVICE
+                                                       ).manual_seed(seed))
+
+        def serve(model, scope):
+            return _encdec_tokens(model, scfg, scope, frames)
+    else:
+        def serve(model, scope):
+            return _serve_tokens(model, scfg, scope)
+
+    want, *tp = serve(plain, contextlib.nullcontext())
+    reset_counts()
+    got, *ts = serve(sharded, scope())
+    out["flash_launches"] = read_counts()["flash_attention"]
+    ts = [min(a, b) for a, b in zip(ts, serve(sharded, scope())[1:])]
+    tp = [min(a, b) for a, b in zip(tp, serve(
+        plain, contextlib.nullcontext())[1:])]
+    check(out["flash_launches"] == sites, f"(h) {arch}: "
+          f"{out['flash_launches']} forward launches, not one at each of "
+          f"its {sites} attention sites of the prefill")
+    check(torch.equal(got, want), f"(h) {arch} sharded serve tokens differ")
+    out["digest"] = hashlib.sha256(want.to(torch.int64).numpy().tobytes()
+                                   ).hexdigest()[:16]
+    out["serve_s"] = [ts, tp]
+    out["policy"] = {k: getattr(scfg, k) for k in (
+        "kv_cache_quant", "kv_cache_shard", "kv_repeat")}
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_families(mesh, seed: int) -> dict:
+    """(g)-(h) for each of DIST_FAMILIES, printed a family a line each."""
+    out = {}
+    for arch in DIST_FAMILIES:
+        torch.cuda.reset_peak_memory_stats()
+        r = out[arch] = _dist_family(mesh, arch, seed)
+        cfg = _dist_family_config(arch)
+        layers = (f"{cfg.enc_layers} + {cfg.n_layers}" if cfg.is_encdec
+                  else f"{cfg.n_layers}")
+        (ts, tp) = r["train_s"]
+        print(f"distributed (g) {arch} d={cfg.d_model}, {layers} layers, "
+              f"bf16, B={DIST_B} S={DIST_S}, FSDP+TP (train) on the 1x1 "
+              f"NCCL mesh: loss {r['loss']:.6f} and all {r['leaves']} "
+              f"gradient leaves bit for bit the unsharded model's; loss + "
+              f"gradients (the faster of two in turns) sharded {ts:.6f} s, "
+              f"unsharded {tp:.6f} s; "
+              f"flash_attention_bwd launches {r['bwd_launches']}; peak "
+              f"{r['peak_bytes']} bytes", flush=True)
+        (a, b), (c, d) = r["serve_s"]
+        what = ("encode s, greedy_generate(enc_out) s" if cfg.is_encdec
+                else "prefill s, decode s")
+        print(f"distributed (h) {arch} serve B={DIST_B} prompts of {DIST_S}"
+              f", {DIST_NEW} new tokens, cache policy {r['policy']}: tokens "
+              f"equal the unsharded serve's (sha256={r['digest']}); {what}"
+              f" (the faster of two in turns): sharded {a:.6f}, {b:.6f}, "
+              f"unsharded {c:.6f}, {d:.6f}; "
+              f"flash_attention launches {r['flash_launches']}", flush=True)
+    return out
+
+
 def _dist_sync_and_checkpoint(mesh, seed: int) -> None:
     """(d): one int8 error-feedback all-reduce and one checkpoint save /
     restore of a DTensor on the NCCL group."""
@@ -5629,9 +5802,11 @@ def distributed_worker(out_path: str, seed: int) -> int:
     walls.append(time.perf_counter())
     _dist_sync_and_checkpoint(mesh, seed)
     walls.append(time.perf_counter())
-    print("distributed (a)-(d) wall_s " + " ".join(
-        f"{k}={b - a:.3f}" for k, a, b in zip("abcd", [t0] + walls, walls)),
-        flush=True)
+    out["families"] = _dist_families(mesh, seed)
+    walls.append(time.perf_counter())
+    print("distributed (a)-(h) wall_s " + " ".join(
+        f"{k}={b - a:.3f}" for k, a, b in zip(
+            ("a", "b", "c", "d", "g-h"), [t0] + walls, walls)), flush=True)
     pathlib.Path(out_path).write_text(json.dumps(out))
     dist.destroy_process_group()
     return 0
@@ -5657,11 +5832,13 @@ def distributed_launch_args(out_dir: str, seed: int) -> list:
              "--device", DEVICE)]
 
 
-def distributed_phase(out_dir: str, outs: list) -> int:
+def distributed_phase(out_dir: str, outs: list) -> tuple:
     """``distributed/`` on the card, from the processes of
-    ``distributed_launch_args`` (their standard outputs ``outs``): (a)-(d)
+    ``distributed_launch_args`` (their standard outputs ``outs``): (a)-(h)
     printed, (e) trained under ``dp_train``, (f)'s tokens those of (c)'s
-    unsharded serve; the ring's ``flash_attention`` launches."""
+    unsharded serve; the ring's ``flash_attention`` launches, and the
+    sharded family runs' (g) ``flash_attention_bwd`` and (h)
+    ``flash_attention`` launches by path."""
     worker, train, serve = outs
     print(worker, end="", flush=True)
     for label, out in (("distributed (e)", train), ("distributed (f)", serve)):
@@ -5672,7 +5849,12 @@ def distributed_phase(out_dir: str, outs: list) -> int:
     check(f"sha256={res['serve']['digest']}" in serve,
           f"launch.serve --mesh 1,1 --kv-shard seq: tokens differ from the "
           f"unsharded serve's ({res['serve']['digest']}): {serve}")
-    return res["ring"]["launches"]
+    fam = res["families"]
+    return res["ring"]["launches"], {
+        "flash_attention": {f"{arch}_dist_serve": r["flash_launches"]
+                            for arch, r in fam.items()},
+        "flash_attention_bwd": {f"{arch}_dist_train": r["bwd_launches"]
+                                for arch, r in fam.items()}}
 
 
 def _phase(name: str, fn, *args):
@@ -5750,7 +5932,8 @@ def main() -> int:
                  "--transport", "shm", "--device", DEVICE),
                 family_launch_args(ckdir)],
             distributed_launch_args(dist_dir, args.seed))
-        ring = _phase("distributed", distributed_phase, dist_dir, dist_outs)
+        ring, dist_paths = _phase("distributed", distributed_phase,
+                                  dist_dir, dist_outs)
     families = _phase("family train", family_train_phase, args.seed,
                       family_out)
     prefill_32k = _phase("dryrun", dryrun_phase, args.seed, train_med)
@@ -5789,9 +5972,11 @@ def main() -> int:
                                    **{ex: entry[ex]["flash_attention"]
                                       for ex in ("serve_lm_torch",
                                                  "continuous_batching_torch",
-                                                 "smoke_models_torch")}},
+                                                 "smoke_models_torch")},
+                                   **dist_paths["flash_attention"]},
                "flash_attention_bwd": {"smollm_train": train, **{
-                   f"{arch}_train": n for arch, n in families.items()}},
+                   f"{arch}_train": n for arch, n in families.items()},
+                   **dist_paths["flash_attention_bwd"]},
                **{name: {"pipeline": pipe[name], "tuner_race": race[name],
                          **{ex: entry[ex][name] for ex in (
                              "quickstart_torch", "incremental_workload_torch",

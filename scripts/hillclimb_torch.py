@@ -9,8 +9,8 @@ The port's counterpart of ``scripts/hillclimb.py``, over the port's dry
 run (``repro_torch.launch.dryrun``) on one H100: the variant is read by
 the port through ``REPRO_TORCH_VARIANT`` (``f32w`` keeps f32 training
 params); the row is appended to ``<out>/hillclimb_<arch>_<shape>.jsonl``
-(default ``results/dryrun_torch/``).  ``--mesh multi`` exits 1: sharding
-is not ported (ROADMAP, queue 1 item 9).
+(default ``results/dryrun_torch/``).  ``--mesh multi`` exits 1: the dry
+run over a multi-card mesh is not ported (ROADMAP, queue 1 item 9).
 """
 import argparse
 import json

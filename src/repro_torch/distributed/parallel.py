@@ -22,7 +22,15 @@ tensors and this module supplies what GSPMD would have inserted:
   its slice of ``d_ff``, the MoE over its experts; the input enters
   through :func:`copy_to` (identity forward, all-reduce of the gradient)
   and the partial output leaves through :func:`reduce_from` (all-reduce
-  forward, identity backward).
+  forward, identity backward).  The other families, each as GSPMD
+  would derive it from the reference's specs: the Mamba mixers
+  over this rank's channels (Mamba-1) or heads (Mamba-2), with the
+  partial products that every channel reads (Mamba-1's ``x_proj``,
+  Mamba-2's gated-norm mean square) summed over ``model`` both ways
+  (:func:`all_reduce_sum`); Zamba2's shared block at its wide config,
+  its ``out_proj`` over this rank's rows; cross-attention over this
+  rank's heads; the VLM projector's two column splits joined by
+  :func:`gather_from`.
 - **Batch axes.**  Each rank holds its rows of the batch
   (:func:`batch_rows`); the loss is summed over the batch axes with
   :func:`reduce_from`.
@@ -167,6 +175,30 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.groups), None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        parts = [torch.empty_like(x) for _ in range(g.size)]
+        dist.all_gather(parts, x.contiguous(), group=g.group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return local_slice(grad, ctx.dim, ctx.g).contiguous(), None, None
+
+
 def copy_to(x: torch.Tensor, *groups: Group) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``groups``: the entry of
     a tensor-parallel region, whose ranks each take a part of the
@@ -179,6 +211,27 @@ def reduce_from(x: torch.Tensor, *groups: Group) -> torch.Tensor:
     exit of a tensor-parallel region (partial outputs), or a loss summed
     over the batch axes."""
     return _ReduceFrom.apply(x, groups) if groups else x
+
+
+def all_reduce_sum(x: torch.Tensor, *groups: Group) -> torch.Tensor:
+    """``x`` summed over ``groups``, and its gradient summed over them
+    too: a partial product that every rank of the group then reads for
+    its own part (Mamba-1's ``x_proj`` output, Mamba-2's gated-norm sum of
+    squares), so each rank's gradient of the sum is partial as well.
+    Accumulated in f32, as :func:`reduce_from`."""
+    return _AllReduce.apply(x, groups) if groups else x
+
+
+def gather_from(x: torch.Tensor, g: Optional[Group],
+                dim: int = -1) -> torch.Tensor:
+    """Every rank's chunk of ``dim`` concatenated in rank order (the whole
+    of a column-split output); the gradient keeps this rank's chunk, so
+    the gradient that reaches the gathered tensor must be whole on every
+    rank (put :func:`copy_to` after it where each rank uses the whole for
+    its own part)."""
+    if g is None:
+        return x
+    return _GatherFrom.apply(x, g, dim % x.dim())
 
 
 # --------------------------------------------------------------------------
@@ -208,6 +261,10 @@ def kv_split(cfg, g: Group) -> bool:
 
 
 def mlp_group(d_ff: int) -> Optional[Group]:
+    """The model group when the rules split ``ff`` over an axis of size
+    M > 1 that divides ``d_ff``: the MLP's hidden width, or another width
+    the reference places over ``model`` alike (the shared block's rows,
+    the projector's columns)."""
     g = logical_group("ff")
     return g if g is not None and d_ff % g.size == 0 else None
 
@@ -219,58 +276,160 @@ def moe_group(cfg) -> Optional[Group]:
     return g if g is not None and cfg.moe.n_routed % g.size == 0 else None
 
 
-_ATTN = re.compile(r"^attn\.(wq|wk|wv|wo|q_norm|k_norm)\.(w|b|scale)$")
+def cross_group(cfg) -> Optional[Group]:
+    """The model group when a decoder's cross-attention runs over this
+    rank's heads: the rules split heads over an axis of size M > 1 that
+    divides the query and the KV heads (it keeps no cache, so no cache
+    placement enters)."""
+    g = logical_group("heads")
+    if g is None or cfg.n_heads % g.size or cfg.n_kv_heads % g.size:
+        return None
+    return g
+
+
+def ssm_group(cfg) -> Optional[Group]:
+    """The model group when a Mamba mixer runs over this rank's share of
+    ``d_inner``: Mamba-1's channels, Mamba-2's heads (``headdim`` channels
+    each), where the rules split ``ff`` over an axis of size M > 1 that
+    divides their count.  None where M divides none of the widths the
+    reference splits (it places every leaf whole, and the mixer runs
+    whole); a ``ValueError`` naming the leaf where it would split some
+    of them but not the channels or heads the mixer runs over."""
+    g = logical_group("ff")
+    if g is None:
+        return None
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    if s.kind == "mamba1":
+        count, leaf, width = di, "mamba.in_proj.w", 2 * di
+    else:
+        count, leaf, width = di // s.headdim, "mamba.in_x.w", di
+    if count % g.size == 0:
+        return g
+    if width % g.size == 0:
+        raise ValueError(
+            f"{cfg.name}: {leaf} is placed over the {g.axis} axis of "
+            f"{g.size}, but its mixer's {count} "
+            f"{'channels' if s.kind == 'mamba1' else 'heads'} do not divide "
+            f"it")
+    return None
+
+
+class Plan(NamedTuple):
+    """How the model code consumes one parameter: ``kind`` (``FULL``,
+    ``SHARD`` or ``SPLIT``), for ``SHARD`` the ``dim`` it takes this
+    rank's chunk of (of each of ``parts`` equal parts, in order), and the
+    ``group`` of the model axis (None for ``FULL``)."""
+
+    kind: str
+    dim: Optional[int] = None
+    group: Optional[Group] = None
+    parts: int = 1
+
+
+_WHOLE = Plan(FULL)
+_ATTN = re.compile(
+    r"^(attn|cross)\.(wq|wk|wv|wo|q_norm|k_norm)\.(w|b|scale)$")
 _MLP = re.compile(r"^(mlp|moe\.shared)\.(gate|up|down)\.w$")
 _EXPERTS = re.compile(r"^moe\.(w_gate|w_up|w_down|router\.w)$")
+_PROJECTOR = re.compile(r"^projector\.fc[12]\.(w|b)$")
+_MAMBA = re.compile(r"^mamba\.(.+)$")
+#: a Mamba leaf the reference places over ``model`` -> (the dim this
+#: rank's chunk is taken of, parts); the mixer's other leaves (Mamba-2's
+#: ``in_B``, ``in_C`` and their convs) are whole on every rank, each
+#: reading them for its own heads
+_MAMBA_SHARD = {
+    "in_proj.w": (1, 2),  # [xin | z]: this rank's chunk of each half
+    "conv_w": (1, 1), "conv_b": (0, 1), "x_proj.w": (0, 1),
+    "dt_proj.w": (1, 1), "dt_proj.b": (0, 1), "A_log": (0, 1),
+    "D": (0, 1), "out_proj.w": (0, 1),
+    "in_z.w": (1, 1), "in_x.w": (1, 1), "in_dt.w": (1, 1),
+    "conv_x_w": (1, 1), "conv_x_b": (0, 1), "norm.scale": (0, 1),
+    "dt_bias": (0, 1),  # no rule: whole, this rank's heads taken out
+}
+#: the prefix of Zamba2's shared block, whose leaves :func:`plan` reads
+#: under the block's wide config
+SHARED = "shared_attn."
 
 
-def plan(name: str, cfg) -> tuple:
-    """``(kind, dim, group)`` for the parameter ``name`` of a layer
-    (``attn.wq.w``, ``mlp.down.w``, ``moe.w_gate``, ...) under ``cfg``:
-    ``SHARD`` -- the code takes this rank's chunk of ``dim`` over the
-    group's axis; ``SPLIT`` -- it takes the whole, but each rank of the
-    group uses it for its own part, so its gradient sums over the group;
-    ``FULL`` (group None) -- the whole, used alike on every rank."""
+def plan(name: str, cfg) -> Plan:
+    """The :class:`Plan` of the parameter ``name`` under ``cfg``, the
+    config its module runs under: a layer's leaf (``attn.wq.w``,
+    ``mlp.down.w``, ``moe.w_gate``, ``mamba.in_proj.w``, ``cross.wq.w``,
+    ...) under the layer's config, Zamba2's shared block's
+    (``shared_attn.attn.wq.w``, ``shared_attn.out_proj.w``, ...) under
+    its wide config, the VLM projector's (``projector.fc1.w``) under the
+    model's.  ``SHARD`` -- the code takes this rank's chunk of ``dim``
+    over the group's axis; ``SPLIT`` -- it takes the whole, but each rank
+    of the group uses it for its own part, so its gradient sums over the
+    group; ``FULL`` (group None) -- the whole, used alike on every
+    rank."""
+    if name.startswith(SHARED):
+        name = name[len(SHARED):]
+        if name == "out_proj.w":  # rows of the wide stream
+            g = mlp_group(cfg.d_model)
+            return Plan(SHARD, 0, g) if g is not None else _WHOLE
     m = _ATTN.match(name)
     if m:
-        g = attention_group(cfg)
+        where, proj, leaf = m.groups()
+        g = attention_group(cfg) if where == "attn" else cross_group(cfg)
         if g is None:
-            return FULL, None, None
-        proj, leaf = m.groups()
+            return _WHOLE
         dim = 1 if leaf == "w" else 0
         if proj == "wq":
-            return SHARD, dim, g
+            return Plan(SHARD, dim, g)
         if proj in ("wk", "wv"):
-            return (SHARD, dim, g) if kv_split(cfg, g) else (SPLIT, None, g)
+            return (Plan(SHARD, dim, g) if where == "cross"
+                    or kv_split(cfg, g) else Plan(SPLIT, None, g))
         if proj == "wo":
-            return SHARD, 0, g
-        return SPLIT, None, g  # the per-head norms see this rank's heads
+            return Plan(SHARD, 0, g)
+        return Plan(SPLIT, None, g)  # the per-head norms see this rank's heads
     m = _MLP.match(name)
     if m:
         d_ff = (cfg.d_ff if m.group(1) == "mlp"
                 else cfg.moe.d_shared_ff * cfg.moe.n_shared)
         g = mlp_group(d_ff)
         if g is None:
-            return FULL, None, None
-        return SHARD, (0 if m.group(2) == "down" else 1), g
+            return _WHOLE
+        return Plan(SHARD, 0 if m.group(2) == "down" else 1, g)
     m = _EXPERTS.match(name)
     if m:
         g = moe_group(cfg)
         if g is None:
-            return FULL, None, None
+            return _WHOLE
         # every rank routes all its tokens, but only its experts' outputs
         # carry the routing weights' gradient back to the router
-        return (SPLIT, None, g) if m.group(1) == "router.w" else (SHARD, 0, g)
-    return FULL, None, None
+        return (Plan(SPLIT, None, g) if m.group(1) == "router.w"
+                else Plan(SHARD, 0, g))
+    m = _MAMBA.match(name)
+    if m:
+        g = ssm_group(cfg)
+        if g is None:
+            return _WHOLE
+        if m.group(1) in _MAMBA_SHARD:
+            dim, parts = _MAMBA_SHARD[m.group(1)]
+            return Plan(SHARD, dim, g, parts)
+        return Plan(SPLIT, None, g)
+    m = _PROJECTOR.match(name)
+    if m:
+        g = mlp_group(cfg.d_model)
+        if g is None:
+            return _WHOLE
+        return Plan(SHARD, 1 if m.group(1) == "w" else 0, g)
+    return _WHOLE
 
 
 # --------------------------------------------------------------------------
 # Parameters: DTensor -> the local tensor the code computes with
 # --------------------------------------------------------------------------
 def to_compute(p, kind: str = FULL, dim: Optional[int] = None,
-               group: Optional[Group] = None) -> torch.Tensor:
+               group: Optional[Group] = None,
+               parts: int = 1) -> torch.Tensor:
     """The local tensor of the ``DTensor`` ``p`` that the code computes
-    with (see :func:`plan`), differentiable back to ``p``."""
+    with (see :func:`plan`), differentiable back to ``p``.  A ``SHARD``
+    chunk that is not the block ``p`` holds (``p`` placed whole over the
+    group's axis, or a chunk of each of ``parts`` parts) is taken from
+    the gathered whole, whose gradient then sums over the group."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = current_mesh()
@@ -279,7 +438,7 @@ def to_compute(p, kind: str = FULL, dim: Optional[int] = None,
     target, grads, kept = [], [], False
     for axis, pl in zip(dm.mesh_dim_names, p.placements):
         keep = (kind == SHARD and group is not None and axis == group.axis
-                and pl == Shard(dim))
+                and pl == Shard(dim) and parts == 1)
         kept = kept or keep
         target.append(pl if keep else Replicate())
         if keep:
@@ -290,38 +449,39 @@ def to_compute(p, kind: str = FULL, dim: Optional[int] = None,
             grads.append(Replicate())
     t = p.redistribute(dm, target).to_local(grad_placements=grads)
     if kind == SHARD and not kept:  # placed whole: take this rank's chunk
-        n = t.shape[dim] // group.size
-        t = t.narrow(dim, group.rank * n, n)
+        t = local_slice(t, dim, group, parts)
     return t
 
 
 @contextlib.contextmanager
-def local_params(module: torch.nn.Module, cfg=None, *, skip=()):
+def local_params(module: torch.nn.Module, cfg=None, *, skip=(),
+                 prefix: str = ""):
     """For the length of the block, each ``DTensor`` parameter of
     ``module`` (but those under the child modules named in ``skip``) is
-    replaced by its local compute tensor: as :func:`plan` says for
-    ``cfg``'s layer (a ``Block``), or whole when ``cfg`` is None; a plain
-    parameter that the plan splits is replaced by this rank's chunk.  A
-    no-op without an installed mesh."""
+    replaced by its local compute tensor: as :func:`plan` says for the
+    parameter's name (after ``prefix``) under ``cfg``, the config the
+    module runs under, or whole when ``cfg`` is None; a plain parameter
+    that the plan splits is replaced by this rank's chunk.  A no-op
+    without an installed mesh."""
     if _device_mesh() is None:
         yield
         return
     from torch.distributed.tensor import DTensor
 
     swapped = []
-    for prefix, sub in module.named_modules():
-        if prefix.split(".")[0] in skip:
+    for path, sub in module.named_modules():
+        if path.split(".")[0] in skip:
             continue
         for leaf, p in list(sub._parameters.items()):
             if p is None:
                 continue
-            name = f"{prefix}.{leaf}" if prefix else leaf
-            kind, dim, g = plan(name, cfg) if cfg is not None else (
-                FULL, None, None)
+            name = prefix + (f"{path}.{leaf}" if path else leaf)
+            how = plan(name, cfg) if cfg is not None else _WHOLE
             if isinstance(p, DTensor):
-                sub._parameters[leaf] = to_compute(p, kind, dim, g)
-            elif kind == SHARD:  # a whole tensor on every rank
-                sub._parameters[leaf] = local_slice(p, dim, g)
+                sub._parameters[leaf] = to_compute(p, *how)
+            elif how.kind == SHARD:  # a whole tensor on every rank
+                sub._parameters[leaf] = local_slice(p, how.dim, how.group,
+                                                    how.parts)
             else:
                 continue
             swapped.append((sub, leaf, p))
@@ -332,8 +492,14 @@ def local_params(module: torch.nn.Module, cfg=None, *, skip=()):
             sub._parameters[leaf] = p
 
 
-def local_slice(t: torch.Tensor, dim: int, g: Group) -> torch.Tensor:
-    """This rank's chunk of ``dim`` of a tensor every rank holds whole
-    (a layer built without ``shard_model``)."""
-    return t.narrow(dim, g.rank * (t.shape[dim] // g.size),
-                    t.shape[dim] // g.size)
+def local_slice(t: torch.Tensor, dim: int, g: Group,
+                parts: int = 1) -> torch.Tensor:
+    """This rank's chunk of ``dim`` of a tensor every rank holds whole (a
+    layer built without ``shard_model``, or a gathered parameter): of
+    each of ``parts`` equal parts of ``dim``, concatenated in order."""
+    n = t.shape[dim] // parts
+    c = n // g.size
+    if parts == 1:
+        return t.narrow(dim, g.rank * c, c)
+    return torch.cat([t.narrow(dim, i * n + g.rank * c, c)
+                      for i in range(parts)], dim=dim)

@@ -29,14 +29,6 @@ def init_on_device(cfg, device: str, prog: str):
     return init_model(cfg, gen, device=dev)
 
 
-#: the families a mesh of more than one rank trains and serves
-MESH_FAMILIES = ("dense", "moe")
-MESH_FAMILY_REFUSED = (
-    "{name} ({family}) on a mesh of {size} ranks: a mesh past 1x1 trains "
-    "and serves the dense and MoE families only; the others are what is "
-    "left of ROADMAP queue 1 item 9")
-
-
 def printer(mesh):
     """``print``, flushed, on rank 0 of ``mesh``'s world only (on every
     run without a mesh)."""
@@ -51,13 +43,15 @@ def printer(mesh):
     return say
 
 
-def setup_mesh(ap, args, cfg, prog: str):
+def setup_mesh(ap, args, prog: str):
     """The mesh of ``--mesh D,M`` over the run's ranks
     (``launch.mesh.init_mesh``, on ``--device``'s type), None without
     ``--mesh``, or False, with the reason on standard error, where a CUDA
-    device is asked for and there is none.  A family outside
-    :data:`MESH_FAMILIES` on a mesh of more than one rank, or a mesh that
-    is not the world's size, ends the run through ``ap.error``."""
+    device is asked for and there is none.  Every family the launcher
+    runs takes a mesh, as in the reference (each leaf placed by
+    ``param_pspec``, its layers' tensor parallelism in
+    ``distributed/parallel.py``); a mesh that is not the world's size
+    ends the run through ``ap.error``."""
     if not args.mesh:
         return None
     from repro_torch.launch.mesh import init_mesh
@@ -68,12 +62,6 @@ def setup_mesh(ap, args, cfg, prog: str):
         print(f"{prog}: {e}", file=sys.stderr, flush=True)
         return False
     dims = tuple(int(x) for x in args.mesh.split(","))
-    size = 1
-    for d in dims:
-        size *= d
-    if size > 1 and cfg.family not in MESH_FAMILIES:
-        ap.error(MESH_FAMILY_REFUSED.format(name=cfg.name, family=cfg.family,
-                                            size=size))
     try:
         return init_mesh(dims, dev.type)
     except ValueError as e:  # the mesh is not the world's size

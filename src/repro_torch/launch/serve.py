@@ -25,10 +25,12 @@ over the ranks of the run (``launch.mesh.init_mesh``: under ``torchrun
 model axis, the parameters placed by ``shard_model(..., mode="serve")``,
 the caches by ``cache_pspec`` (``--kv-shard seq`` splits their sequence
 axis over ``model``), under ``SERVE_RULES_1POD``.  On one card the mesh is
-1x1.  A mesh of more than one rank serves the dense and MoE families;
-the others are refused there (ROADMAP queue 1 item 9, what is left of
-it).  Rank 0 prints; the last line gives a digest of the generated
-tokens, the same for every mesh.
+1x1.  Every family it serves takes a mesh of any size whose axes divide
+as the reference's specs need: the SSM and hybrid mixers over their
+channels or heads, Zamba2's shared block and the VLM's projector split
+over ``model`` as well (``distributed/parallel.py``).  Rank 0 prints; the
+last line gives a digest of the generated tokens, the same for every
+mesh.
 """
 from __future__ import annotations
 
@@ -71,7 +73,7 @@ def main(argv=None) -> int:
         ap.error(ENCDEC_REFUSED.format(cfg.name))
     if args.reduced:
         cfg = reduce_config(cfg)
-    mesh = setup_mesh(ap, args, cfg, "launch.serve")
+    mesh = setup_mesh(ap, args, "launch.serve")
     if mesh is False:
         return 1
     model_axis = mesh.shape.get("model", 1) if mesh is not None else 1

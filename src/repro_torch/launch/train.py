@@ -10,7 +10,8 @@ model trains on ``--device`` (``cuda`` by default; without a CUDA device it
 exits 1, and ``--device cpu`` runs on the CPU, with ``--reduced`` at a
 smoke size).  As the reference's, it feeds tokens only, so it trains
 every family but the encoder-decoder and the VLM, whose losses need
-frames or patch embeddings.  On a card the random weights are drawn there
+frames or patch embeddings: it refuses those two (exit 2), where the
+reference's fails at each step.  On a card the random weights are drawn there
 from a CUDA generator seeded with 0 (as ``launch.serve`` draws them): a
 host draw of a full-width model takes a while.  The loop is the
 fault-tolerant one from
@@ -26,9 +27,11 @@ the ranks of the run (``launch.mesh.init_mesh``: under ``torchrun
 ``data``, tensor parallelism over ``model``, ``TRAIN_RULES_1POD``), the
 parameters and so the optimizer state are placed by ``shard_model`` in
 that mode, and each rank trains on its rows of every batch.  On one card
-the mesh is 1x1.  A mesh of more than one rank trains the dense and MoE
-families; the others are refused there (ROADMAP queue 1 item 9, what is
-left of it).  Rank 0 prints and writes the checkpoints.
+the mesh is 1x1.  Every family it trains takes a mesh of any size whose
+axes divide as the reference's specs need (under ``train``, the SSM and
+hybrid mixers over their channels or heads and Zamba2's shared block
+over ``model`` as well: ``distributed/parallel.py``).  Rank 0 prints and
+writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -45,6 +48,13 @@ from repro_torch.train.data import PrefetchPipeline, synthetic_token_batches
 from repro_torch.train.elastic import LoopConfig, recoverable_train_loop
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
+
+#: why the launcher refuses the encoder-decoder and the VLM
+FRONTEND_REFUSED = (
+    "{} ({}): the launcher feeds tokens only, as the reference's, and this "
+    "family's loss needs {}; train it with make_train_step on batches "
+    "that carry them")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train",
@@ -67,10 +77,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.is_encdec or cfg.frontend == "patch":
+        ap.error(FRONTEND_REFUSED.format(
+            cfg.name, cfg.family,
+            "frames" if cfg.is_encdec else "patch embeddings"))
     if args.reduced:
         cfg = reduce_config(cfg)
     cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
-    mesh = setup_mesh(ap, args, cfg, "launch.train")
+    mesh = setup_mesh(ap, args, "launch.train")
     if mesh is False:
         return 1
     model = init_on_device(cfg, args.device, "launch.train")

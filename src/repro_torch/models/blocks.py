@@ -12,7 +12,9 @@ the decoder, keys and values projected from the encoder's output
 ``enc_out`` at every call (no RoPE, and no cache: the reference
 recomputes them at every decode step, and so does the port).  Each adds
 to the residual stream in the compute dtype.  The reference's sharding
-constraints are no-ops on one device and are dropped.
+constraints are no-ops on one device and are dropped; on a mesh each
+sublayer runs its tensor-parallel schedule (``distributed/parallel.py``),
+cross-attention over this rank's heads (``parallel.cross_group``).
 """
 from __future__ import annotations
 
@@ -112,18 +114,27 @@ def _cross_attention(p: Attention, x: torch.Tensor, enc_out: torch.Tensor,
     from enc_out [B, Se, d], no RoPE and no mask.  With S > 1 (a prefill,
     or a training forward) it runs the ``chunked`` path, the flash kernel
     over Se keys; a decode step's one query runs the naive path, as in
-    the reference."""
+    the reference.  On a mesh that splits its heads (``p`` then holds
+    this rank's q/k/v columns and ``wo`` rows) ``x`` and ``enc_out``
+    enter through ``copy_to`` and the partial output leaves through
+    ``reduce_from``."""
     B, S, _ = x.shape
     Se = enc_out.shape[1]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = h // kvh
+    hd = cfg.head_dim
     cd = cfg.compute_dtype
-    q = dense_apply(p.wq, x, cd).reshape(B, S, kvh, G, hd)
-    k = dense_apply(p.wk, enc_out, cd).reshape(B, Se, kvh, hd)
+    g = parallel.cross_group(cfg)  # this rank's heads only
+    if g is not None:
+        x, enc_out = parallel.copy_to(x, g), parallel.copy_to(enc_out, g)
+    q = dense_apply(p.wq, x, cd)
+    k = dense_apply(p.wk, enc_out, cd)
+    kvh = k.shape[-1] // hd
+    q = q.reshape(B, S, kvh, q.shape[-1] // (kvh * hd), hd)
+    k = k.reshape(B, Se, kvh, hd)
     v = dense_apply(p.wv, enc_out, cd).reshape(B, Se, kvh, hd)
     out = grouped_attention(
         q, k, v, causal=False, q_pos=torch.arange(S, device=x.device),
         kv_pos=torch.arange(Se, device=x.device),
         impl="chunked" if S > 1 else "naive", q_chunk=cfg.q_chunk,
         kv_chunk=cfg.kv_chunk)
-    return dense_apply(p.wo, out.reshape(B, S, h * hd), cd)
+    out = dense_apply(p.wo, out.reshape(B, S, -1), cd)
+    return parallel.reduce_from(out, g) if g is not None else out

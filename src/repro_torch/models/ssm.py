@@ -22,6 +22,18 @@ correctly rounded log in the last bit for some arguments) of the
 reference's ``arange`` or ``jnp.linspace`` (:func:`_jnp_linspace_f32`,
 which also differs from ``torch.linspace``), computed on the host so
 every device gets the same bits.
+
+On a mesh whose rules split ``ff`` over ``model`` (``parallel.ssm_group``)
+each mixer runs over this rank's share of ``d_inner``, its widths read
+from the local weights (``parallel.local_params``): Mamba-1 over its
+channels (``in_proj``'s chunk of each of ``xin`` and ``z``), with
+``x_proj``'s partial products (``dt_in``, B, C, read by every channel)
+summed over ``model`` forward and backward; Mamba-2 over its heads, B and
+C projected whole on every rank, the gated RMSNorm's sum of squares
+summed over ``model`` in f32.  The input enters through ``copy_to`` and
+the output projection's partial rows leave through ``reduce_from``; the
+scans need no collective, and the decode state is this rank's block.
+Without a mesh every line computes as it does on one device.
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.distributed import parallel
 from repro_torch.models.layers import (Dense, Norm, _normal, dense_apply,
                                        norm_apply, torch_dtype)
 
@@ -256,16 +269,21 @@ def mamba1_apply(p: Mamba1, x: torch.Tensor, cfg: ArchConfig, *,
     Returns (y [B,S,d], new_state or None); ``state`` is not written."""
     s: SSMConfig = cfg.ssm
     cd = cfg.compute_dtype
-    d = x.shape[-1]
-    di, r = s.expand * d, _dt_rank(cfg)
+    r = _dt_rank(cfg)
+    g = parallel.ssm_group(cfg)  # this rank's channels only
+    if g is not None:
+        x = parallel.copy_to(x, g)
 
     xz = dense_apply(p.in_proj, x, cd)
+    di = xz.shape[-1] // 2  # this rank's channels: [xin | z]
     xin, z = xz[..., :di], xz[..., di:]
     xc, new_conv = _causal_conv(xin, p.conv_w, p.conv_b,
                                 state["conv"] if state is not None else None)
     xc = F.silu(xc)
 
     proj = dense_apply(p.x_proj, xc, cd)
+    if g is not None:  # every channel reads dt_in, B and C
+        proj = parallel.all_reduce_sum(proj, g)
     dt_in = proj[..., :r]
     Bm = proj[..., r:r + s.d_state].float()
     Cm = proj[..., r + s.d_state:].float()
@@ -282,6 +300,8 @@ def mamba1_apply(p: Mamba1, x: torch.Tensor, cfg: ArchConfig, *,
     y = y + xc.float() * p.D.float()
     y = y.to(torch_dtype(cd)) * F.silu(z)
     out = dense_apply(p.out_proj, y, cd)
+    if g is not None:  # the channels' partial outputs
+        out = parallel.reduce_from(out, g)
     new_state = ({"conv": new_conv, "ssm": h_last}
                  if state is not None else None)
     return out, new_state
@@ -367,6 +387,19 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
     return torch.cat(ys, dim=1), h
 
 
+def _rmsnorm_split(p: Norm, x: torch.Tensor, width: int,
+                   g: "parallel.Group", eps: float = 1e-5) -> torch.Tensor:
+    """``norm_apply``'s RMSNorm of a row of ``width`` whose channels are
+    split over ``g``: ``x`` is this rank's [..., width / M] and ``p`` its
+    chunk of the scale; the sum of squares is summed over the group in
+    f32, and its gradient too (every rank's chunk divides by it)."""
+    xf = x.float()
+    ss = parallel.all_reduce_sum(torch.sum(xf * xf, dim=-1, keepdim=True),
+                                 g)
+    y = xf * torch.rsqrt(ss / width + eps) * p.scale.float()
+    return y.to(x.dtype)
+
+
 def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
                  state: Optional[dict] = None):
     """x: [B,S,d].  state (decode): {'conv_x', 'conv_B', 'conv_C', 'ssm'}.
@@ -374,12 +407,15 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
     Returns (y [B,S,d], new_state or None); ``state`` is not written."""
     s: SSMConfig = cfg.ssm
     cd = cfg.compute_dtype
-    B, S, d = x.shape
-    di = s.expand * d
-    H = di // s.headdim
+    B, S, _ = x.shape
+    g = parallel.ssm_group(cfg)  # this rank's heads only
+    if g is not None:
+        x = parallel.copy_to(x, g)
 
     z = dense_apply(p.in_z, x, cd)
     xin = dense_apply(p.in_x, x, cd)
+    di = xin.shape[-1]  # this rank's heads' channels
+    H = di // s.headdim
     Braw = dense_apply(p.in_B, x, cd)
     Craw = dense_apply(p.in_C, x, cd)
     dt_raw = dense_apply(p.in_dt, x, cd)
@@ -403,8 +439,13 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
     y, h_last = _ssd_chunked(xh, dt, A, Bm, Cm, s.chunk, h0)
     y = y + xh.float() * p.D.float()[None, None, :, None]
     y = y.reshape(B, S, di).to(torch_dtype(cd))
-    y = norm_apply("rmsnorm", p.norm, y * F.silu(z))
+    if g is None:
+        y = norm_apply("rmsnorm", p.norm, y * F.silu(z))
+    else:
+        y = _rmsnorm_split(p.norm, y * F.silu(z), s.expand * cfg.d_model, g)
     out = dense_apply(p.out_proj, y, cd)
+    if g is not None:  # the heads' partial outputs
+        out = parallel.reduce_from(out, g)
     new_state = None
     if state is not None:
         new_state = {"conv_x": new_conv_x, "conv_B": new_conv_B,

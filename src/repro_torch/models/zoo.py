@@ -43,7 +43,12 @@ rows of the batch, each layer computes with its parameters' local tensors
 columns or experts), a DTensor cache is read and written through its
 local blocks, and ``loss_fn`` returns the loss of the whole batch (summed
 over the batch axes, its chunk count the reference's for the mesh's
-chips).  The logits a decode step returns are this rank's rows.
+chips).  The logits a decode step returns are this rank's rows.  Zamba2's
+shared block swaps its parameters under its wide config (its attention
+over this rank's heads, its MLP over its ``d_ff`` columns, ``out_proj``
+over its rows of the wide stream); the VLM projector computes this
+rank's columns of ``fc1`` and ``fc2``, each output gathered whole
+(``parallel.gather_from``); the SSM state is this rank's block.
 
 The encoder-decoder family has ``enc_layers`` (run unmasked over the
 frame embeddings, positions ``arange(Se)``), ``enc_norm`` and
@@ -164,15 +169,24 @@ def _shared_attn_apply(p: SharedAttn, h, emb0, cfg: ArchConfig, *,
     config (G = 1); the KV cache is written in place."""
     wide = _wide_cfg(cfg)
     cd = cfg.compute_dtype
-    x = torch.cat([h, emb0], dim=-1)
-    xn = norm_apply(cfg.norm, p.ln1, x)
-    a, cache = attention_apply(p.attn, xn, wide, causal=True,
-                               positions=positions, kv_cache=cache,
-                               cache_index=cache_index, cache_len=cache_len)
-    x = x + a
-    xn = norm_apply(cfg.norm, p.ln2, x)
-    x = x + mlp_apply(p.mlp, xn, cd)
-    return h + dense_apply(p.out_proj, x, cd), cache
+    scope = (contextlib.nullcontext() if current_mesh() is None else
+             parallel.local_params(p, wide, prefix=parallel.SHARED))
+    with scope:
+        x = torch.cat([h, emb0], dim=-1)
+        xn = norm_apply(cfg.norm, p.ln1, x)
+        a, cache = attention_apply(p.attn, xn, wide, causal=True,
+                                   positions=positions, kv_cache=cache,
+                                   cache_index=cache_index,
+                                   cache_len=cache_len)
+        x = x + a
+        xn = norm_apply(cfg.norm, p.ln2, x)
+        x = x + mlp_apply(p.mlp, xn, cd, tp=parallel.mlp_group(wide.d_ff))
+        g = parallel.mlp_group(wide.d_model)  # this rank's rows of out_proj
+        if g is None:
+            return h + dense_apply(p.out_proj, x, cd), cache
+        x = parallel.local_slice(parallel.copy_to(x, g), -1, g)
+        return h + parallel.reduce_from(dense_apply(p.out_proj, x, cd),
+                                        g), cache
 
 
 class Projector(nn.Module):
@@ -267,9 +281,14 @@ def _embed_inputs(params: Model, cfg: ArchConfig, batch: dict):
     h = embedding_apply(params.embed, batch["tokens"], cd)
     if cfg.frontend == "patch" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(torch_dtype(cd))
+        g = parallel.mlp_group(cfg.d_model)  # this rank's columns of each
+        if g is not None:
+            pe = parallel.copy_to(pe, g)
         pe = dense_apply(params.projector.fc1, pe, cd)
+        if g is not None:  # every rank's fc2 columns read all of fc1's
+            pe = parallel.copy_to(parallel.gather_from(pe, g), g)
         pe = dense_apply(params.projector.fc2, gelu(pe), cd)
-        h = torch.cat([pe, h], dim=1)
+        h = torch.cat([parallel.gather_from(pe, g), h], dim=1)
     return h
 
 
@@ -349,13 +368,15 @@ def _layer_params(layer, cfg: ArchConfig):
     return parallel.local_params(layer, cfg)
 
 
-def _top_params(params):
-    """The parameters outside the layer stacks, swapped for their local
-    tensors under a mesh (the layers are swapped one at a time)."""
+def _top_params(params, cfg: ArchConfig):
+    """The parameters outside the layer stacks and the shared block,
+    swapped for their local tensors under a mesh (the layers are swapped
+    one at a time, the shared block at each of its sites)."""
     if current_mesh() is None:
         return contextlib.nullcontext()
-    return parallel.local_params(params, skip=(
-        "layers", "dense_layers", "enc_layers", "dec_layers"))
+    return parallel.local_params(params, cfg, skip=(
+        "layers", "dense_layers", "enc_layers", "dec_layers",
+        "shared_attn"))
 
 
 def _sharding() -> Optional[tuple]:
@@ -390,7 +411,7 @@ def encode_frames(params: Model, cfg: ArchConfig, frames: torch.Tensor, *,
                            False, _sharding(), use_reentrant=False)
         else:
             h = _layer(layer, h, cfg, "enc", positions, None, False)
-    with _top_params(params):
+    with _top_params(params, cfg):
         return norm_apply(cfg.norm, params.enc_norm, h)
 
 
@@ -401,7 +422,7 @@ def forward(params: Model, cfg: ArchConfig, batch: dict, *,
     encoder-decoder the decoder's over ``batch["frames"]`` encoded."""
     enc_out = (encode_frames(params, cfg, batch["frames"], remat=remat)
                if cfg.is_encdec else None)
-    with _top_params(params):
+    with _top_params(params, cfg):
         h = _embed_inputs(params, cfg, batch)
         positions = torch.arange(h.shape[1], device=h.device)
         h = _run_layers(params, cfg, h, positions=positions, enc_out=enc_out,
@@ -464,7 +485,7 @@ def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
     n_chunk = loss_chunks(B, S, cfg.vocab, chips)
     s_chunk = S // n_chunk
     acc = torch.zeros((), dtype=torch.float32, device=h.device)
-    with _top_params(params):
+    with _top_params(params, cfg):
         w = (params.embed.table.T if cfg.tie_embeddings
              else params.lm_head.w).to(cd)  # [d, vocab]
         for i in range(n_chunk):
@@ -561,8 +582,8 @@ def zero_ssm_state(cfg: ArchConfig, caches: dict) -> None:
     next; a KV cache needs no zeroing, since a prefill overwrites the
     positions it reads."""
     if _family_block_kind(cfg) in SSM_KINDS:
-        for t in caches["layers"].values():
-            t.zero_()
+        for t in caches["layers"].values():  # a DTensor's block
+            parallel.local_tensor(t).zero_()
 
 
 def decode_step(params: Model, cfg: ArchConfig, batch: dict, caches: dict,
@@ -579,7 +600,7 @@ def decode_step(params: Model, cfg: ArchConfig, batch: dict, caches: dict,
     idx = int(cache_index)
     if cfg.is_encdec and enc_out is None:
         enc_out = batch["enc_out"].to(torch_dtype(cfg.compute_dtype))
-    with _top_params(params):
+    with _top_params(params, cfg):
         h = _embed_inputs(params, cfg, batch)
         S_in = h.shape[1]
         positions = torch.arange(S_in, device=h.device) + idx

@@ -25,6 +25,11 @@ prefills a new wave into the caches of the last, so its SSM layers start
 from the last wave's final state; a KV cache needs no reset, since a
 prefill overwrites what it reads.  The port's first wave is the
 reference's; each later wave gives what fresh caches would.
+
+Under a mesh (``ctx.use_sharding``, the model placed by ``shard_model``)
+the caches are DTensors placed by ``cache_pspec``, each rank prefills and
+decodes its rows of the slots, the SSM state is zeroed on each rank's
+block, and every rank sees every slot's tokens.
 """
 from __future__ import annotations
 
@@ -36,8 +41,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import parallel
 from repro_torch.models import zoo
-from repro_torch.serve.serve_step import check_device
+from repro_torch.serve.serve_step import check_device, init_caches
 
 
 #: why the batcher and the launcher refuse the encoder-decoder family
@@ -77,17 +83,20 @@ class ContinuousBatcher:
         self.params = params
         self.max_len = max_len
         self.slots = [_Slot() for _ in range(slots)]
-        self.caches = zoo.init_cache(cfg, slots, max_len, device=self.device)
+        self.caches = init_caches(cfg, slots, max_len, self.device)
         self.queue: list[Request] = []
         self.finished: list[Request] = []
 
-    def _decode(self, tokens: np.ndarray, pos: int) -> np.ndarray:
-        """One lock-step decode for all slots at the shared position."""
+    def _step(self, tokens: np.ndarray, pos: int) -> np.ndarray:
+        """One lock-step prefill (``pos`` 0) or decode of all slots (this
+        rank's rows under a mesh); every slot's next token."""
+        rows = parallel.batch_rows(
+            torch.from_numpy(tokens).to(self.device, torch.long))
         logits, self.caches = zoo.decode_step(
-            self.params, self.cfg,
-            {"tokens": torch.from_numpy(tokens).to(self.device, torch.long)},
-            self.caches, cache_index=pos)
-        return torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            self.params, self.cfg, {"tokens": rows}, self.caches,
+            cache_index=pos)
+        return parallel.gather_rows(
+            torch.argmax(logits[:, -1], dim=-1)).cpu().numpy()
 
     # -------------------------------------------------------------- intake
     def submit(self, prompt: np.ndarray, max_new: int) -> Request:
@@ -118,11 +127,7 @@ class ContinuousBatcher:
             row = self.slots.index(slot)
             toks[row, -len(req.prompt):] = req.prompt
         zoo.zero_ssm_state(self.cfg, self.caches)
-        logits, self.caches = zoo.decode_step(
-            self.params, self.cfg,
-            {"tokens": torch.from_numpy(toks).to(self.device)},
-            self.caches, cache_index=0)
-        first = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        first = self._step(toks, 0)
         now = time.perf_counter()
         for slot in free:
             if slot.request is None:
@@ -143,7 +148,7 @@ class ContinuousBatcher:
         for i in active:
             toks[i, 0] = self.slots[i].request.out_tokens[-1]
         pos = min(self.slots[i].pos for i in active)
-        nxt = self._decode(toks, pos)
+        nxt = self._step(toks, pos)
         now = time.perf_counter()
         for i in active:
             slot = self.slots[i]

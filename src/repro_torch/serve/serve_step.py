@@ -24,7 +24,10 @@ placed by ``sharding.shard_model(..., mode="serve")``) the two steps take
 the whole batch and return every row's logits: each rank runs its rows
 (``parallel.batch_rows``), its caches are DTensors placed by
 ``sharding.cache_pspec`` (``shard_cache``), and the logits are gathered
-over the batch axes.
+over the batch axes; so does ``greedy_generate``, whose new tokens are
+every row's.  The encoder-decoder's ``frames`` and ``enc_out`` and the
+VLM's ``patch_embeds`` are split by rows as the tokens are, so each rank
+encodes its own rows once.
 """
 from __future__ import annotations
 
@@ -75,9 +78,10 @@ def _inputs(batch: dict, device: torch.device) -> dict:
     return {k: parallel.batch_rows(v) for k, v in out.items()}
 
 
-def _caches(cfg: ArchConfig, batch: int, max_len: int, dev) -> dict:
-    """Zeroed decode caches for ``batch`` rows: DTensors placed by
-    ``cache_pspec`` under a built mesh."""
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, dev) -> dict:
+    """Zeroed decode caches for ``batch`` rows (the whole batch): DTensors
+    placed by ``cache_pspec`` under a built mesh, each rank holding its
+    block."""
     mesh = current_mesh()
     if mesh is not None and mesh.device_mesh is not None:
         return shard_cache(zoo.init_cache_specs(cfg, batch, max_len), cfg,
@@ -95,7 +99,7 @@ def make_prefill_step(cfg: ArchConfig, max_len: int, *, device="cuda"):
     def prefill(params, batch):
         dev = check_device(params, device)
         inputs = _inputs(batch, dev)
-        caches = _caches(cfg, len(batch["tokens"]), max_len, dev)
+        caches = init_caches(cfg, len(batch["tokens"]), max_len, dev)
         enc_out = None
         if cfg.is_encdec:
             enc_out = zoo.encode_frames(
@@ -140,8 +144,10 @@ def greedy_generate(params, cfg: ArchConfig, prompt, *, max_new: int,
     prompt = _tokens(prompt, dev)
     B, S0 = prompt.shape
     max_len = max_len or (S0 + max_new)
-    caches = zoo.init_cache(cfg, B, max_len, device=dev)
-    extra = {} if enc_out is None else {"enc_out": _floats(enc_out, dev)}
+    caches = init_caches(cfg, B, max_len, dev)
+    prompt = parallel.batch_rows(prompt)
+    extra = {} if enc_out is None else {
+        "enc_out": parallel.batch_rows(_floats(enc_out, dev))}
     logits, caches = zoo.decode_step(params, cfg,
                                      {"tokens": prompt, **extra}, caches,
                                      cache_index=0)
@@ -153,4 +159,4 @@ def greedy_generate(params, cfg: ArchConfig, prompt, *, max_new: int,
             cache_index=idx)
         out.append(torch.argmax(logits[:, -1], dim=-1))
         idx += 1
-    return torch.stack(out, dim=1)
+    return parallel.gather_rows(torch.stack(out, dim=1))

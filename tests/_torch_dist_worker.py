@@ -1,4 +1,5 @@
-"""One rank of the multi-rank CPU tests (``tests/test_torch_distributed.py``).
+"""One rank of the multi-rank CPU tests (``tests/test_torch_distributed.py``,
+``tests/test_torch_distributed_families.py``).
 
     python tests/_torch_dist_worker.py <world> <rank> <dir> <case,case,...>
 
@@ -10,6 +11,7 @@ and rank 0 writes what the test compares to ``<dir>/out_<world>.npz``.
 A case that raises ends the rank with exit code 1, after printing its
 traceback.
 """
+import contextlib
 import dataclasses
 import os
 import sys
@@ -296,10 +298,188 @@ def case_decode(inp, out, d):
         out[f"dec_{name}_kplace"] = np.array([str(p) for p in k.placements])
 
 
+# --------------------------------------------- the SSM, hybrid, enc-dec, VLM
+FAMILY_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b", "seamless-m4t-medium",
+                "internvl2-26b")
+#: the leaves whose compute tensors a rank records: one per new schedule
+FAMILY_PROBES = ("layers.0.mamba.in_proj", "layers.0.mamba.in_x",
+                 "shared_attn.attn.wq", "dec_layers.0.cross.wq",
+                 "projector.fc1", "layers.0.attn.wq", "layers.0.mlp.gate")
+FAMILY_NEW = 4
+
+
+def family_config(arch: str):
+    return dataclasses.replace(reduce_config(get_config(arch)),
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def family_serve_config(arch: str, mesh):
+    """``make_serve_config`` for the model axis, then the cache policy
+    ``choose_serve_cache_policy`` picks, in f32."""
+    cfg = make_serve_config(family_config(arch), mesh.shape["model"])
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               **shd.choose_serve_cache_policy(cfg, mesh))
+
+
+class LocalLeaves:
+    """Records, for the length of the block, the compute tensor of each
+    ``Dense`` of ``model`` named in :data:`FAMILY_PROBES` at its first
+    call: the local tensor a rank multiplies by."""
+
+    MODULES = ("ssm", "blocks", "attention", "zoo", "layers")
+
+    def __init__(self, model):
+        self.names = {id(m): n for n, m in model.named_modules()
+                      if n in FAMILY_PROBES}
+        self.seen: dict = {}
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for name in self.MODULES:
+            mod = importlib.import_module(f"repro_torch.models.{name}")
+            orig = mod.dense_apply
+
+            def wrapped(p, x, *a, _orig=orig, **k):
+                n = self.names.get(id(p))
+                if n is not None and n not in self.seen:
+                    self.seen[n] = p.w.detach().clone()
+                return _orig(p, x, *a, **k)
+
+            mod.dense_apply = wrapped
+            self.saved.append((mod, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self.saved:
+            mod.dense_apply = orig
+
+
+def placements(model) -> dict:
+    return {name: np.array([str(pl) for pl in p.placements])
+            for name, p in model.named_parameters()}
+
+
+def family_batch(inp, tag: str) -> dict:
+    return {k: torch.from_numpy(inp[f"{tag}_train_{k}"])
+            for k in ("tokens", "targets", "frames", "patch_embeds")
+            if f"{tag}_train_{k}" in inp.files}
+
+
+def case_families_train(inp, out, d):
+    """Each family on 2x2: FSDP + TP (``train``) and ``dp_train``: the
+    loss and every gradient leaf, the placements, the local compute
+    tensors of the probes, and one whole train step's loss."""
+    mesh = init_mesh((2, 2), "cpu")
+    opt_cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    for arch in FAMILY_ARCHS:
+        cfg = family_config(arch)
+        ref = tree(inp, arch)
+        batch = family_batch(inp, arch)
+        for mode in ("train", "dp_train"):
+            rules = TRAIN_RULES_1POD if mode == "train" else dp_rules(
+                mesh.axis_names)
+            model = shd.shard_model(params_from_numpy(cfg, ref, device="cpu"),
+                                    cfg, mesh, mode=mode)
+            params = dict(model.named_parameters())
+            tag = f"{arch}_{mode}"
+            with use_sharding(rules, mesh), LocalLeaves(model) as probe:
+                local = {k: parallel.batch_rows(v) for k, v in batch.items()}
+                model.requires_grad_(True)
+                loss, _ = zoo.loss_fn(model, cfg, local)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                model.requires_grad_(False)
+            out[f"{tag}_loss"] = np.float64(loss.item())
+            for name, g in zip(params, grads):
+                out[f"{tag}_grad{SEP}{name}"] = full(g)
+            for name, pl in placements(model).items():
+                out[f"{tag}_place{SEP}{name}"] = pl
+            for name, t in probe.seen.items():
+                out[f"{tag}_local{SEP}{name}"] = t.float().numpy()
+            if mode == "train":  # the whole step, frames or patches split
+                step = make_train_step(cfg, opt_cfg)
+                opt = init_opt_state(params)
+                with use_sharding(rules, mesh):
+                    model, opt, met = step(model, opt, batch)
+                out[f"{tag}_step_loss"] = np.float64(met["loss"].item())
+
+
+def case_families_serve(inp, out, d):
+    """Each family on 1x4 in ``serve`` mode under its serve cache policy:
+    a prefill and teacher-forced decode steps (logits), greedy tokens
+    (``greedy_generate``), placements of the parameters and caches; the
+    SSM and hybrid batchers sharded against unsharded."""
+    from repro_torch.serve import ContinuousBatcher, greedy_generate
+
+    mesh = init_mesh((1, 4), "cpu")
+    for arch in FAMILY_ARCHS:
+        cfg = family_serve_config(arch, mesh)
+        ref = tree(inp, arch)
+        model = shd.shard_model(params_from_numpy(cfg, ref, device="cpu"),
+                                cfg, mesh, mode="serve")
+        prompt = inp[f"{arch}_serve_prompt"]
+        feed = inp[f"{arch}_serve_feed"]
+        first = {"tokens": prompt}
+        for k in ("frames", "patch_embeds"):
+            if f"{arch}_serve_{k}" in inp.files:
+                first[k] = inp[f"{arch}_serve_{k}"]
+        start = prompt.shape[1] + (first["patch_embeds"].shape[1]
+                                   if "patch_embeds" in first else 0)
+        max_len = start + feed.shape[1] + 1
+        prefill = make_prefill_step(cfg, max_len, device="cpu")
+        decode = make_decode_step(cfg, device="cpu")
+        rules = SERVE_RULES_1POD
+        with torch.no_grad(), use_sharding(rules, mesh), \
+                LocalLeaves(model) as probe:
+            enc = (zoo.encode_frames(model, cfg, torch.from_numpy(
+                first["frames"])) if cfg.is_encdec else None)
+            extra = {} if enc is None else {"enc_out": enc}
+            lg, caches = prefill(model, first)
+            logits = [lg]
+            for i in range(feed.shape[1]):
+                lg, caches = decode(model, caches, {
+                    "tokens": feed[:, i:i + 1], **extra}, start + i)
+                logits.append(lg)
+            out[f"{arch}_serve_logits"] = torch.cat(logits, 1).numpy()
+            out[f"{arch}_serve_greedy"] = greedy_generate(
+                model, cfg, prompt, max_new=FAMILY_NEW, enc_out=enc,
+                device="cpu").numpy()
+        for key, stack in caches.items():
+            for n, t in stack.items():
+                out[f"{arch}_serve_cache{SEP}{key}{SEP}{n}"] = np.array(
+                    [str(pl) for pl in t.placements])
+        for name, pl in placements(model).items():
+            out[f"{arch}_serve_place{SEP}{name}"] = pl
+        for name, t in probe.seen.items():
+            out[f"{arch}_serve_local{SEP}{name}"] = t.float().numpy()
+        if cfg.family not in ("ssm", "hybrid"):
+            continue
+        # two waves of the batcher: its SSM state zeroed on the blocks
+        waves = inp[f"{arch}_serve_waves"]
+        runs = []
+        for sharded in (True, False):
+            m = (model if sharded else
+                 params_from_numpy(cfg, ref, device="cpu"))
+            scope = (use_sharding(rules, mesh) if sharded
+                     else contextlib.nullcontext())
+            with scope:
+                b = ContinuousBatcher(cfg, m, slots=2, max_len=32,
+                                      device="cpu")
+                for row in waves:
+                    b.submit(row, FAMILY_NEW)
+                b.run_until_drained()
+            runs.append(np.array([r.out_tokens for r in sorted(
+                b.finished, key=lambda r: r.rid)]))
+        out[f"{arch}_batcher"] = np.stack(runs)
+
+
 CASES = {"ring": case_ring, "moe": case_moe, "train": case_train,
          "train_tp": case_train_tp,
          "compress": case_compress, "ckpt_save": case_ckpt_save,
-         "ckpt_restore": case_ckpt_restore, "decode": case_decode}
+         "ckpt_restore": case_ckpt_restore, "decode": case_decode,
+         "families_train": case_families_train,
+         "families_serve": case_families_serve}
 
 
 def main() -> int:

@@ -2048,3 +2048,30 @@ def test_dtensor_never_reaches_a_kernel(nccl_mesh):
     with pytest.raises(TypeError, match="DTensor"):
         flash_kernel.FlashAttentionFn.apply(dq, dq, dq, True, False)
     assert flash_kernel.LAUNCHES.count == before
+
+
+MESH_FAMILIES = ("falcon-mamba-7b", "zamba2-1.2b", "seamless-m4t-medium",
+                 "internvl2-26b")
+
+
+@pytest.mark.parametrize("arch", MESH_FAMILIES)
+def test_nccl_1x1_family_step_equals_unsharded(nccl_mesh, arch):
+    """The SSM, hybrid, encoder-decoder and VLM families' bf16 loss and
+    every gradient leaf, FSDP + TP (``train``) on the 1x1 NCCL mesh, bit
+    for bit the unsharded model's (every group of one rank is no group:
+    the one-device code runs)."""
+    from repro_torch.configs.base import reduce_config
+    from repro_torch.distributed.ctx import TRAIN_RULES_1POD, use_sharding
+
+    cfg = families.kernel_widths(reduce_config(get_config(arch)), "bfloat16")
+    plain = init_model(cfg, torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda")
+    sharded = _sharded_copy(cfg, "train", nccl_mesh)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in families.batch(
+        cfg, 4, 64, np.random.default_rng(2)).items()}
+    lp, gp = _loss_and_grads(plain, cfg, batch)
+    with use_sharding(TRAIN_RULES_1POD, nccl_mesh):
+        ls, gs = _loss_and_grads(sharded, cfg, batch)
+    assert torch.equal(lp, ls)
+    for name, g in gp.items():
+        assert torch.equal(g, gs[name].to_local()), name

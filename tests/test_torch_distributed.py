@@ -89,14 +89,16 @@ def _env() -> dict:
     return env
 
 
-def _run_world(d: pathlib.Path, world: int, cases: str) -> dict:
+def _run_world(d: pathlib.Path, world: int, cases: str,
+               timeout: float = WORLD_TIMEOUT_S) -> dict:
     """Start ``world`` worker ranks on ``cases``; their rank 0's results,
-    or a failure with every rank's output."""
+    or a failure with every rank's output (past ``timeout`` seconds, a
+    failure too)."""
     procs = [subprocess.Popen(
         [sys.executable, str(WORKER), str(world), str(rank), str(d), cases],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=_env()) for rank in range(world)]
-    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     logs = []
     try:
         for p in procs:
@@ -109,7 +111,7 @@ def _run_world(d: pathlib.Path, world: int, cases: str) -> dict:
         for p in procs:
             p.communicate()
         pytest.fail(f"a {world}-rank world ({cases}) ran past "
-                    f"{WORLD_TIMEOUT_S} s")
+                    f"{timeout} s")
     bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
     assert not bad, f"{world}-rank world ({cases}) failed {bad}:\n" + \
         "\n".join(logs)[-6000:]

@@ -5,8 +5,10 @@ then ``--resume`` to 5 from its checkpoint, and the token-only families
 repro_torch.launch.serve`` (smollm, the SSM and hybrid families, and
 DeepSeek's MLA with and without ``--kv-quant``); ``--mesh`` on one rank
 (1x1, the same tokens as without it, ``--kv-shard seq`` too) and on two
-ranks of a gloo world, and what it still refuses (a mesh that is not the
-world's size, a family past dense and MoE on a mesh past 1x1);
+ranks of a gloo world (every family the launchers run, the SSM, hybrid
+and VLM ones split over ``model`` on 1x2), and what it still refuses (a
+mesh that is not the world's size, the encoder-decoder in
+``launch.serve`` and the VLM in ``launch.train``, on any mesh);
 ``--device cuda`` without a card (exit 1, "no CUDA device");
 ``examples/train_video_lm_torch.py`` through its simulated fault;
 ``examples/video_analytics_torch.py`` (the store feeding the reduced VLM)
@@ -145,8 +147,10 @@ def test_serve_runs_mla(quant):
      "mesh (2, 2) holds 4 ranks; the world has 1"),
     (("-m", "repro_torch.launch.serve", "--mesh", "2,2"),
      "mesh (2, 2) holds 4 ranks; the world has 1"),
-    (("-m", "repro_torch.launch.train", "--arch", "zamba2-1.2b", "--mesh",
-      "2,1"), "queue 1 item 9"),
+    (("-m", "repro_torch.launch.serve", "--arch", "seamless-m4t-medium",
+      "--mesh", "1,2"), "pass no enc_out to decode_step"),
+    (("-m", "repro_torch.launch.train", "--arch", "internvl2-26b",
+      "--mesh", "2,1"), "feeds tokens only"),
 ])
 def test_refused_flags(args, names):
     out = _run(*args, "--device", "cpu")
@@ -213,21 +217,38 @@ def _ranks(n: int, *args, timeout=240):
             for p, (o, e) in zip(procs, outs)]
 
 
-@pytest.mark.parametrize("mesh,kw", [("2,1", ()), ("1,2", ("--kv-shard",
-                                                           "seq"))],
-                         ids=["data", "model_seq"])
-def test_launchers_on_two_ranks(mesh, kw, tmp_path):
-    train = _ranks(2, *TRAIN, "--steps", "2", "--mesh", mesh,
-                   "--checkpoint-dir", str(tmp_path), "--checkpoint-every",
-                   "2", "--arch", "qwen3-moe-30b-a3b")
-    assert [r.returncode for r in train] == [0, 0], train[0].stderr + \
-        train[1].stderr
-    assert "done: 2 steps" in train[0].stdout and not train[1].stdout
-    assert (tmp_path / "LATEST").read_text() == "step_000000002"
-    serve = _ranks(2, *SERVE, "--mesh", mesh, *kw)
+@pytest.mark.parametrize("train_arch,serve_arch,mesh,kw", [
+    ("qwen3-moe-30b-a3b", "smollm-135m", "2,1", ()),
+    ("qwen3-moe-30b-a3b", "smollm-135m", "1,2", ("--kv-shard", "seq")),
+    ("zamba2-1.2b", "zamba2-1.2b", "2,1", ()),
+    ("zamba2-1.2b", "zamba2-1.2b", "1,2", ()),
+    ("falcon-mamba-7b", "falcon-mamba-7b", "2,1", ()),
+    ("falcon-mamba-7b", "falcon-mamba-7b", "1,2", ()),
+    (None, "internvl2-26b", "2,1", ()),
+    (None, "internvl2-26b", "1,2", ())],
+    ids=["data", "model_seq", "hybrid_data", "hybrid_model", "ssm_data",
+         "ssm_model", "vlm_data", "vlm_model"])
+def test_launchers_on_two_ranks(train_arch, serve_arch, mesh, kw, tmp_path):
+    """``launch.train`` (2 steps, rank 0's checkpoint) and ``launch.serve``
+    as the 2 ranks of a gloo world; on 1x2 the SSM and hybrid mixers,
+    Zamba2's shared block and the VLM's projector split over ``model``.
+    On 2x1 the serve's tokens are those of the same launcher without a
+    mesh (on 1x2 bf16 partial sums may round apart from the whole)."""
+    if train_arch is not None:
+        train = _ranks(2, *TRAIN, "--steps", "2", "--mesh", mesh,
+                       "--checkpoint-dir", str(tmp_path),
+                       "--checkpoint-every", "2", "--arch", train_arch)
+        assert [r.returncode for r in train] == [0, 0], train[0].stderr + \
+            train[1].stderr
+        assert "done: 2 steps" in train[0].stdout and not train[1].stdout
+        assert (tmp_path / "LATEST").read_text() == "step_000000002"
+    serve = _ranks(2, *SERVE, "--arch", serve_arch, "--mesh", mesh, *kw)
     assert [r.returncode for r in serve] == [0, 0], serve[0].stderr + \
         serve[1].stderr
     assert _tokens_line(serve[0]).startswith("tokens 2x5 sha256=")
+    if serve_arch != "smollm-135m" and mesh == "2,1":
+        assert _tokens_line(serve[0]) == _tokens_line(
+            _run(*SERVE, "--arch", serve_arch))
 
 
 @pytest.mark.parametrize("module", ["repro_torch.launch.train",
