@@ -400,7 +400,14 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    row ok or skipped, one line a
    cell (dominant term, compute_s, memory_s, total_device_bytes,
    fits_hbm), smollm-135m's prefill_32k ok and fitting the card, its
-   decode_32k (a 96.6 GB KV cache) not; (b) that prefill_32k cell on the
+   decode_32k (a 96.6 GB KV cache) not; beside them, ``--mesh pod`` and
+   ``--mesh multi`` over ``DRYRUN_MESH_CELLS`` at full depth, rank 0 of a
+   fake world of 256 and 512 ranks on ``meta``: smollm-135m x train_4k on
+   16x16 (the reference's CI cell) ok, fitting the card, with collective
+   bytes, and deepseek-v2-lite-16b x decode_32k on 2x16x16 ok with
+   collective bytes, one line each (chips, policy, the three terms,
+   collective bytes and ops by kind, bytes a rank); (b) that prefill_32k
+   cell on the
    card at its production shape: full-width smollm-135m in bf16 drawn on
    the card, ``make_prefill_step`` on B=32 prompts of 32,768 tokens from
    the seed, one warm-up on one prompt, then ``DRYRUN_TIMED`` timed
@@ -5109,10 +5116,11 @@ DRYRUN_CELL = "prefill_32k"
 #: last, over all keys, in batch rows 0 and B - 1)
 DRYRUN_TIMED = 2
 DRYRUN_ROWS = 256
-#: (a)'s processes, started together beside (b): (archs, shapes) each,
-#: over one architecture of each family (smollm-135m the dense one, whose
-#: row (b) reads), balanced by their walks' times on one host core
-#: (zamba2-1.2b's train and prefill walks the longest); the other dense
+#: (a)'s processes, started together beside (b): (archs, shapes) each
+#: (every arch with every shape), over one architecture of each family
+#: (smollm-135m the dense one, whose row (b) reads), balanced by their
+#: walks' times on one host core (zamba2-1.2b's train and prefill walks
+#: the longest, each alone in its process); the other dense
 #: architectures' cells are walked by tests/test_torch_dryrun.py.
 #: falcon-mamba-7b's train_4k and prefill_32k are left out
 #: (``DRYRUN_LEFT_OUT``): their walks loop over 16 and 128 scan chunks a
@@ -5121,12 +5129,16 @@ DRYRUN_ROWS = 256
 #: 64 layers)
 DRYRUN_GROUPS = (
     (("zamba2-1.2b",), ("train_4k",)),
-    (("zamba2-1.2b",), ("prefill_32k", "decode_32k", "long_500k")),
-    (("falcon-mamba-7b",), ("decode_32k", "long_500k")),
+    (("zamba2-1.2b",), ("prefill_32k",)),
+    (("falcon-mamba-7b", "zamba2-1.2b"), ("decode_32k", "long_500k")),
     (("seamless-m4t-medium", "deepseek-v2-lite-16b"), ("all",)),
     (("qwen3-moe-30b-a3b", "internvl2-26b", "smollm-135m"), ("all",)))
 DRYRUN_LEFT_OUT = {("falcon-mamba-7b", "train_4k"),
                    ("falcon-mamba-7b", "prefill_32k")}
+#: (a)'s walks over the reference's production meshes, one process each:
+#: (--mesh, arch, shape, whether the row must fit the card)
+DRYRUN_MESH_CELLS = (("pod", "smollm-135m", "train_4k", True),
+                     ("multi", MLA_ARCH, "decode_32k", False))
 
 
 def _dryrun_jobs(out_root: str) -> list:
@@ -5142,6 +5154,12 @@ def _dryrun_jobs(out_root: str) -> list:
             "repro_torch.launch.dryrun", "--mesh", "single", "--arch",
             ",".join(archs), "--shape", ",".join(shapes), "--out",
             os.path.join(out_root, str(i)), env={"CUDA_VISIBLE_DEVICES": ""}))
+    for mesh, arch, shape, _ in DRYRUN_MESH_CELLS:
+        jobs.append(_Launcher(
+            f"dryrun (a) --mesh {mesh} {arch} x {shape}",
+            "repro_torch.launch.dryrun", "--mesh", mesh, "--arch", arch,
+            "--shape", shape, "--out", os.path.join(out_root, mesh),
+            env={"CUDA_VISIBLE_DEVICES": ""}))
     return jobs
 
 
@@ -5166,6 +5184,33 @@ def _dryrun_rows(jobs: list, out_root: str) -> dict:
           f"tests/test_torch_dryrun_ssm.py): {sorted(DRYRUN_LEFT_OUT)}",
           flush=True)
     return rows
+
+
+def _dryrun_mesh_rows(out_root: str) -> None:
+    """(a)'s rows over the production meshes (``DRYRUN_MESH_CELLS``): each
+    ok with collective bytes, fitting the card where it must; one line
+    each."""
+    from repro_torch.launch.dryrun import MESHES, rows_file
+
+    for mesh, arch, shape, fits in DRYRUN_MESH_CELLS:
+        name = MESHES[mesh][0]
+        path = pathlib.Path(out_root) / mesh / rows_file(name)
+        r = json.loads(path.read_text().splitlines()[-1])
+        check(r["status"] == "ok" and (arch, shape) == (r["arch"], r["shape"])
+              and r["collectives"]["total_bytes"] > 0
+              and r["roofline"]["collective_s"] > 0
+              and (r["fits_hbm"] or not fits),
+              f"dryrun (a) {name} {arch} x {shape}: {r}")
+        t, c = r["roofline"], r["collectives"]
+        print(f"dryrun (a) {name} {arch} x {shape}: chips={r['chips']} "
+              f"policy={r.get('policy', 'serve')} dominant={t['dominant']} "
+              f"compute_s={t['compute_s']:.6g} memory_s={t['memory_s']:.6g}"
+              f" collective_s={t['collective_s']:.6g} collective bytes "
+              f"{c['total_bytes']:.6g} by kind "
+              f"{ {k: round(v) for k, v in c['bytes_by_kind'].items()} } "
+              f"ops {c['count_by_kind']} total_device_bytes (a rank) "
+              f"{r['memory']['total_device_bytes']:.6g} fits_hbm="
+              f"{r['fits_hbm']} (walk {r['walk_s']} s)", flush=True)
 
 
 def _rows_vs_plain(q, k, v, o, rows: slice) -> tuple:
@@ -5300,6 +5345,7 @@ def dryrun_phase(seed: int, train_med: float) -> int:
 
     # (a) the table
     rows = _dryrun_rows(jobs, out_root)
+    _dryrun_mesh_rows(out_root)
     shutil.rmtree(out_root, ignore_errors=True)
     for (arch, name), r in sorted(rows.items()):
         check(r["status"] in ("ok", "skipped"),

@@ -3,14 +3,18 @@ dry run under a named variant and print its roofline terms and
 collective breakdown.
 
     PYTHONPATH=src python scripts/hillclimb_torch.py --arch olmo-1b \\
-        --shape train_4k --variant baseline|f32w|... [--out DIR]
+        --shape train_4k --variant baseline|f32w|... \\
+        [--mesh single|pod|multi] [--out DIR]
 
 The port's counterpart of ``scripts/hillclimb.py``, over the port's dry
-run (``repro_torch.launch.dryrun``) on one H100: the variant is read by
+run (``repro_torch.launch.dryrun``) on one H100 (``single``), the
+reference's 16x16 (``pod``) or its 2x16x16 (``multi``), the last two as
+rank 0 of a ``fake`` world of 256 or 512 ranks: the variant is read by
 the port through ``REPRO_TORCH_VARIANT`` (``f32w`` keeps f32 training
-params); the row is appended to ``<out>/hillclimb_<arch>_<shape>.jsonl``
-(default ``results/dryrun_torch/``).  ``--mesh multi`` exits 1: the dry
-run over a multi-card mesh is not ported (ROADMAP, queue 1 item 9).
+params; over a mesh ``plainkv`` keeps the plain cache, ``fsdp_tp`` and
+``nosp`` as in the reference); the row is appended to
+``<out>/hillclimb_<arch>_<shape>.jsonl`` (default
+``results/dryrun_torch/``).
 """
 import argparse
 import json
@@ -26,20 +30,18 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--variant", default="baseline")
-    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
+    ap.add_argument("--mesh", choices=["single", "pod", "multi"],
+                    default="single")
     ap.add_argument("--out", default=str(ROOT / "results" / "dryrun_torch"))
     args = ap.parse_args(argv)
 
     # variant switches are read inside repro_torch via env
     os.environ["REPRO_TORCH_VARIANT"] = args.variant
 
-    from repro_torch.launch.dryrun import MESH_NAME, run_cell
-    from repro_torch.launch.mesh import MESH_REFUSED, make_production_mesh
+    from repro_torch.launch.dryrun import MESHES, run_cell
 
-    if args.mesh == "multi":
-        print(f"hillclimb: --mesh multi: {MESH_REFUSED}", file=sys.stderr)
-        return 1
-    row = run_cell(args.arch, args.shape, make_production_mesh(), MESH_NAME)
+    mesh_name, mesh = MESHES[args.mesh]
+    row = run_cell(args.arch, args.shape, mesh, mesh_name)
     if row["status"] != "ok":
         print("ERROR:", row.get("error", row.get("reason")))
         print(row.get("traceback", "")[-2000:])
@@ -57,7 +59,8 @@ def main(argv=None) -> int:
         print(f"  {k:20s} {v / 1e9:10.2f} GB/chip "
               f"(ops={c['count_by_kind'].get(k)})")
     out = json.dumps({"variant": args.variant, **{k: row[k] for k in
-                     ("arch", "shape", "roofline", "collectives")}})
+                     ("arch", "shape", "mesh", "roofline", "collectives",
+                      "memory")}})
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / f"hillclimb_{args.arch}_{args.shape}.jsonl",

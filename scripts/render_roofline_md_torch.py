@@ -6,7 +6,9 @@ rows.
 
 The port's counterpart of ``scripts/render_roofline_md.py``, over the
 rows ``python -m repro_torch.launch.dryrun`` writes for one H100
-(``1xh100.jsonl``); the delta table compares ``1xh100_baseline.jsonl``,
+(``1xh100.jsonl``) and, where they were walked, for the reference's
+16x16 (``--mesh pod``: ``16_16.jsonl``) and 2x16x16 (``--mesh multi``:
+``2_16_16.jsonl``); the delta tables compare ``<rows>_baseline.jsonl``,
 where a baseline run was saved under that name, with them.
 """
 import argparse
@@ -14,8 +16,14 @@ import json
 import pathlib
 
 RES = pathlib.Path("results/dryrun_torch")
-ROWS = "1xh100.jsonl"
-BASELINE = "1xh100_baseline.jsonl"
+#: (title, rows file) of each mesh's table
+TABLES = (("One H100 (1xh100)", "1xh100.jsonl"),
+          ("Single-pod 16x16", "16_16.jsonl"),
+          ("Multi-pod 2x16x16", "2_16_16.jsonl"))
+
+
+def baseline_of(rows_file: str) -> str:
+    return rows_file.replace(".jsonl", "_baseline.jsonl")
 
 
 def load(path: pathlib.Path) -> dict:
@@ -91,18 +99,23 @@ def main(argv=None) -> int:
                     choices=["all", "table", "delta", "mfu"])
     ap.add_argument("--dir", default=str(RES))
     args = ap.parse_args(argv)
-    rows = load(pathlib.Path(args.dir) / ROWS)
-    if args.which in ("all", "table"):
-        print("### One H100 (1xh100)\n")
-        print(roofline_table(rows))
-    if args.which in ("all", "delta"):
-        base = load(pathlib.Path(args.dir) / BASELINE)
-        print("\n### Baseline -> now, dominant term per cell\n")
-        print(delta_table(base, rows) if base else
-              f"(no {BASELINE} in {args.dir})")
-    if args.which in ("all", "mfu"):
-        print("\n### Projected roofline fractions (one H100)\n")
-        print(mfu_summary(rows))
+    d = pathlib.Path(args.dir)
+    # one H100's tables always; a mesh's where its rows were walked
+    shown = [(title, name, load(d / name)) for i, (title, name) in
+             enumerate(TABLES) if i == 0 or (d / name).exists()]
+    for title, name, rows in shown:
+        if args.which in ("all", "table"):
+            print(f"### {title}\n")
+            print(roofline_table(rows) + "\n")
+        if args.which in ("all", "delta"):
+            base = load(d / baseline_of(name))
+            print(f"### Baseline -> now, dominant term per cell ({title})"
+                  f"\n")
+            print((delta_table(base, rows) if base else
+                   f"(no {baseline_of(name)} in {args.dir})") + "\n")
+        if args.which in ("all", "mfu"):
+            print(f"### Projected roofline fractions ({title})\n")
+            print(mfu_summary(rows) + "\n")
     return 0
 
 

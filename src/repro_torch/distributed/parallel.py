@@ -18,8 +18,13 @@ tensors and this module supplies what GSPMD would have inserted:
   sum over the model axis where each model rank used the weight for its
   own heads, and nothing where every model rank computed the same.
 - **Tensor parallelism** (Megatron's schedule, what GSPMD derives for
-  the reference's specs): attention over this rank's heads, the MLP over
-  its slice of ``d_ff``, the MoE over its experts; the input enters
+  the reference's specs): attention over this rank's heads (MLA's too:
+  its query and up-projection columns and its output rows, the latent's
+  down-projection whole), the MLP over its slice of ``d_ff``, the MoE
+  over its experts, the vocabulary over its rows of the embedding and
+  its columns of the output projection (:func:`vocab_group`: a masked
+  lookup summed over ``model``, and a loss and greedy argmax that never
+  gather the whole logits); the input enters
   through :func:`copy_to` (identity forward, all-reduce of the gradient)
   and the partial output leaves through :func:`reduce_from` (all-reduce
   forward, identity backward).  The other families, each as GSPMD
@@ -242,13 +247,55 @@ def attention_group(cfg) -> Optional[Group]:
     the rules split heads over an axis of size M > 1, the effective KV
     heads (``n_kv_heads * kv_repeat``) divide M, and the cache is not
     placed by sequence (then every rank computes every head over its
-    positions).  MLA runs whole on every rank."""
+    positions).  MLA has :func:`mla_group`."""
     g = logical_group("heads")
     if g is None or cfg.mla is not None or cfg.n_heads == 0 \
             or cfg.kv_cache_shard == "seq" \
             or (cfg.n_kv_heads * cfg.kv_repeat) % g.size:
         return None
     return g
+
+
+def mla_group(cfg) -> Optional[Group]:
+    """The model group when an MLA attention runs over this rank's heads:
+    the rules split heads over an axis of size M > 1 that divides them.
+    Every rank computes the whole latent and rope key (its cache is
+    placed by batch only, ``cache_pspec``) and attends with its heads."""
+    g = logical_group("heads")
+    if g is None or cfg.mla is None or cfg.n_heads % g.size:
+        return None
+    return g
+
+
+def vocab_group(vocab: int) -> Optional[Group]:
+    """The model group when the vocabulary is split over this rank's rows
+    of ``embed.table`` and columns of ``lm_head.w``: the rules map
+    ``vocab`` to an axis of size M > 1 that divides ``vocab``, as
+    ``param_pspec`` places them (internvl2's 92,553 and seamless' 256,206
+    do not divide 16, and stay whole)."""
+    g = logical_group("vocab")
+    if g is None or vocab % g.size:
+        return None
+    return g
+
+
+def vocab_argmax(x: torch.Tensor, g: Optional[Group]) -> torch.Tensor:
+    """``torch.argmax(x, -1)`` of the whole vocabulary from this rank's
+    columns ``x`` [..., V/M] of it: each rank's largest value and its
+    global index, gathered over ``g``, the first rank's where several
+    hold the maximum (``torch.argmax`` keeps the first maximum)."""
+    idx = torch.argmax(x, dim=-1)
+    if g is None:
+        return idx
+    val = torch.take_along_dim(x, idx[..., None], dim=-1)[..., 0]
+    idx = idx + g.rank * x.shape[-1]
+    vals = [torch.empty_like(val) for _ in range(g.size)]
+    idxs = [torch.empty_like(idx) for _ in range(g.size)]
+    dist.all_gather(vals, val.contiguous(), group=g.group)
+    dist.all_gather(idxs, idx.contiguous(), group=g.group)
+    vals, idxs = torch.stack(vals), torch.stack(idxs)
+    first = torch.argmax((vals == vals.amax(dim=0)).to(torch.int32), dim=0)
+    return torch.take_along_dim(idxs, first[None], dim=0)[0]
 
 
 def kv_split(cfg, g: Group) -> bool:
@@ -328,6 +375,14 @@ class Plan(NamedTuple):
 
 
 _WHOLE = Plan(FULL)
+_MLA = re.compile(
+    r"^attn\.(wq|wq_a|q_a_norm|wq_b|wkv_a|kv_a_norm|wkv_b|wo)\.(w|scale)$")
+#: MLA's leaves that hold this rank's heads -> the dim of them; the rest
+#: (``wq_a``, ``q_a_norm``, ``wkv_a``, ``kv_a_norm``) are whole, and each
+#: rank reads them for its own heads
+_MLA_SHARD = {"wq": 1, "wq_b": 1, "wkv_b": 1, "wo": 0}
+#: the vocabulary's leaves -> the dim of this rank's rows or columns
+_VOCAB = {"embed.table": 0, "lm_head.w": 1}
 _ATTN = re.compile(
     r"^(attn|cross)\.(wq|wk|wv|wo|q_norm|k_norm)\.(w|b|scale)$")
 _MLP = re.compile(r"^(mlp|moe\.shared)\.(gate|up|down)\.w$")
@@ -359,16 +414,27 @@ def plan(name: str, cfg) -> Plan:
     ...) under the layer's config, Zamba2's shared block's
     (``shared_attn.attn.wq.w``, ``shared_attn.out_proj.w``, ...) under
     its wide config, the VLM projector's (``projector.fc1.w``) under the
-    model's.  ``SHARD`` -- the code takes this rank's chunk of ``dim``
+    model's; ``embed.table`` and ``lm_head.w`` under the model's config.
+    ``SHARD`` -- the code takes this rank's chunk of ``dim``
     over the group's axis; ``SPLIT`` -- it takes the whole, but each rank
     of the group uses it for its own part, so its gradient sums over the
     group; ``FULL`` (group None) -- the whole, used alike on every
     rank."""
+    if name in _VOCAB:
+        g = vocab_group(cfg.vocab)
+        return Plan(SHARD, _VOCAB[name], g) if g is not None else _WHOLE
     if name.startswith(SHARED):
         name = name[len(SHARED):]
         if name == "out_proj.w":  # rows of the wide stream
             g = mlp_group(cfg.d_model)
             return Plan(SHARD, 0, g) if g is not None else _WHOLE
+    m = _MLA.match(name) if cfg.mla is not None else None
+    if m:
+        g = mla_group(cfg)
+        if g is None:
+            return _WHOLE
+        dim = _MLA_SHARD.get(m.group(1))
+        return Plan(SPLIT, None, g) if dim is None else Plan(SHARD, dim, g)
     m = _ATTN.match(name)
     if m:
         where, proj, leaf = m.groups()

@@ -33,6 +33,16 @@ from repro_torch.kernels.flash_attention.ops import flash_attention_lse_op
 NEG_INF = -1e30
 
 
+def _exchange(p2p_op_list):
+    """``dist.batch_isend_irecv`` of the ring's hop; under an open count
+    (``launch/analytic_cost.py::StepCount``) its receives are logged, and
+    a hop of ``meta`` tensors, which no backend carries, is skipped."""
+    from repro_torch.launch.analytic_cost import count_p2p
+
+    return [] if count_p2p(p2p_op_list) else \
+        dist.batch_isend_irecv(p2p_op_list)
+
+
 def _local_block(q, k, v, q_pos, kv_pos, causal, scale):
     """q: [B,Sq,KV,G,D]; k,v: [B,Skv,KV,D] -> (scores-weighted acc, m, l)."""
     s = torch.einsum("bqkgd,bpkd->bkgqp", q.float(), k.float()) * scale
@@ -115,7 +125,7 @@ def ring_attention(q, k, v, *, mesh, axis: str = "model",
         reqs = []
         if i < n - 1:  # rotate KV one hop around the ring
             kn, vn = torch.empty_like(kb), torch.empty_like(vb)
-            reqs = dist.batch_isend_irecv([
+            reqs = _exchange([
                 dist.P2POp(dist.isend, kb, nxt, group),
                 dist.P2POp(dist.isend, vb, nxt, group),
                 dist.P2POp(dist.irecv, kn, prv, group),

@@ -367,19 +367,31 @@ def cache_shardings(caches, cfg: ArchConfig, mesh):
         caches)
 
 
-def shard_cache(cache_specs: dict, cfg: ArchConfig, mesh) -> dict:
+def _contiguous_strides(shape) -> tuple:
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def shard_cache(cache_specs: dict, cfg: ArchConfig, mesh,
+                device=None) -> dict:
     """Zeroed decode caches as DTensors placed by :func:`cache_pspec`,
     from ``zoo.init_cache_specs``' ``meta`` tensors: each rank allocates
-    only its block."""
+    only its block, on the mesh's device, or with ``device="meta"`` none
+    at all (a dry run's walk)."""
     from torch.distributed.tensor import DTensor
 
     dm = mesh.device_mesh
+    if device is None or torch.device(device).type != "meta":
+        device = (dm.device_type if dm.device_type != "cuda" else
+                  torch.device("cuda", torch.cuda.current_device()))
     shards = cache_shardings(cache_specs, cfg, mesh)
     return {key: {n: DTensor.from_local(
         torch.zeros(shards[key][n].local_shape(t.shape), dtype=t.dtype,
-                    device=dm.device_type if dm.device_type != "cuda"
-                    else torch.device("cuda", torch.cuda.current_device())),
+                    device=device),
         dm, shards[key][n].placements, shape=t.shape,
-        stride=torch.empty(t.shape, device="meta").stride())
+        stride=_contiguous_strides(t.shape))
         for n, t in stack.items()}
         for key, stack in cache_specs.items()}

@@ -45,6 +45,23 @@ takes its naive path instead (Sq not a multiple of qc, or Skv of kc).
 The backward is charged twice the forward: what ``jax.grad`` of that
 forward counts (dS·k, dSᵀ·q, dO·vᵀ and Pᵀ·dO for the two products).
 
+Collectives (:class:`StepCount`'s ``collective_ops``): every ``c10d``
+and ``_c10d_functional`` op the step dispatches (the port's own
+``dist.all_reduce`` / ``all_gather`` and DTensor's ``redistribute``, on
+a real group or a ``fake`` one: ``launch/mesh.py::fake_world``) is logged
+as (the reference's kind, the group's size, the bytes of its result
+buffer), before the ``meta`` answer of a repeated call
+(:func:`_meta_call`) could hide it.  ``wait_tensor`` and
+``_wrap_tensor_autograd`` are not collectives.  Point-to-point traffic
+never reaches the dispatcher on ``meta`` (the ``fake`` backend has no
+``meta`` device for ``isend`` / ``irecv``), so the ring's exchange
+(``distributed/ring_attention.py::_exchange``) hands its ops to
+:func:`count_p2p`: each receive is a ``collective-permute`` of its buffer
+(as the reference's ``ppermute``), and an exchange of ``meta`` tensors is
+skipped.
+``launch/roofline.py::collective_bytes_from_ops`` sums the log in the
+dict shape of ``collective_bytes_from_hlo``.
+
 Memory (:class:`StepCount`'s ``peak_bytes``): the walk follows every
 storage the step's own ops allocate, from its allocation until the last
 tensor on it is freed, and keeps the peak of their sum.  That is the peak
@@ -198,12 +215,16 @@ _SCALARS = (int, float, bool, str, type(None), torch.dtype, torch.device,
             torch.layout, torch.memory_format)
 
 
+#: the tensor types whose ``meta`` outputs are their metadata alone
+_PLAIN = (torch.Tensor, torch.nn.Parameter)
+
+
 def _meta_key(func, leaves, kwargs):
     key = [func, tuple(kwargs)]
     for x in leaves:
         if isinstance(x, torch.Tensor):
-            if x.device.type != "meta":
-                return None
+            if x.device.type != "meta" or type(x) not in _PLAIN:
+                return None  # a subclass (a DTensor) has more than metadata
             key.append((x.shape, x.stride(), x.dtype, x.storage_offset()))
         elif isinstance(x, _SCALARS):
             key.append(x)
@@ -233,15 +254,97 @@ def _meta_call(func, args, kwargs, leaves):
     if any(isinstance(t, torch.Tensor) and id(t.untyped_storage()) in
            storages for t in flat):  # aliases an input after all
         _FRESH[func] = False
-    elif key is not None and all(isinstance(t, torch.Tensor) and
+    elif key is not None and all(type(t) in _PLAIN and
                                  t.device.type == "meta" for t in flat):
         _META_OUT[key] = ([(t.shape, t.stride(), t.dtype) for t in flat],
                           tree)
     return out
 
 
+#: the collective ops a count logs -> the reference's kind (the others of
+#: the two namespaces, ``wait_tensor`` and ``_wrap_tensor_autograd`` among
+#: them, move nothing of their own)
+_COLLECTIVES = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_coalesced_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "all_to_all_single": "all-to-all",
+}
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
+
+
+def _group_size(func, args) -> int:
+    """The size of the process group a collective op names: a boxed
+    ``ProcessGroup`` (``c10d``) or its ``group_name``
+    (``_c10d_functional``)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    for spec, a in zip(func._schema.arguments, args):
+        if isinstance(a, torch.ScriptObject) and \
+                "ProcessGroup" in str(a._type()):
+            return dist.ProcessGroup.unbox(a).size()
+        if spec.name == "group_name":
+            return _resolve_process_group(a).size()
+    raise ValueError(f"{func}: a collective op without a process group")
+
+
+def _tensor_bytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_tensor_bytes(t) for t in x)
+    return 0
+
+
+def _collective(func, args, out):
+    """(kind, group size, result bytes) of a collective op, or None: the
+    result buffer is the output of a functional op and the first argument
+    of an in-place ``c10d`` one (the tensors reduced in place, the
+    gathered or scattered outputs)."""
+    if func.namespace not in _COLLECTIVE_NAMESPACES:
+        return None
+    kind = _COLLECTIVES.get(func.overloadpacket.__name__)
+    if kind is None:
+        return None
+    result = out if func.namespace == "_c10d_functional" else args[0]
+    return kind, _group_size(func, args), _tensor_bytes(result)
+
+
 #: the counts open, the innermost last
 _OPEN: list = []
+
+
+def count_p2p(p2p_op_list) -> bool:
+    """Log the receives of a ``batch_isend_irecv`` list to the innermost
+    open count, each a ``collective-permute`` of its buffer; whether a
+    count is open and the list holds ``meta`` tensors, which no backend
+    carries (the caller then skips the exchange)."""
+    import torch.distributed as dist
+
+    if not _OPEN:
+        return False
+    meta = False
+    for op in p2p_op_list:
+        meta = meta or op.tensor.device.type == "meta"
+        if op.op in (dist.irecv, dist.recv):
+            group = op.group if op.group is not None else \
+                dist.distributed_c10d._get_default_group()
+            _OPEN[-1].collective_ops.append((
+                "collective-permute", group.size(), _tensor_bytes(op.tensor)))
+    return meta
 
 
 class ChargedFlashAttentionFn(FlashAttentionFn):
@@ -268,12 +371,13 @@ class StepCount(TorchDispatchMode):
     """A walk of what a step dispatches: ``flops`` (module docstring),
     ``peak_bytes`` and ``live_bytes`` of the storages its ops allocate.
     ``tiling`` is the reference's chunking of the step's attention calls
-    (:func:`tiling_of` its config).  A count is the process's while it is
+    (:func:`tiling_of` its config).  ``collective_ops`` logs each
+    collective (module docstring).  A count is the process's while it is
     open: an attention call of another thread is charged to it too.
 
         with StepCount(tiling_of(cfg)) as count:
             step(*args)
-        count.flops, count.peak_bytes
+        count.flops, count.peak_bytes, count.collective_ops
     """
 
     def __init__(self, tiling=DEFAULT_TILING):
@@ -283,6 +387,7 @@ class StepCount(TorchDispatchMode):
         self.attention_flops = 0.0
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.collective_ops: list[tuple] = []  # (kind, group size, bytes)
         self._inside = 0  # > 0 inside a charged attention call
         self._live: dict[int, tuple] = {}  # id(storage) -> (bytes, ref)
 
@@ -340,6 +445,9 @@ class StepCount(TorchDispatchMode):
         fresh = _fresh(func)  # else a view or an in-place op: nothing new
         out = (_meta_call(func, args, kwargs, _leaves(args, kwargs))
                if fresh else func(*args, **kwargs))
+        coll = _collective(func, args, out)
+        if coll is not None:  # logged whether or not the cache answered
+            self.collective_ops.append(coll)
         if not self._inside:
             self.flops += _product_flops(func, args, out)
         if fresh and _FRESH[func]:

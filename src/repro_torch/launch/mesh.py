@@ -10,12 +10,17 @@ described at any size (the reference's 16x16 and 2x16x16 layouts) to
 evaluate specs.  :func:`init_mesh` builds one over the ranks of a
 ``torch.distributed`` world: its ``device_mesh`` is the ``DeviceMesh``
 that the port's sharded steps run on, NCCL for ``cuda``, gloo for
-``cpu``.  One card makes a 1x1 mesh.  ``make_production_mesh`` returns
-the one-card layout; its ``multi_pod`` mesh stays refused: walking a
-multi-card step is what is left of ROADMAP queue 1 item 9.
+``cpu``.  One card makes a 1x1 mesh.  ``make_production_mesh`` describes
+the one-card layout, the reference's 16x16 pod (``pod=True``) or its
+``(pods, 16, 16)`` layout over pods (``multi_pod=True``).  A dry run over
+such a mesh walks rank 0 of it in one process: :func:`fake_world` opens
+torch's ``fake`` process-group backend at rank 0 of ``mesh.size`` ranks,
+whose collectives complete without moving data, so a step placed over
+the whole mesh runs on ``meta`` tensors (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 from dataclasses import dataclass, field
@@ -23,9 +28,6 @@ from typing import Optional
 
 import torch
 
-MESH_REFUSED = ("a mesh over pods, or a dry run over a multi-card mesh, is "
-                "not ported; the dry run walks one H100 (ROADMAP, queue 1 "
-                "item 9, what is left of distributed/)")
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
@@ -56,15 +58,49 @@ class Mesh:
         return n
 
 
-def make_production_mesh(*, multi_pod: bool = False, pods: int = 2) -> Mesh:
-    """One H100 with axes ``data=1`` and ``model=1``.  ``multi_pod`` (a
-    mesh over ``pods`` pods) raises ``NotImplementedError`` naming ROADMAP
-    queue 1 item 9's remainder."""
+#: the reference's pod: a 16x16 slice over ``("data", "model")``
+POD = (16, 16)
+
+
+def make_production_mesh(*, multi_pod: bool = False, pods: int = 2,
+                         pod: bool = False) -> Mesh:
+    """A described mesh: one H100 with axes ``data=1`` and ``model=1``;
+    with ``pod`` the reference's 16x16 over ``("data", "model")``; with
+    ``multi_pod`` its ``(pods, 16, 16)`` over ``("pod", "data",
+    "model")``.  None of them builds a device mesh (:func:`fake_world`
+    does, to walk one)."""
     if multi_pod:
-        raise NotImplementedError(
-            f"make_production_mesh(multi_pod=True, pods={pods}): "
-            f"{MESH_REFUSED}")
+        return Mesh(("pod", "data", "model"), (pods,) + POD)
+    if pod:
+        return Mesh(("data", "model"), POD)
     return Mesh()
+
+
+@contextlib.contextmanager
+def fake_world(mesh: Mesh):
+    """Rank 0 of a world of ``mesh.size`` ranks on torch's ``fake``
+    process-group backend, in this process: yields ``mesh`` with a
+    ``DeviceMesh`` on ``cpu`` built over the world (rank-major, as
+    :func:`init_mesh`), whose collectives complete at once and move no
+    data, so a step placed over the mesh runs on ``meta`` tensors.  The
+    group is destroyed on exit.  Refused when a process group is up
+    already; it never falls back to gloo or NCCL."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(f"a fake world of {mesh.size} ranks needs no "
+                           f"process group up; this process runs "
+                           f"{dist.get_backend()}")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        dm = DeviceMesh("cpu", torch.arange(mesh.size).reshape(mesh.sizes),
+                        mesh_dim_names=mesh.axis_names)
+        yield Mesh(mesh.axis_names, mesh.sizes, dm)
+    finally:
+        dist.destroy_process_group()
 
 
 def init_world(device_type: str) -> None:

@@ -9,13 +9,15 @@ published peaks of one H100 (``launch/mesh.py``):
 
 FLOPs come from the port's walk of what the step dispatches
 (``analytic_cost.count_flops``), HBM bytes from the reference's napkin
-model (``analytic_cost.hbm_bytes_per_chip``).  The port runs on one card
-and issues no collective: its collective bytes are the zero dict
-(:func:`no_collectives`).  ``collective_bytes_from_hlo`` and its helpers
+model (``analytic_cost.hbm_bytes_per_chip``).  Collective bytes are a
+rank's: the collectives its walk dispatched (``StepCount.collective_ops``)
+summed by :func:`collective_bytes_from_ops`, with the reference's kinds
+and ring multipliers on the result buffer; a step on one card issues
+none.  ``collective_bytes_from_hlo`` and its helpers
 are the reference's, verbatim: a parser of XLA's optimized HLO text that
 multiplies while-loop bodies by their trip count, kept for the tests'
-parity and for a dry run over a multi-card mesh, which is what is left of
-ROADMAP queue 1 item 9.
+parity.  The collective term assumes every byte crosses NVLink
+(``LINK_BW``), which joins the GPUs of one 8-GPU node only.
 """
 from __future__ import annotations
 
@@ -165,10 +167,19 @@ def collective_bytes_from_hlo(hlo_text: str) -> dict:
             "total_bytes": float(sum(totals.values()))}
 
 
-def no_collectives() -> dict:
-    """The collectives of a step on one card: none, in the dict shape of
-    :func:`collective_bytes_from_hlo`."""
-    return {"bytes_by_kind": {}, "count_by_kind": {}, "total_bytes": 0.0}
+def collective_bytes_from_ops(ops, times: int = 1) -> dict:
+    """The dict of :func:`collective_bytes_from_hlo` from a walk's log of
+    (kind, group size, result bytes) ops (``StepCount.collective_ops``):
+    each op's result bytes times ``_MULT`` of its kind, and the whole
+    times ``times`` (a step walked for one of its ``times`` identical
+    microbatches).  A step on one card logs none: the zero dict."""
+    totals: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for kind, _, nbytes in ops:
+        totals[kind] = totals.get(kind, 0.0) + nbytes * _MULT[kind] * times
+        counts[kind] = counts.get(kind, 0) + times
+    return {"bytes_by_kind": totals, "count_by_kind": counts,
+            "total_bytes": float(sum(totals.values()))}
 
 
 @dataclass

@@ -33,7 +33,12 @@ outputs, each one all-reduce).  A cache whose head width is split (the
 reference's fallback when KV heads do not divide the model axis) sums
 the scores' partial products over the model axis and gathers the
 outputs.  The local cache views carry their placement under
-:data:`KV_SHARD`.
+:data:`KV_SHARD`.  MLA whose heads divide the model axis runs over this
+rank's heads (``parallel.mla_group``): its query and ``wkv_b`` columns and
+its ``wo`` rows are this rank's, the latent and the rope key (and so the
+latent cache) are every rank's alike, the prefill materialises K and V of
+its heads only and the absorbed decode attends with them, and the
+partial outputs are summed over the model axis.
 """
 from __future__ import annotations
 
@@ -410,7 +415,6 @@ def _mla_qkv_latent(p: MLAAttention, x: torch.Tensor, cfg: ArchConfig,
     """Shared first stage: queries + compressed latent (+rope key)."""
     m = cfg.mla
     B, S, _ = x.shape
-    h = cfg.n_heads
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     cd = cfg.compute_dtype
     if m.q_lora_rank:
@@ -419,7 +423,7 @@ def _mla_qkv_latent(p: MLAAttention, x: torch.Tensor, cfg: ArchConfig,
         q = dense_apply(p.wq_b, cq, cd)
     else:
         q = dense_apply(p.wq, x, cd)
-    q = q.reshape(B, S, h, dn + dr)
+    q = q.reshape(B, S, -1, dn + dr)  # this rank's heads under a mesh
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -435,10 +439,11 @@ def _mla_materialised(p: MLAAttention, q_nope, q_rope, c_kv, k_rope,
     """Attention of the S queries over the S keys of ``c_kv`` [B,S,r] and
     ``k_rope`` [B,S,dr] (the same positions), with per-head K and V
     materialised from the latent: the kernel at G = 1, q.k over
-    ``dn + dr`` dims and v over ``dv``.  Returns [B,S,h,dv]."""
+    ``dn + dr`` dims and v over ``dv``.  Returns [B,S,h,dv], h the heads
+    of ``q_nope`` (this rank's under a mesh)."""
     m = cfg.mla
     B, S = c_kv.shape[:2]
-    h = cfg.n_heads
+    h = q_nope.shape[2]
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     kvb = dense_apply(p.wkv_b, c_kv, cfg.compute_dtype).reshape(
         B, S, h, dn + dv)
@@ -492,10 +497,11 @@ def mla_apply(p: MLAAttention, x: torch.Tensor, cfg: ArchConfig, *,
     attention over ``cache[:cache_len]``); S > 1 is a prefill and needs
     ``cache_index == 0``."""
     check_supported(cfg)
-    m = cfg.mla
     B, S, _ = x.shape
-    h, dv = cfg.n_heads, m.v_head_dim
     cd = cfg.compute_dtype
+    g = parallel.mla_group(cfg)  # this rank's heads only
+    if g is not None:
+        x = parallel.copy_to(x, g)
     if positions is None:
         positions = torch.arange(S, device=x.device)
         if cache_index is not None:
@@ -540,5 +546,7 @@ def mla_apply(p: MLAAttention, x: torch.Tensor, cfg: ArchConfig, *,
                 "prefill at cache_index > 0 (a chunked prefill) has no "
                 "caller in the reference and is not ported")
 
-    out = out.reshape(B, S, h * dv)
-    return dense_apply(p.wo, out, cd), kv_cache
+    out = dense_apply(p.wo, out.reshape(B, S, -1), cd)
+    if g is not None:  # the heads' partial outputs
+        out = parallel.reduce_from(out, g)
+    return out, kv_cache

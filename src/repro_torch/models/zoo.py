@@ -43,10 +43,18 @@ rows of the batch, each layer computes with its parameters' local tensors
 columns or experts), a DTensor cache is read and written through its
 local blocks, and ``loss_fn`` returns the loss of the whole batch (summed
 over the batch axes, its chunk count the reference's for the mesh's
-chips).  The logits a decode step returns are this rank's rows.  Zamba2's
-shared block swaps its parameters under its wide config (its attention
-over this rank's heads, its MLP over its ``d_ff`` columns, ``out_proj``
-over its rows of the wide stream); the VLM projector computes this
+chips).  The logits a decode step returns are this rank's rows.  Where
+the rules split the vocabulary over ``model`` (``parallel.vocab_group``)
+each rank holds its rows of ``embed.table`` and its columns of
+``lm_head.w``: the embedding is a masked lookup of its rows summed over
+``model`` (one rank holds each token, so the sum is exact), the loss is
+vocab-parallel in f32 (the row maxima's maximum, the sums of exps and the
+target's logit, each all-reduced over ``model``; the whole logits are
+never gathered), and the logits a decode step returns are this rank's
+vocabulary columns (``parallel.vocab_argmax`` takes the greedy token).
+Zamba2's shared block swaps its parameters under its wide config (its
+attention over this rank's heads, its MLP over its ``d_ff`` columns,
+``out_proj`` over its rows of the wide stream); the VLM projector computes this
 rank's columns of ``fc1`` and ``fc2``, each output gathered whole
 (``parallel.gather_from``); the SSM state is this rank's block.
 
@@ -278,7 +286,9 @@ def _embed_inputs(params: Model, cfg: ArchConfig, batch: dict):
     batch the projected patch embeddings ahead of them (image tokens lead
     the sequence)."""
     cd = cfg.compute_dtype
-    h = embedding_apply(params.embed, batch["tokens"], cd)
+    g = parallel.vocab_group(cfg.vocab)
+    h = (embedding_apply(params.embed, batch["tokens"], cd) if g is None
+         else _vocab_embedding(params.embed.table, batch["tokens"], cd, g))
     if cfg.frontend == "patch" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(torch_dtype(cd))
         g = parallel.mlp_group(cfg.d_model)  # this rank's columns of each
@@ -290,6 +300,21 @@ def _embed_inputs(params: Model, cfg: ArchConfig, batch: dict):
         pe = dense_apply(params.projector.fc2, gelu(pe), cd)
         h = torch.cat([parallel.gather_from(pe, g), h], dim=1)
     return h
+
+
+def _vocab_embedding(table: torch.Tensor, tokens: torch.Tensor, cd,
+                     g: parallel.Group) -> torch.Tensor:
+    """The embedding of ``tokens`` from this rank's rows ``table`` [V/M,
+    d] of the vocabulary: the rows it holds looked up (cast, then
+    gathered, as the whole table), zeros for the others, summed over
+    ``g`` (exact: one rank contributes to each token)."""
+    n = table.shape[0]
+    local = tokens.long() - g.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table.to(torch_dtype(cd))[torch.where(inside, local, 0)]
+    rows = torch.where(inside[..., None], rows, torch.zeros(
+        (), dtype=rows.dtype, device=rows.device))
+    return parallel.reduce_from(rows, g)
 
 
 def _run_layers(params: Model, cfg: ArchConfig, h, *, positions,
@@ -453,10 +478,31 @@ def loss_chunks(batch: int, seq: int, vocab: int, chips: float = 1.0) -> int:
 
 
 def _chunk_loss(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor,
-                compute_dtype) -> torch.Tensor:
+                compute_dtype,
+                g: Optional[parallel.Group] = None) -> torch.Tensor:
+    """The summed cross-entropy of one chunk; with the vocabulary split
+    over ``g``, from this rank's columns ``w`` [d, V/M] (module
+    docstring): ``g`` is passed, not read from the sharding context,
+    since a checkpointed chunk recomputes on autograd's thread."""
     logits = torch.matmul(hc.to(compute_dtype), w).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, tc.long()[:, :, None], dim=-1)[..., 0]
+    if g is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, tc.long()[:, :, None],
+                                    dim=-1)[..., 0]
+        return torch.sum(lse - gold)
+    import torch.distributed as dist
+
+    n = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g.group)
+    sums = parallel.reduce_from(torch.exp(logits - m[..., None]).sum(-1), g)
+    lse = m + torch.log(sums)
+    local = tc.long() - g.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.take_along_dim(logits, torch.where(inside, local, 0)[
+        ..., None], dim=-1)[..., 0]
+    gold = parallel.reduce_from(torch.where(inside, gold, torch.zeros(
+        (), dtype=gold.dtype, device=gold.device)), g)
     return torch.sum(lse - gold)
 
 
@@ -485,13 +531,16 @@ def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
     n_chunk = loss_chunks(B, S, cfg.vocab, chips)
     s_chunk = S // n_chunk
     acc = torch.zeros((), dtype=torch.float32, device=h.device)
+    vg = parallel.vocab_group(cfg.vocab)
+    if vg is not None:  # each rank's columns take a part of h's gradient
+        h = parallel.copy_to(h, vg)
     with _top_params(params, cfg):
         w = (params.embed.table.T if cfg.tie_embeddings
-             else params.lm_head.w).to(cd)  # [d, vocab]
+             else params.lm_head.w).to(cd)  # [d, vocab] (or V/M columns)
         for i in range(n_chunk):
             cut = slice(i * s_chunk, (i + 1) * s_chunk)
             acc = acc + checkpoint(_chunk_loss, h[:, cut], targets[:, cut],
-                                   w, cd, use_reentrant=False)
+                                   w, cd, vg, use_reentrant=False)
     T = B * S
     loss = parallel.reduce_from(acc / T, *dp)
     return loss, {"loss": loss,
@@ -500,6 +549,8 @@ def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
 
 def logits_fn(params: Model, cfg: ArchConfig,
               h_last: torch.Tensor) -> torch.Tensor:
+    """f32 logits of ``h_last``: this rank's vocabulary columns where the
+    vocabulary is split over ``model`` (``parallel.vocab_group``)."""
     cd = torch_dtype(cfg.compute_dtype)
     w = (params.embed.table.T if cfg.tie_embeddings
          else params.lm_head.w)  # [d, vocab]
@@ -531,6 +582,14 @@ def _attn_cache_spec(cfg: ArchConfig, batch: int, max_len: int) -> dict:
             "v": (rows + (cfg.head_dim,), cd)}
 
 
+def _spec(shape, dtype) -> torch.Tensor:
+    """A ``meta`` tensor of ``shape`` and ``dtype`` that holds no storage
+    of its size (one element, expanded): a description, which a dry run's
+    walk (``launch/analytic_cost.py``) does not count as an allocation of
+    the step that reads it."""
+    return torch.empty((), dtype=dtype, device="meta").expand(shape)
+
+
 def init_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """The decode cache's shapes and dtypes as ``meta`` tensors, stacked
     over the layers of each stack (the reference returns
@@ -544,8 +603,7 @@ def init_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     n_dense = _n_dense_layers(cfg)
 
     def kv(c: ArchConfig, n: int) -> dict:
-        return {name: torch.empty((n,) + shape, dtype=dt, device="meta")
-                for name, (shape, dt) in
+        return {name: _spec((n,) + shape, dt) for name, (shape, dt) in
                 _attn_cache_spec(c, batch, max_len).items()}
 
     if cfg.is_encdec:
@@ -557,9 +615,8 @@ def init_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     if kind in SSM_KINDS:
         one = (mamba1_state_specs if kind == "ssm1"
                else mamba2_state_specs)(cfg, batch)
-        specs["layers"] = {
-            name: torch.empty((n,) + t.shape, dtype=t.dtype, device="meta")
-            for name, t in one.items()}
+        specs["layers"] = {name: _spec((n,) + t.shape, t.dtype)
+                           for name, t in one.items()}
     else:
         specs["layers"] = kv(cfg, n)
     if cfg.family == "hybrid":
@@ -596,7 +653,8 @@ def decode_step(params: Model, cfg: ArchConfig, batch: dict, caches: dict,
     from :func:`init_cache`).  The encoder-decoder's decoder attends over
     ``enc_out`` [B, Se, d], or ``batch["enc_out"]`` cast to the compute
     dtype when not given.  Returns (logits [B, 1, V] f32, caches), the
-    caches updated in place."""
+    caches updated in place; on a mesh, this rank's rows, and its V/M
+    columns where the vocabulary is split (:func:`logits_fn`)."""
     idx = int(cache_index)
     if cfg.is_encdec and enc_out is None:
         enc_out = batch["enc_out"].to(torch_dtype(cfg.compute_dtype))

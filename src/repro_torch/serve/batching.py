@@ -43,7 +43,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import parallel
 from repro_torch.models import zoo
-from repro_torch.serve.serve_step import check_device, init_caches
+from repro_torch.serve.serve_step import (check_device, init_caches,
+                                          next_tokens)
 
 
 #: why the batcher and the launcher refuse the encoder-decoder family
@@ -96,7 +97,7 @@ class ContinuousBatcher:
             self.params, self.cfg, {"tokens": rows}, self.caches,
             cache_index=pos)
         return parallel.gather_rows(
-            torch.argmax(logits[:, -1], dim=-1)).cpu().numpy()
+            next_tokens(self.cfg, logits)).cpu().numpy()
 
     # -------------------------------------------------------------- intake
     def submit(self, prompt: np.ndarray, max_new: int) -> Request:

@@ -24,10 +24,12 @@ placed by ``sharding.shard_model(..., mode="serve")``) the two steps take
 the whole batch and return every row's logits: each rank runs its rows
 (``parallel.batch_rows``), its caches are DTensors placed by
 ``sharding.cache_pspec`` (``shard_cache``), and the logits are gathered
-over the batch axes; so does ``greedy_generate``, whose new tokens are
-every row's.  The encoder-decoder's ``frames`` and ``enc_out`` and the
-VLM's ``patch_embeds`` are split by rows as the tokens are, so each rank
-encodes its own rows once.
+over the batch axes (and over ``model`` where the vocabulary is split:
+:func:`whole_logits`); so does ``greedy_generate``, whose new tokens are
+every row's, each the argmax over every rank's vocabulary columns
+(``parallel.vocab_argmax``).  The encoder-decoder's ``frames`` and
+``enc_out`` and the VLM's ``patch_embeds`` are split by rows as the
+tokens are, so each rank encodes its own rows once.
 """
 from __future__ import annotations
 
@@ -78,14 +80,30 @@ def _inputs(batch: dict, device: torch.device) -> dict:
     return {k: parallel.batch_rows(v) for k, v in out.items()}
 
 
+def whole_logits(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Every row's logits over the whole vocabulary from this rank's
+    (``zoo.decode_step``'s): gathered over the vocabulary's group, then
+    over the batch axes."""
+    g = parallel.vocab_group(cfg.vocab)
+    return parallel.gather_rows(parallel.gather_from(logits, g, -1))
+
+
+def next_tokens(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each of this rank's rows from its logits
+    [B, 1, V or V/M] (``torch.argmax``'s first maximum)."""
+    return parallel.vocab_argmax(logits[:, -1],
+                                 parallel.vocab_group(cfg.vocab))
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, dev) -> dict:
     """Zeroed decode caches for ``batch`` rows (the whole batch): DTensors
     placed by ``cache_pspec`` under a built mesh, each rank holding its
-    block."""
+    block (``meta`` blocks, which hold nothing, where ``dev`` is
+    ``meta``)."""
     mesh = current_mesh()
     if mesh is not None and mesh.device_mesh is not None:
         return shard_cache(zoo.init_cache_specs(cfg, batch, max_len), cfg,
-                           mesh)
+                           mesh, device=dev)
     return zoo.init_cache(cfg, batch, max_len, device=dev)
 
 
@@ -107,7 +125,7 @@ def make_prefill_step(cfg: ArchConfig, max_len: int, *, device="cuda"):
                 parallel.batch_rows(_floats(batch["frames"], dev)))
         logits, caches = zoo.decode_step(params, cfg, inputs, caches,
                                          cache_index=0, enc_out=enc_out)
-        return parallel.gather_rows(logits), caches
+        return whole_logits(cfg, logits), caches
 
     return prefill
 
@@ -122,7 +140,7 @@ def make_decode_step(cfg: ArchConfig, *, device="cuda"):
         dev = check_device(params, device)
         logits, caches = zoo.decode_step(params, cfg, _inputs(batch, dev),
                                          caches, cache_index=index)
-        return parallel.gather_rows(logits), caches
+        return whole_logits(cfg, logits), caches
 
     return decode
 
@@ -151,12 +169,12 @@ def greedy_generate(params, cfg: ArchConfig, prompt, *, max_new: int,
     logits, caches = zoo.decode_step(params, cfg,
                                      {"tokens": prompt, **extra}, caches,
                                      cache_index=0)
-    out = [torch.argmax(logits[:, -1], dim=-1)]
+    out = [next_tokens(cfg, logits)]
     idx = S0
     for _ in range(max_new - 1):
         logits, caches = zoo.decode_step(
             params, cfg, {"tokens": out[-1][:, None], **extra}, caches,
             cache_index=idx)
-        out.append(torch.argmax(logits[:, -1], dim=-1))
+        out.append(next_tokens(cfg, logits))
         idx += 1
     return parallel.gather_rows(torch.stack(out, dim=1))

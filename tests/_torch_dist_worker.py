@@ -2,6 +2,7 @@
 ``tests/test_torch_distributed_families.py``).
 
     python tests/_torch_dist_worker.py <world> <rank> <dir> <case,case,...>
+    python tests/_torch_dist_worker.py fake <world> <dir> <case,case,...>
 
 Each rank joins a gloo world through a ``FileStore`` under ``<dir>``, reads
 the inputs the test wrote (``<dir>/in.npz``: numpy arrays made from a seed,
@@ -9,7 +10,9 @@ and the reference's weights and results), runs the cases in order on the
 port (``repro_torch``; this process imports neither JAX nor ``repro``),
 and rank 0 writes what the test compares to ``<dir>/out_<world>.npz``.
 A case that raises ends the rank with exit code 1, after printing its
-traceback.
+traceback.  ``fake`` runs one process as rank 0 of a ``fake`` world of
+``<world>`` ranks (``launch/mesh.py::fake_world``), on ``meta`` tensors,
+and writes ``<dir>/out_fake<world>.npz``.
 """
 import contextlib
 import dataclasses
@@ -31,7 +34,8 @@ from repro_torch.distributed.ctx import (P, SERVE_RULES_1POD,
                                          constrain, dp_rules, use_sharding)
 from repro_torch.distributed.ring_attention import ring_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.launch.mesh import init_mesh
+from repro_torch.launch.analytic_cost import StepCount
+from repro_torch.launch.mesh import Mesh, fake_world, init_mesh
 from repro_torch.models import params_from_numpy, zoo
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
@@ -41,6 +45,16 @@ from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
 from repro_torch.train.train_step import make_train_step
 
 SEP = "|"  # stands for "/" in the names of the npz archives
+#: the mesh of a ``fake`` world (``main``), None in a gloo world
+FAKE_MESH = None
+
+
+def world_mesh(dims):
+    """The ``dims`` mesh over this world: gloo's, or the fake world's."""
+    if FAKE_MESH is not None:
+        assert FAKE_MESH.sizes == tuple(dims), (FAKE_MESH.sizes, dims)
+        return FAKE_MESH
+    return init_mesh(dims, "cpu")
 
 
 def tree(inp, prefix: str) -> dict:
@@ -474,15 +488,196 @@ def case_families_serve(inp, out, d):
         out[f"{arch}_batcher"] = np.stack(runs)
 
 
+# ------------------------------ the vocabulary and MLA's heads over model
+VOCAB_ARCHS = ("smollm-135m", "qwen2-72b", "deepseek-v2-lite-16b")
+VOCAB_SERVE_ARCHS = ("smollm-135m", "deepseek-v2-lite-16b")
+VOCAB_NEW = 4
+
+
+def vocab_config(arch: str):
+    """Reduced ``arch`` in f32 (the MoE without drops, as ``moe_config``)."""
+    cfg = dataclasses.replace(reduce_config(get_config(arch)),
+                              param_dtype="float32", compute_dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=100.0))
+    return cfg
+
+
+def vocab_serve_config(arch: str, model_axis: int):
+    cfg = make_serve_config(vocab_config(arch), model_axis)
+    return dataclasses.replace(cfg, param_dtype="float32")
+
+
+def _local_widths(model, cfg) -> np.ndarray:
+    """The compute tensors' shapes of the embedding table, the output
+    projection (or the tied table) and, for MLA, the first layer's
+    ``wkv_b`` and ``wo``: this rank's rows, columns and heads."""
+    with zoo._top_params(model, cfg):
+        head = model.embed.table if cfg.tie_embeddings else model.lm_head.w
+        shapes = [tuple(model.embed.table.shape), tuple(head.shape)]
+    if cfg.mla is not None:
+        layer = model.layers[0]
+        with parallel.local_params(layer, cfg):
+            shapes += [tuple(layer.attn.wkv_b.w.shape),
+                       tuple(layer.attn.wo.w.shape)]
+    return np.array(shapes)
+
+
+def case_vocab_train(inp, out, d):
+    """FSDP + TP of each of ``VOCAB_ARCHS`` on 2x4 (8 ranks) or 2x2 (4):
+    the loss and every gradient leaf, and the local widths."""
+    dims = (2, 4) if dist.get_world_size() == 8 else (2, 2)
+    mesh = init_mesh(dims, "cpu")
+    for arch in VOCAB_ARCHS:
+        cfg = vocab_config(arch)
+        model = shd.shard_model(params_from_numpy(cfg, tree(inp, arch),
+                                                  device="cpu"),
+                                cfg, mesh, mode="train")
+        params = dict(model.named_parameters())
+        batch = {k: torch.from_numpy(inp[f"{arch}_train_{k}"])
+                 for k in ("tokens", "targets")}
+        tag = f"{arch}_{dims[0]}x{dims[1]}"
+        with use_sharding(TRAIN_RULES_1POD, mesh):
+            local = {k: parallel.batch_rows(v) for k, v in batch.items()}
+            model.requires_grad_(True)
+            loss, _ = zoo.loss_fn(model, cfg, local)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            model.requires_grad_(False)
+            out[f"{tag}_widths"] = _local_widths(model, cfg)
+        out[f"{tag}_loss"] = np.float64(loss.item())
+        for name, g in zip(params, grads):
+            out[f"{tag}_grad{SEP}{name}"] = full(g)
+
+
+def case_vocab_serve(inp, out, d):
+    """Each of ``VOCAB_SERVE_ARCHS`` on 1x4 in ``serve`` mode: greedy
+    tokens (``greedy_generate``), the batcher's tokens of two waves, and
+    the local widths."""
+    from repro_torch.serve import ContinuousBatcher, greedy_generate
+
+    mesh = init_mesh((1, 4), "cpu")
+    for arch in VOCAB_SERVE_ARCHS:
+        cfg = vocab_serve_config(arch, 4)
+        model = shd.shard_model(params_from_numpy(cfg, tree(inp, arch),
+                                                  device="cpu"),
+                                cfg, mesh, mode="serve")
+        with torch.no_grad(), use_sharding(SERVE_RULES_1POD, mesh):
+            out[f"{arch}_greedy"] = greedy_generate(
+                model, cfg, inp[f"{arch}_prompt"], max_new=VOCAB_NEW,
+                device="cpu").numpy()
+            b = ContinuousBatcher(cfg, model, slots=2, max_len=32,
+                                  device="cpu")
+            for row in inp[f"{arch}_waves"]:
+                b.submit(row, VOCAB_NEW)
+            b.run_until_drained()
+            out[f"{arch}_batcher"] = np.array([r.out_tokens for r in sorted(
+                b.finished, key=lambda r: r.rid)])
+            out[f"{arch}_serve_widths"] = _local_widths(model, cfg)
+
+
+#: the kinds of a collective op log, by index in the npz archives
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+COLL_B, COLL_S, COLL_LEN = 8, 16, 20
+
+
+def _collective_steps(mesh, dev: str):
+    """(tag, step, args, rules) of the steps whose collectives rank 0
+    logs: reduced qwen2-72b trained in both policies, its prefill and one
+    decode step with the cache placed by sequence, and reduced DeepSeek
+    (MLA, MoE) trained; on ``cpu`` with weights and tokens from seed 0,
+    on ``meta`` with their shapes."""
+    from repro_torch.configs.base import ShapeSpec
+
+    rng = np.random.default_rng(0)
+
+    def batch(cfg, kind, s):
+        specs = zoo.input_specs(cfg, ShapeSpec("c", kind, s, COLL_B))
+        if dev == "meta":
+            return specs
+        return {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab, tuple(t.shape), dtype=np.int32))
+            for k, t in specs.items()}
+
+    def model(cfg, mode):
+        m = zoo.init_model(cfg, 0, device=dev)
+        return shd.shard_model(m, cfg, mesh, mode=mode)
+
+    opt_cfg = AdamWConfig()
+    steps = []
+    dense = vocab_config("qwen2-72b")
+    for mode in ("train", "dp_train"):
+        m = model(dense, mode)
+        rules = (TRAIN_RULES_1POD if mode == "train"
+                 else dp_rules(mesh.axis_names))
+        steps.append((f"dense_{mode}", make_train_step(dense, opt_cfg),
+                      (m, init_opt_state(dict(m.named_parameters())),
+                       batch(dense, "train", COLL_S)), rules))
+    serve = dataclasses.replace(vocab_serve_config("qwen2-72b", 4),
+                                kv_cache_shard="seq")
+    m = model(serve, "serve")
+    prefill = make_prefill_step(serve, COLL_LEN, device=dev)
+    decode = make_decode_step(serve, device=dev)
+    held = {}
+
+    def serve_steps(m, first, nxt):
+        _, held["caches"] = prefill(m, first)
+        decode(m, held["caches"], nxt, COLL_S)
+
+    steps.append(("seq_decode", serve_steps,
+                  (m, batch(serve, "prefill", COLL_S),
+                   batch(serve, "decode", COLL_S)), SERVE_RULES_1POD))
+    mla = vocab_config("deepseek-v2-lite-16b")
+    m = model(mla, "train")
+    steps.append(("mla_train", make_train_step(mla, opt_cfg),
+                  (m, init_opt_state(dict(m.named_parameters())),
+                   batch(mla, "train", COLL_S)), TRAIN_RULES_1POD))
+    return steps
+
+
+def case_collectives(inp, out, d):
+    """Rank 0's collectives, as ``StepCount`` logs them (kind, group
+    size, result bytes), of each of ``_collective_steps`` on 2x4: in a
+    gloo world on real tensors, in a fake one on ``meta``."""
+    mesh = world_mesh((2, 4))
+    dev = "meta" if FAKE_MESH is not None else "cpu"
+    for tag, step, args, rules in _collective_steps(mesh, dev):
+        with use_sharding(rules, mesh), StepCount() as count:
+            step(*args)
+        out[f"coll_{tag}"] = np.array(
+            [(KINDS.index(k), g, b) for k, g, b in count.collective_ops],
+            np.int64).reshape(-1, 3)
+
+
 CASES = {"ring": case_ring, "moe": case_moe, "train": case_train,
          "train_tp": case_train_tp,
          "compress": case_compress, "ckpt_save": case_ckpt_save,
          "ckpt_restore": case_ckpt_restore, "decode": case_decode,
          "families_train": case_families_train,
-         "families_serve": case_families_serve}
+         "families_serve": case_families_serve,
+         "vocab_train": case_vocab_train, "vocab_serve": case_vocab_serve,
+         "collectives": case_collectives}
+
+
+def fake_main() -> int:
+    """``fake <world> <dir> <cases>``: rank 0 of a fake 2x4 world."""
+    global FAKE_MESH
+    world, d = int(sys.argv[2]), sys.argv[3]
+    torch.set_num_threads(1)
+    inp = np.load(os.path.join(d, "in.npz"))
+    out: dict = {}
+    with fake_world(Mesh(("data", "model"), (2, world // 2))) as mesh:
+        FAKE_MESH = mesh
+        for case in sys.argv[4].split(","):
+            CASES[case](inp, out, d)
+    np.savez(os.path.join(d, f"out_fake{world}.npz"), **out)
+    return 0
 
 
 def main() -> int:
+    if sys.argv[1] == "fake":
+        return fake_main()
     world, rank, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     cases = sys.argv[4].split(",")
     torch.set_num_threads(1)

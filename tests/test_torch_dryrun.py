@@ -5,9 +5,10 @@ with no collectives on one card), every cell of one arch of each family
 and of the other architectures ``ok`` or ``skipped`` exactly where the
 reference's ``supports_shape`` skips it (the SSM and hybrid families'
 slower walks are in ``tests/test_torch_dryrun_ssm.py``), the CLI's rows,
-resume and refusal
-of a multi-device mesh, and the two ``_torch`` scripts over rows it
-wrote.  Every cell runs on ``meta`` tensors: nothing is allocated."""
+resume and its rows over the reference's 2x16x16 mesh (the mesh walks
+are in ``tests/test_torch_dryrun_mesh.py``), and the two ``_torch``
+scripts over rows it wrote.  Every cell runs on ``meta`` tensors: nothing
+is allocated."""
 import importlib.util
 import json
 import os
@@ -113,14 +114,24 @@ def test_cli_writes_and_resumes_rows(tmp_path, capsys):
     assert len((tmp_path / "1xh100.jsonl").read_text().splitlines()) == 2
 
 
-def test_multi_mesh_exits_1():
+def test_multi_mesh_writes_rows(tmp_path):
+    """``--mesh multi`` walks rank 0 of the reference's 2x16x16 in a fake
+    world of 512 ranks and writes its rows to ``2_16_16.jsonl``, one a
+    cell, skipped by the reference's rule."""
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                          "--mesh", "multi"], capture_output=True, text=True,
+                          "--mesh", "multi", "--arch", "smollm-135m",
+                          "--shape", "decode_32k,long_500k", "--out",
+                          str(tmp_path)], capture_output=True, text=True,
                          env=_env(), timeout=120)
-    assert out.returncode == 1
-    assert "queue 1 item 9" in out.stderr
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        make_production_mesh(multi_pod=True)
+    assert out.returncode == 0, out.stdout + out.stderr
+    rows = [json.loads(line) for line in
+            (tmp_path / "2_16_16.jsonl").read_text().splitlines()]
+    assert [(r["shape"], r["status"]) for r in rows] == [
+        ("decode_32k", "ok"), ("long_500k", "skipped")]
+    assert rows[0]["chips"] == 512 and rows[0]["mesh"] == "2x16x16"
+    assert rows[0]["collectives"]["total_bytes"] > 0
+    m = make_production_mesh(multi_pod=True)
+    assert m.shape == {"pod": 2, "data": 16, "model": 16}
 
 
 def test_scripts_run_on_cpu_rows(tmp_path):

@@ -438,7 +438,7 @@ def test_collective_bytes_from_hlo_matches_reference(hlo):
 
 
 def test_one_card_has_no_collectives():
-    zero = rl.no_collectives()
+    zero = rl.collective_bytes_from_ops([])
     assert zero == rl.collective_bytes_from_hlo(
         "ENTRY %m (x: f32[4]) -> f32[4] {\n}")
     assert zero["total_bytes"] == 0.0
@@ -456,22 +456,24 @@ def test_derive_terms_reads_the_cards_peaks():
 
 
 @pytest.mark.parametrize("make,sizes", [
-    (lambda: port_mesh.make_production_mesh(multi_pod=True), None),
-    (lambda: port_mesh.make_production_mesh(multi_pod=True, pods=4), None),
+    (lambda: port_mesh.make_production_mesh(multi_pod=True), (2, 16, 16)),
+    (lambda: port_mesh.make_production_mesh(multi_pod=True, pods=4),
+     (4, 16, 16)),
     (lambda: port_mesh.Mesh(("data", "model"), (2, 1)), (2, 1)),
     (lambda: port_mesh.Mesh(("data", "model"), (16, 16)), (16, 16))],
     ids=["multi_pod", "4_pods", "2x1", "16x16"])
-def test_larger_meshes_are_refused(make, sizes):
-    """A mesh over pods stays refused (the dry run walks one card: ROADMAP
-    queue 1 item 9, what is left of it); a larger mesh is described, for
-    the spec functions, and builds no device mesh."""
-    if sizes is None:
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            make()
-    else:
-        m = make()
-        assert m.shape == dict(zip(("data", "model"), sizes))
-        assert m.size == sizes[0] * sizes[1] and m.device_mesh is None
+def test_larger_meshes_are_described(make, sizes):
+    """A larger mesh is described, not built: for the spec functions, and
+    for a dry run, which walks it as rank 0 of a fake world
+    (``launch/mesh.py::fake_world``); a mesh over pods is the reference's
+    ``(pods, 16, 16)`` over ``("pod", "data", "model")``.  It builds no
+    device mesh."""
+    m = make()
+    names = ("pod", "data", "model")[-len(sizes):]
+    assert m.shape == dict(zip(names, sizes)) and m.axis_names == names
+    assert m.size == int(np.prod(sizes)) and m.device_mesh is None
+    if len(sizes) == 2 and sizes[0] > 2:
+        assert m == port_mesh.make_production_mesh(pod=True)
     m = port_mesh.make_production_mesh()
     assert m.shape == {"data": 1, "model": 1} and m.size == 1
     assert m.axis_names == ("data", "model")
