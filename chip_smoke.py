@@ -7,7 +7,10 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the six CUDA kernels from their ``csrc/`` (one ``nvcc`` per
-   source, all started together) and prints ``build_s``;
+   source, all started together) and prints ``build_s`` when the four
+   video kernels are built, and again when all six are: the decode,
+   encode and sad kernel phases (3, 4, 6) run while the two attention
+   sources still compile, and the attention kernel phase (5) after;
 3. decode kernel phase: holds ``decode_gop_blocks`` against its plain
    PyTorch version on the card for F in {1, 4, 16}, M in {64, 4096,
    32768}, qp in {4, 8, 12} (max |diff| <= 1e-3 on pixel-scale output) and
@@ -29,7 +32,9 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    128), (B, H, KV, S) in {(8,16,16,512), (2,4,2,256), (3,16,16,100),
    (1,16,16,1)}, causal and not, bf16 and f32, on ``randn`` inputs from
    the seed, and at the internvl2-26b prefill shape (8,48,8,512,128)
-   and the pipeline's (4,48,8,1032,128);
+   and the pipeline's (4,48,8,1032,128), and at the dense serve phase's
+   prefill shapes (8,16,16,512,128), (8,64,8,512,128) and
+   (8,56,8,512,128) (query groups of 1, 8 and 7);
    keys of another length than the queries, not causal, (B, H, KV, S ->
    Skv, Dqk / Dv) in {(8,16,16, 512->128, 64), (2,4,2, 256->100, 64),
    (3,8,8, 100->37, 128), (2,4,4, 64->256, 32), (1,16,16, 128->512,
@@ -232,6 +237,13 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    prefill of 513 (one chunk); (f) ``python -m repro_torch.launch.serve
    --arch zamba2-1.2b --device cuda`` exits 0 (started as falcon's (c)
    starts, which leaves the card mostly idle, and waited for after it);
+   beside it, where the card has room and nothing is timed on it: dense
+   (d) ``python -m repro_torch.launch.train --arch olmo-1b --device cuda
+   --steps 3 --batch 8 --seq 512`` (started once zamba2's (a) is done)
+   exits 0 with a finite loss, and dense (f) ``python -m
+   repro_torch.launch.serve --arch olmo-1b --device cuda --batch 8
+   --prompt-len 512 --max-new 16`` (beside falcon's (c)) exits 0 having
+   served the 1,279,787,008 parameters;
 17. MLA serve phase, once the SSM weights are freed (free card memory
    printed before the init): ``deepseek-v2-lite-16b`` at its published
    width and depth (27 layers, the first dense at d_ff 10944, d_model
@@ -330,6 +342,26 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    outputs), and the first batch's crops scored again (after the counts
    are read), each of the 48 attention sites at (4,48,8,1032,128) within
    the larger of 2e-2 and one bf16 ulp; a score's device time by kind;
+20b. dense serve phase, once those weights are freed: ``yi-34b`` whole
+   (60 layers, d_model 7168, 56 heads of 128 on 8, 34,388,917,248
+   parameters, 68.78 GB of bf16), ``qwen2-72b`` at its full width with 32
+   of its 80 layers (64 heads of 128 on 8 with QKV biases, vocab 152,064;
+   30,577,336,320 parameters) and ``olmo-1b`` whole (16 layers, 16 heads
+   of 128 on 16, the non-parametric LayerNorm; 1,279,787,008), each
+   drawn on the card after the last one is freed, its count equal to
+   ``analytic_param_count`` and the published one: (a) ``greedy_generate``
+   of 16 tokens after a B=8 prefill of 512 tokens, one
+   ``flash_attention`` launch a layer (60, 32, 16), TTFT and decode
+   tokens/s; (b) the same weights with the plain prefill attention (the
+   last-position logits' gap, the greedy agreement) and each site's
+   attention output within the larger of 2e-2 and one bf16 ulp of the
+   plain version on its own q, k, v; (d) the continuous batcher over 16
+   requests (yi-34b, olmo-1b); (e) a prefill's and a decode step's
+   device time by kind, the busy share, the peak memory; then (c) each in
+   f32 at 2, 2 and 4 layers of full width, the kernel's prefill against
+   the plain attention's on the same weights: logits within 1e-3,
+   greedy agreement >= 0.99; (f) and (d) the olmo-1b launchers at full
+   width, run beside the SSM serve phase (16);
 21. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
    dk, dv from the forward's o and row logsumexp) against its plain
    version, each element over its row's largest |gradient| (``BWD_TOL``:
@@ -349,7 +381,9 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    old cases' gradients (Skv == S, Dv == Dqk, ``BWD_DIGEST_SHAPES``,
    causal and not, both dtypes) must hash to ``BWD_OLD_DIGESTS``, the
    bits of the kernel before the widths and the keys' length became
-   parameters;
+   parameters; and at the dense serve phase's three prefill shapes,
+   causal (query groups of 1, 8 and 7, whose dk and dv the kernel sums
+   over the group), in bf16 at B=8 (timed likewise) and in f32 at B=1;
 22. train phase, ``smollm-135m`` at its published width (30 layers,
    d_model 576, vocab 49,152), bf16 params with an f32 master copy, remat
    on: (a) ``TRAIN_STEPS`` steps of ``make_train_step`` at B=8, S=2048 on
@@ -390,7 +424,10 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    version on the same q, k, v, o, dO and lse, per row within
    ``BWD_TOL`` (bf16: 1e-2 of the row's largest |gradient|); the median
    step, tokens/s, peak memory (steps 2-3) and one step's device time by
-   kind;
+   kind; then the same for the dense family at its published widths
+   (``DENSE_TRAIN_LAYERS``: olmo-1b whole, yi-34b and qwen2-72b at 2
+   layers), one backward launch a layer each step (olmo-1b's
+   ``launch.train`` runs beside the SSM serve phase);
 22c. dryrun phase, the port's analysis tools (``repro_torch.launch``):
    (a) ``python -m repro_torch.launch.dryrun --mesh single`` over every
    shape of one architecture of each family (smollm-135m the dense one;
@@ -598,12 +635,12 @@ BWD_OLD_DIGESTS = {"bfloat16": "202818c62120c17d1623a0ad0494e8fe",
                    "float32": "225d34293afee3a84968b381d8180c85"}
 GRAD_RTOL = 1e-4
 SERVE_B, SERVE_S, SERVE_NEW = 8, 512, 64
-#: new tokens of the earlier serve paths (smollm-135m, MoE, SSM, MLA):
-#: cut from SERVE_NEW (to 32, then to 16) to hold the smoke within its
-#: time limit: with the dryrun phase cut to what its checks need (its (b)
-#: two timed 9.3 s prefills of the 32k cell after a one-prompt warm-up,
-#: its (a) hidden behind them) the smoke took 703 s on an H100 at 32;
-#: the encoder-decoder and VLM paths decode SERVE_NEW
+#: new tokens of every serve path: cut from SERVE_NEW (to 32, then to 16)
+#: to hold the smoke within its time limit: with the dryrun phase cut to
+#: what its checks need (its (b) two timed 9.3 s prefills of the 32k cell
+#: after a one-prompt warm-up, its (a) hidden behind them) the smoke took
+#: 703 s on an H100 at 32; the encoder-decoder and VLM paths decoded
+#: SERVE_NEW until the dense serve phase came (about 25 s of decoding)
 EARLY_NEW = 16
 F32_LAYERS = 4
 FLASH_SHAPES = [(2, 4, 4, 128, 32), (2, 4, 2, 256, 64), (2, 8, 1, 256, 32),
@@ -679,6 +716,25 @@ FLASH_CROSS_SHAPES = [FLASH_CROSS, (2, 4, 2, 256, 100, 64, 64),
                       (1, 16, 16, 128, 512, 192, 128)]
 #: internvl2-26b's prefill attention (48 heads on 8 KV heads of 128)
 FLASH_VLM = (SERVE_B, 48, 8, SERVE_S, 128)
+#: the dense serve path at the published widths, in the order it runs:
+#: yi-34b whole (60 layers, d_model 7168, 56 heads of 128 on 8, d_ff
+#: 20,480, vocab 64,000, RoPE theta 5e6: 68.78 GB of bf16), qwen2-72b at
+#: 32 of its 80 layers (d_model 8192, 64 heads of 128 on 8 with QKV
+#: biases, d_ff 29,568, vocab 152,064, theta 1e6: the 30.6 B parameters
+#: the card holds beside a prefill; all 80 are 145.4 GB) and olmo-1b whole
+#: (16 layers, d_model 2048, 16 heads of 128 on 16, the non-parametric
+#: LayerNorm); {arch: (parameters served, published depth, depth
+#: served)}; the f32 kernel-against-plain check's depths; the
+#: architectures the continuous batcher serves
+DENSE_ARCHS = ("yi-34b", "qwen2-72b", "olmo-1b")
+DENSE_PUBLISHED = {"yi-34b": (34_388_917_248, 60, 60),
+                   "qwen2-72b": (30_577_336_320, 80, 32),
+                   "olmo-1b": (1_279_787_008, 16, 16)}
+DENSE_F32_LAYERS = {"yi-34b": 2, "qwen2-72b": 2, "olmo-1b": 4}
+DENSE_BATCHED = ("yi-34b", "olmo-1b")
+#: their prefill attention shapes: query groups of 1, 8 and 7
+FLASH_DENSE = [(SERVE_B, 16, 16, SERVE_S, 128), (SERVE_B, 64, 8, SERVE_S, 128),
+               (SERVE_B, 56, 8, SERVE_S, 128)]
 #: the encoder-decoder serve path: seamless-m4t-medium at its published
 #: width and depth (12 encoder and 12 decoder layers, d_model 1024, 16
 #: heads of 64 on 16, d_ff 4096, LayerNorm, vocab 256,206), its parameter
@@ -723,6 +779,17 @@ FAMILY_B, FAMILY_S, FAMILY_STEPS = 8, 512, 3
 FAMILY_BATCH = {"falcon-mamba-7b": 2}
 FAMILY_LAYERS = {MOE_ARCH: 2, "falcon-mamba-7b": 2, MLA_ARCH: 2, VLM_ARCH: 2}
 FAMILY_LAUNCH_ARCH = "zamba2-1.2b"
+#: (b) of the dense family at its published widths after the six:
+#: olmo-1b whole (17.9 GB at 14 bytes a parameter), yi-34b and qwen2-72b
+#: at 2 layers (28.5 and 59.5 GB; all 60 and 80 layers are 481 and 1,018
+#: GB); params above BEFORE_ON_CARD_BYTES of bf16 keep their copy from
+#: before the steps on the host (qwen2-72b's 8.5 GB)
+DENSE_TRAIN_LAYERS = {"olmo-1b": None, "yi-34b": 2, "qwen2-72b": 2}
+BEFORE_ON_CARD_BYTES = 5e9
+#: the olmo-1b launchers at full width, run beside the SSM serve phase:
+#: ``launch.serve`` of B=8 prompts of 512 tokens and 16 new, and
+#: ``launch.train`` for 3 steps of B=8 x S=512
+DENSE_LAUNCH_ARCH = "olmo-1b"
 #: the share of the first layer's int8 KV-cache codes that may differ (by
 #: one) between the card and the CPU from the same input: where x / scale
 #: lies within their f32 error of .5 (about 1e-4 in code units)
@@ -913,8 +980,17 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def build_all() -> float:
-    """Build the six kernels, one ``nvcc`` per source, all at once."""
+#: the kernels the video phases need, built before the two attention
+#: sources (whose template instances take the longest) are
+VIDEO_KERNELS = ("decode_gop_blocks", "dct_quant", "idct_dequant",
+                 "sad_search")
+
+
+def start_builds():
+    """Start one ``nvcc`` per kernel source, all at once, in worker
+    threads; returns ``wait(names=None)``, which blocks until the named
+    kernels (every one unless given) are built and returns the seconds
+    since the start (a failed build raises there)."""
     from repro_torch.kernels.dct import LIBRARY as DCT
     from repro_torch.kernels.decode.build import LIBRARY as DECODE
     from repro_torch.kernels.flash_attention import BWD_LIBRARY as BWD
@@ -922,11 +998,25 @@ def build_all() -> float:
     from repro_torch.kernels.idct import LIBRARY as IDCT
     from repro_torch.kernels.sad import LIBRARY as SAD
 
-    libs = (FLASH, BWD, DECODE, DCT, IDCT, SAD)
+    libs = {"flash_attention": FLASH, "flash_attention_bwd": BWD,
+            "decode_gop_blocks": DECODE, "dct_quant": DCT,
+            "idct_dequant": IDCT, "sad_search": SAD}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(lambda lib: lib.build(), libs))
-    return time.perf_counter() - t0
+    pool = ThreadPoolExecutor(len(libs))
+    built = {name: pool.submit(lib.build) for name, lib in libs.items()}
+    pool.shutdown(wait=False)
+
+    def wait(names=None) -> float:
+        for name in names or built:
+            built[name].result()
+        return time.perf_counter() - t0
+
+    return wait
+
+
+def build_all() -> float:
+    """Build the six kernels, one ``nvcc`` per source, all at once."""
+    return start_builds()()
 
 
 # ------------------------------------------------------------ kernel phases
@@ -2246,7 +2336,8 @@ def flash_kernel_phase(seed: int) -> dict:
     rng = np.random.default_rng(seed + 2)
     worst = 0.0
     timed = {}
-    for shape in FLASH_SHAPES + [FLASH_VLM, FLASH_PIPE] + FLASH_MLA_SHAPES:
+    for shape in (FLASH_SHAPES + [FLASH_VLM, FLASH_PIPE] + FLASH_MLA_SHAPES
+                  + FLASH_DENSE):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv(rng, *shape[:5], dtype,
                            dv=shape[5] if len(shape) > 5 else None)
@@ -2261,7 +2352,7 @@ def flash_kernel_phase(seed: int) -> dict:
                 worst = max(worst, err)
             if shape not in (FLASH_MAIN, FLASH_LONG, FLASH_MOE,
                              FLASH_HYBRID, FLASH_MLA, FLASH_VLM,
-                             FLASH_PIPE) \
+                             FLASH_PIPE, *FLASH_DENSE) \
                     or dtype != torch.bfloat16:
                 continue
             k_ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
@@ -2621,7 +2712,7 @@ def _device_split(what: str, fn, *, bwd: bool = False) -> dict:
 
 
 def _generate(model, cfg, prompts, *, prefill_extra=None, decode_extra=None,
-              start=None, new=SERVE_NEW, timed=True) -> tuple:
+              start=None, new=EARLY_NEW, timed=True) -> tuple:
     """(prefill logits, greedy tokens [B, new], TTFT s, decode tok/s,
     generate wall s, launches of the prefill): one prefill of ``prompts``
     and ``prefill_extra`` (an encoder-decoder's frames, a VLM's patch
@@ -3447,10 +3538,13 @@ def _ssm_f32_card_vs_cpu(arch: str, seed: int, rng) -> None:
           f"{chunk_err}")
 
 
-def _ssm_serve_one(arch: str, seed: int, beside_c=()) -> int:
+def _ssm_serve_one(arch: str, seed: int, beside_c=(),
+                   after_a=None) -> tuple:
     """One SSM or hybrid model served at full width; returns the
-    ``flash_attention`` launches of its prefill.  The ``_Launcher``
-    arguments of ``beside_c`` run beside its f32 check (c)."""
+    ``flash_attention`` launches of its prefill and the standard output
+    of each process of ``beside_c`` (``_Launcher`` arguments of processes
+    run beside its f32 check (c)).  ``after_a()`` is called once (a), the
+    timed path, is done."""
     from repro_torch.models import zoo
     from repro_torch.serve import (greedy_generate, make_decode_step,
                                    make_prefill_step)
@@ -3497,6 +3591,8 @@ def _ssm_serve_one(arch: str, seed: int, beside_c=()) -> int:
           f"ttft_s={ttft:.6f} decode_tok_per_s={tok_s:.3f} "
           f"greedy_generate_wall_s={wall:.6f} launches={launches}",
           flush=True)
+    if after_a is not None:
+        after_a()
 
     # (b) the same weights with the plain prefill attention; SDPA's
     # prefill against the plain one as a control; each site's kernel
@@ -3566,22 +3662,29 @@ def _ssm_serve_one(arch: str, seed: int, beside_c=()) -> int:
     _free_card(f"{label} (c)")
     launchers = [_Launcher(*a) for a in beside_c]
     _ssm_f32_card_vs_cpu(arch, seed, rng)
-    for launcher in launchers:
-        launcher.finish()
-    return launches["flash_attention"]
+    return (launches["flash_attention"],
+            [launcher.finish() for launcher in launchers])
 
 
 def ssm_serve_phase(seed: int) -> int:
     """The SSM and hybrid families served at full width and depth, after
     the MoE weights are freed; returns zamba2's ``greedy_generate``
-    launches of ``flash_attention``."""
+    launches of ``flash_attention``.  The olmo-1b launchers at full width
+    run beside it, where the card has room (falcon-mamba-7b's peak is
+    24 GB) and nothing is timed on the card: ``launch.train`` from the end
+    of zamba2's (a) to the end of the phase (its final checkpoint is 17.9
+    GB), ``launch.serve`` beside falcon's f32 check."""
     zamba2, falcon = SSM_ARCHS
-    first = _ssm_serve_one(zamba2, seed)
-    # (f) python -m repro_torch.launch.serve --arch zamba2-1.2b --device
-    # cuda exits 0, beside falcon's f32 check
-    _ssm_serve_one(falcon, seed, beside_c=[(
-        "ssm serve (f)", "repro_torch.launch.serve", "--arch", zamba2,
-        "--device", DEVICE)])
+    with tempfile.TemporaryDirectory() as ckdir:
+        train = []
+        first, _ = _ssm_serve_one(zamba2, seed, after_a=lambda: train.append(
+            _Launcher(*dense_train_launch_args(ckdir))))
+        # (f) python -m repro_torch.launch.serve --arch zamba2-1.2b
+        # --device cuda exits 0, beside falcon's f32 check
+        _, (_, serve_out) = _ssm_serve_one(falcon, seed, beside_c=[(
+            "ssm serve (f)", "repro_torch.launch.serve", "--arch", zamba2,
+            "--device", DEVICE), dense_serve_launch_args()])
+        dense_launch_check(serve_out, train[0].finish())
     return first
 
 
@@ -3989,11 +4092,11 @@ def encdec_serve_phase(seed: int) -> int:
           f"encdec prefill launched flash_attention "
           f"{launches['flash_attention']} times, want {n_sites} (encoder "
           f"self-attention, decoder self- and cross-attention)")
-    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+    check(tuple(out.shape) == (SERVE_B, EARLY_NEW)
           and bool(torch.isfinite(logits).all()),
           f"encdec greedy_generate gave {tuple(out.shape)}")
     print(f"{label} (a) B={SERVE_B} frames={tuple(frames.shape)} "
-          f"S={SERVE_S} new={SERVE_NEW}: ttft_s={ttft:.6f} (encoder and "
+          f"S={SERVE_S} new={EARLY_NEW}: ttft_s={ttft:.6f} (encoder and "
           f"decoder prefill) decode_tok_per_s={tok_s:.3f} "
           f"greedy_generate_wall_s={wall:.6f} launches={launches}",
           flush=True)
@@ -4346,11 +4449,11 @@ def vlm_serve_phase(seed: int) -> tuple:
     check(launches["flash_attention"] == cfg.n_layers,
           f"vlm prefill launched flash_attention "
           f"{launches['flash_attention']} times, want {cfg.n_layers}")
-    check(tuple(out.shape) == (SERVE_B, SERVE_NEW)
+    check(tuple(out.shape) == (SERVE_B, EARLY_NEW)
           and bool(torch.isfinite(logits).all()),
           f"vlm generation gave {tuple(out.shape)}")
     print(f"{label} (a) B={SERVE_B} patches={tuple(patches.shape)} + "
-          f"{prompts.shape[1]} tokens, new={SERVE_NEW}: ttft_s={ttft:.6f} "
+          f"{prompts.shape[1]} tokens, new={EARLY_NEW}: ttft_s={ttft:.6f} "
           f"decode_tok_per_s={tok_s:.3f} greedy_generate_wall_s={wall:.6f} "
           f"(the text prompts alone) launches={launches}", flush=True)
 
@@ -4420,6 +4523,150 @@ def vlm_serve_phase(seed: int) -> tuple:
     _vlm_f32_card_vs_cpu(seed, rng, crops)
     launcher.finish()
     return launches["flash_attention"], pipe
+
+
+# ------------------------------------------- the dense family, full width
+def _dense_f32_kernel_vs_plain(arch: str, seed: int, rng) -> None:
+    """(c): ``arch`` in f32 at DENSE_F32_LAYERS layers of full width, the
+    kernel's prefill (one launch a layer) against the plain attention's on
+    the same weights: last-position logits within 1e-3,
+    ``greedy_generate`` of EARLY_NEW tokens agreeing on at least 0.99."""
+    cfg = _arch_config(arch, param_dtype="float32", compute_dtype="float32",
+                       n_layers=DENSE_F32_LAYERS[arch])
+    model = _init_on_card(cfg, seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SERVE_B, SERVE_S))).to(DEVICE)
+    logits, out, _, _, _, launches = _generate(model, cfg, prompts,
+                                               new=EARLY_NEW, timed=False)
+    with _plain_prefill_attention():
+        p_logits, p_out, _, _, _, _ = _generate(model, cfg, prompts,
+                                                new=EARLY_NEW, timed=False)
+    err = float((logits - p_logits).abs().max())
+    agree = float((out == p_out).float().mean())
+    print(f"dense serve (c) {arch} f32, {cfg.n_layers} layers of full width, "
+          f"B={SERVE_B} S={SERVE_S}, kernel vs plain prefill attention: "
+          f"last-position logits max_abs_err={err:.6g} greedy_agreement="
+          f"{agree:.6f} over {EARLY_NEW} tokens; prefill launches="
+          f"{launches['flash_attention']}", flush=True)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"f32 {arch} prefill launched {launches}")
+    check(err <= LOGITS_ATOL[torch.float32] and agree >= AGREE_F32,
+          f"f32 {arch} serving: logits differ by {err}, agreement {agree}")
+
+
+def _dense_serve_one(arch: str, seed: int, rng) -> int:
+    """(a), (b), (d), (e) of one architecture in bf16 at its published
+    width (DENSE_PUBLISHED's depth); returns the main path's prefill
+    launches."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    label = f"dense serve {arch}"
+    want_params, published, depth = DENSE_PUBLISHED[arch]
+    _free_card(label)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _arch_config(arch, n_layers=depth)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _init_on_card(cfg, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    attn = model.layers[0].attn
+    check(len(model.layers) == cfg.n_layers == depth
+          and n_params == zoo.analytic_param_count(cfg) == want_params
+          and (attn.wq.b is not None) == cfg.qkv_bias
+          and (model.final_norm.scale is None)
+          == (cfg.norm == "layernorm_nonparam")
+          and attn.wq.w.dtype == torch.bfloat16
+          and attn.wq.w.device.type == torch.device(DEVICE).type,
+          f"serving {cfg.name}: {len(model.layers)} layers, {n_params} "
+          f"parameters, want {want_params}")
+    print(f"{label}: {n_params} parameters (analytic_param_count "
+          f"{want_params}), {depth} of {published} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} on "
+          f"{cfg.n_kv_heads} (G={cfg.n_heads // cfg.n_kv_heads}), d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.norm}, qkv_bias "
+          f"{cfg.qkv_bias}, rope_theta {cfg.rope_theta:g}; "
+          f"{cfg.param_dtype} weights drawn on the card in init_s="
+          f"{init_s:.3f}; allocated_bytes={torch.cuda.memory_allocated()}",
+          flush=True)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (SERVE_B, SERVE_S))).to(DEVICE)
+    _generate(model, cfg, prompts[:, :64], new=2, timed=False)  # warm
+
+    # (a) the main path through the kernel
+    logits, out, ttft, tok_s, wall, launches = _generate(model, cfg, prompts,
+                                                         new=EARLY_NEW)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"{arch} prefill launched flash_attention "
+          f"{launches['flash_attention']} times, want {cfg.n_layers}")
+    check(tuple(out.shape) == (SERVE_B, EARLY_NEW)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} greedy_generate gave {tuple(out.shape)}")
+    print(f"{label} (a) B={SERVE_B} S={SERVE_S} new={EARLY_NEW}: ttft_s="
+          f"{ttft:.6f} decode_tok_per_s={tok_s:.3f} greedy_generate_wall_s="
+          f"{wall:.6f} launches={launches}", flush=True)
+
+    # (b) the same weights with the plain prefill attention, and each
+    # site's attention against the plain version on its own q, k, v
+    with _plain_prefill_attention():
+        p_logits, p_out, p_ttft, _, _, p_launches = _generate(
+            model, cfg, prompts, new=EARLY_NEW, timed=False)
+    check(p_launches["flash_attention"] == 0,
+          "the plain prefill launched the kernel")
+    prefill = make_prefill_step(cfg, SERVE_S + SERVE_NEW, device=DEVICE)
+    with torch.no_grad(), _AttentionBesidePlain() as sites:
+        prefill(model, {"tokens": prompts})
+    err = float((logits - p_logits).abs().max())
+    agree = float((out == p_out).float().mean())
+    print(f"{label} (b) bf16 kernel vs plain prefill attention, same "
+          f"weights: last-position logits max_abs_err={err:.6g} "
+          f"greedy_agreement={agree:.6f} plain ttft_s={p_ttft:.6f}; each "
+          f"site's attention output vs plain on the same q, k, v: "
+          f"{_site_line(sites)}", flush=True)
+    check(len(sites.errs) == cfg.n_layers and max(sites.over) <= 1.0,
+          f"{arch} prefill attention vs plain at the sites: "
+          f"{list(zip(sites.errs, sites.mags))}")
+    check(bool(torch.isfinite(p_logits).all()), "plain logits not finite")
+
+    # (d) the continuous batcher
+    if arch in DENSE_BATCHED:
+        _batcher_run(f"{label} (d)", cfg, model, rng)
+
+    # (e) where a prefill's and a decode step's device time goes
+    decode = make_decode_step(cfg, device=DEVICE)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(model,
+                                                   {"tokens": prompts})
+
+    def run_decode():
+        tok = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        decode(model, state["caches"], {"tokens": tok}, SERVE_S)
+
+    with torch.no_grad():
+        _split_line(f"{label} (e)", f"B={SERVE_B} S={SERVE_S} prefill",
+                    run_prefill, ttft)
+        _split_line(f"{label} (e)", f"B={SERVE_B} decode step", run_decode,
+                    SERVE_B / tok_s)
+    print(f"{label}: peak_memory_bytes (max_memory_allocated, bf16 model "
+          f"through (e))={torch.cuda.max_memory_allocated()}", flush=True)
+    return launches["flash_attention"]
+
+
+def dense_serve_phase(seed: int) -> dict:
+    """The dense family at the published widths of DENSE_ARCHS, each after
+    the last one's weights are freed, then (c) each in f32 at a few
+    layers; returns the main path's prefill launches by architecture."""
+    rng = np.random.default_rng(seed + 3)
+    launches = {arch: _dense_serve_one(arch, seed, rng)
+                for arch in DENSE_ARCHS}
+    _free_card("dense serve (c)")
+    for arch in DENSE_ARCHS:
+        _dense_f32_kernel_vs_plain(arch, seed, rng)
+    return launches
 
 
 # ---------------------------------------------------------------- training
@@ -4614,6 +4861,26 @@ def flash_bwd_kernel_phase(seed: int) -> dict:
         print(f"flash_attention_bwd {label} {shape} bf16 causal={causal}: "
               + " ".join(f"{n}={x:.6f}" if isinstance(x, float) else
                          f"{n}={x}" for n, x in row.items()), flush=True)
+    # the dense serve path's prefill shapes, causal: query groups of 1, 8
+    # and 7, whose dk and dv the kernel sums over the G query heads; bf16
+    # at B=8, timed, and f32 at B=1
+    for shape in FLASH_DENSE:
+        for dtype in (torch.bfloat16, torch.float32):
+            at = shape if dtype == torch.bfloat16 else (1, *shape[1:])
+            q, k, v = _qkv(rng, *at, dtype)
+            dout = _dout_bwd(rng, q, v)
+            errs = bwd_chain_errs(q, k, v, dout, True)
+            worst = max(worst, errs.pop("max_abs"))
+            print(f"flash_attention_bwd dense {at} G={at[1] // at[2]} "
+                  f"{dtype} causal vs plain: " + ", ".join(
+                      f"{g} {r:.3g}" for g, r in errs.items()), flush=True)
+            if dtype != torch.bfloat16:
+                continue
+            o, lse = flash_attention(q, k, v, return_lse=True)
+            row = bwd_times(q, k, v, o, dout, lse, True, at)
+            print(f"flash_attention_bwd dense {at} bf16 causal: " + " ".join(
+                f"{n}={x:.6f}" if isinstance(x, float) else f"{n}={x}"
+                for n, x in row.items()), flush=True)
     digests = bwd_digests(flash_attention_bwd)
     check(digests == BWD_OLD_DIGESTS,
           f"flash_attention_bwd old cases' digests {digests}, not the "
@@ -4876,8 +5143,9 @@ def _family_full(arch: str):
     from repro_torch.configs.base import get_config
 
     cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
-    if arch in FAMILY_LAYERS:
-        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    layers = {**FAMILY_LAYERS, **DENSE_TRAIN_LAYERS}.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     return cfg
 
 
@@ -5000,7 +5268,10 @@ def _family_bf16_steps(arch: str, seed: int, rng) -> int:
     opt = init_opt_state(dict(model.named_parameters()))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    keep = (DEVICE if 2 * sum(p.numel() for p in model.parameters())
+            <= BEFORE_ON_CARD_BYTES else "cpu")
+    before = {n: p.detach().to(keep, copy=True)
+              for n, p in model.named_parameters()}
     step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
                                             total_steps=FAMILY_STEPS))
     batches = [_families().batch(cfg, b, FAMILY_S, rng)
@@ -5029,16 +5300,19 @@ def _family_bf16_steps(arch: str, seed: int, rng) -> int:
           f"{arch}: backward launches per step {per_step}, not {sites}")
     # every leaf's f32 master moved (a bf16 param of 1.0 may not: one of
     # its ulps is 2^-7), and every param is its master rounded to bf16
-    still = [n for n, p in before.items()
-             if torch.equal(opt["master"][n], p.float())]
+    still, moved = [], 0
+    for n, p in model.named_parameters():
+        was = before[n].to(DEVICE)
+        if torch.equal(opt["master"][n], was.float()):
+            still.append(n)
+        moved += not torch.equal(p, was)
+        if n == "embed.table":
+            check(not torch.equal(p, was),
+                  f"{arch}: the bf16 embedding did not move")
     check(not still, f"{arch}: the master of {still} did not move")
     check(all(torch.equal(p, opt["master"][n].bfloat16())
               for n, p in model.named_parameters()),
           f"{arch}: params are not the master rounded to bf16")
-    moved = sum(not torch.equal(p, before[n])
-                for n, p in model.named_parameters())
-    check(not torch.equal(model.embed.table, before["embed.table"]),
-          f"{arch}: the bf16 embedding did not move")
     del before
     med = float(np.median(times[1:]))
     tokens = batches[0]["targets"].size
@@ -5083,6 +5357,40 @@ def family_launch_args(ckdir: str) -> tuple:
             ckdir)
 
 
+def dense_serve_launch_args() -> tuple:
+    """``_Launcher`` arguments of ``python -m repro_torch.launch.serve
+    --arch olmo-1b`` at full width: B=8 prompts of 512 tokens, 16 new."""
+    return ("dense serve (f)", "repro_torch.launch.serve", "--arch",
+            DENSE_LAUNCH_ARCH, "--device", DEVICE, "--batch", str(SERVE_B),
+            "--prompt-len", str(SERVE_S), "--max-new", str(EARLY_NEW))
+
+
+def dense_train_launch_args(ckdir: str) -> tuple:
+    """``_Launcher`` arguments of ``python -m repro_torch.launch.train
+    --arch olmo-1b`` at full width for 3 steps of B=8 x S=512,
+    checkpointing into ``ckdir``."""
+    return ("dense train (d)", "repro_torch.launch.train", "--arch",
+            DENSE_LAUNCH_ARCH, "--device", DEVICE, "--steps", "3",
+            "--batch", str(FAMILY_B), "--seq", str(FAMILY_S),
+            "--checkpoint-dir", ckdir)
+
+
+def dense_launch_check(serve_out: str, train_out: str) -> None:
+    """The olmo-1b launchers' outputs: the whole model served on the card
+    (its published parameter count, B x (EARLY_NEW + 1) tokens) and 3
+    steps trained there with a finite loss."""
+    n_params = DENSE_PUBLISHED[DENSE_LAUNCH_ARCH][0]
+    check(f"init {n_params} parameters on cuda" in serve_out
+          and f"tokens {SERVE_B}x{EARLY_NEW + 1} " in serve_out,
+          f"launch.serve {DENSE_LAUNCH_ARCH}: {serve_out}")
+    check(f"arch={DENSE_LAUNCH_ARCH}" in train_out and "device=cuda"
+          in train_out and "done: 3 steps" in train_out,
+          f"launch.train {DENSE_LAUNCH_ARCH}: {train_out}")
+    last = next(x for x in train_out.splitlines()
+                if x.startswith("step     3"))
+    check(np.isfinite(float(last.split()[3])), f"launch.train: {last}")
+
+
 def family_train_phase(seed: int, launch_out: str) -> dict:
     """Training of the six non-dense families: (d) the output of
     :func:`family_launch_args`' run, checked; (a) an f32 step each at
@@ -5099,7 +5407,7 @@ def family_train_phase(seed: int, launch_out: str) -> dict:
         _family_f32_card_vs_cpu(arch, seed, rng)
     _family_f32_card_vs_cpu(ENCDEC_ARCH, seed, rng, frames=FAMILY_F32_RAGGED)
     launches = {}
-    for arch in FAMILY_ARCHS:
+    for arch in FAMILY_ARCHS + tuple(DENSE_TRAIN_LAYERS):
         launches[arch] = _family_bf16_steps(arch, seed, rng)
     _free_card("family train phase done")
     return launches
@@ -5934,12 +6242,15 @@ def main() -> int:
     print(CARD, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    print(f"build_s={build_all():.3f}", flush=True)
-
+    # the video kernels' phases run while the attention sources compile
+    built = start_builds()
+    print(f"build_s={built(VIDEO_KERNELS):.3f} ({', '.join(VIDEO_KERNELS)})",
+          flush=True)
     numbers = {"decode_gop_blocks": decode_kernel_phase(args.seed)}
     numbers.update(encode_kernel_phase(args.seed))
-    numbers["flash_attention"] = flash_kernel_phase(args.seed)
     numbers["sad_search"] = sad_kernel_phase(args.seed)
+    print(f"build_s={built():.3f} (all six kernels)", flush=True)
+    numbers["flash_attention"] = flash_kernel_phase(args.seed)
 
     t0 = time.perf_counter()
     frames, dets = generate(sparse_spec(seed=args.seed, height=H, width=W,
@@ -5965,6 +6276,7 @@ def main() -> int:
     mla = _phase("mla serve", mla_serve_phase, args.seed)
     encdec = _phase("encdec serve", encdec_serve_phase, args.seed)
     vlm, pipe = _phase("vlm serve", vlm_serve_phase, args.seed)
+    dense = _phase("dense serve", dense_serve_phase, args.seed)
     numbers["flash_attention_bwd"] = flash_bwd_kernel_phase(args.seed)
     # the server drill of scripts/server_smoke_torch.py and the family
     # train phase's launch.train (d), beside train (c)-(e); the
@@ -6015,6 +6327,8 @@ def main() -> int:
                                    "mla_prefill": mla,
                                    "zamba2_prefill": hybrid,
                                    "moe_prefill": moe,
+                                   **{f"{arch}_prefill": n
+                                      for arch, n in dense.items()},
                                    **{ex: entry[ex]["flash_attention"]
                                       for ex in ("serve_lm_torch",
                                                  "continuous_batching_torch",

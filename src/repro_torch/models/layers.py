@@ -115,10 +115,14 @@ def norm_apply(kind: str, p: Optional[Norm], x: torch.Tensor,
 # Rotary position embeddings
 # --------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
-    """Inverse frequencies, shape [head_dim // 2] (float32)."""
+    """Inverse frequencies, shape [head_dim // 2] (float32).  The power is
+    taken in f64 and rounded to f32, which gives XLA's f32 ``theta ** e``
+    on every exponent (f32 ``pow`` on the CPU or the card is off by an
+    ulp on some, e.g. one of 64 at head width 128 and theta 1e6 or
+    5e6)."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / (theta ** exps)
+    return 1.0 / (theta ** exps.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

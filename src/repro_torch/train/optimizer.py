@@ -11,6 +11,14 @@ The reference's arrays are immutable and its update returns new ones.
 Here the update writes in place: the params (so the model's own
 parameters move), and the moments and the master copy in the state.
 
+A leaf of more than :data:`SLICE` elements is updated a slice of its
+flat view at a time, which gives the same bits (the update is
+elementwise) and keeps the f32 temporaries near a gigabyte whatever the
+largest leaf: qwen2-72b's embedding and ``lm_head`` hold 1,245,708,288
+elements each, and a whole-leaf update of one of them would hold about
+20 GB of temporaries beside the state.  Such a leaf's sum of squares
+(for the gradient norm) is the sum of its slices' sums.
+
 Sharded parameters (``DTensor``, ``distributed.sharding.shard_model``)
 give sharded moments and master copy, placed as the parameters are.  The
 update is elementwise, so each rank updates its local blocks; only the
@@ -27,6 +35,32 @@ from typing import Optional
 import torch
 
 from repro_torch.distributed.parallel import is_dtensor, local_tensor
+
+#: elements of a leaf the update and the gradient norm take at a time
+SLICE = 1 << 26
+
+
+def _slices(*xs: torch.Tensor):
+    """``xs`` (same shape) whole, or where they hold more than
+    :data:`SLICE` elements, aligned slices of their flat views: the first
+    ones are written in place, so they must be contiguous; the last is
+    only read (a gradient, flattened with a copy if it is not)."""
+    n = xs[0].numel()
+    if n <= SLICE:
+        yield xs
+        return
+    flat = [x.view(-1) for x in xs[:-1]] + [xs[-1].reshape(-1)]
+    for i in range(0, n, SLICE):
+        yield tuple(f[i:i + SLICE] for f in flat)
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of ``x``, a slice at a time past
+    :data:`SLICE` elements."""
+    parts = [torch.sum(torch.square(s.to(torch.float32)))
+             for (s,) in _slices(x)]
+    return parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -80,7 +114,7 @@ def global_norm(tree: dict) -> torch.Tensor:
 
     leaves, mesh = [], None
     for x in tree.values():
-        sq = torch.sum(torch.square(local_tensor(x).to(torch.float32)))
+        sq = _sum_squares(local_tensor(x))
         if is_dtensor(x):
             mesh = x.device_mesh
             for i, pl in enumerate(x.placements):
@@ -116,20 +150,22 @@ def adamw_update(grads: dict, opt_state: dict, params: dict,
     masters = opt_state.get("master", params)
     for name, param in params.items():
         ndim = param.ndim  # of the whole leaf; the rest are local blocks
-        p, w = local_tensor(param), local_tensor(masters[name])
-        m = local_tensor(opt_state["m"][name])
-        v = local_tensor(opt_state["v"][name])
-        g = local_tensor(grads[name]).to(torch.float32) * scale
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        mh = m / bc1
-        vh = v / bc2
-        step_delta = mh / (torch.sqrt(vh) + cfg.eps)
-        if ndim >= 2:  # decay matrices only (norms/bias exempt)
-            step_delta = step_delta + cfg.weight_decay * w.to(torch.float32)
-        new_w = w.to(torch.float32) - lr * step_delta
-        if masters is not params:
-            w.copy_(new_w)
-        p.copy_(new_w.to(p.dtype))
+        for p, w, m, v, g in _slices(
+                local_tensor(param), local_tensor(masters[name]),
+                local_tensor(opt_state["m"][name]),
+                local_tensor(opt_state["v"][name]), local_tensor(grads[name])):
+            g = g.to(torch.float32) * scale
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            mh = m / bc1
+            vh = v / bc2
+            step_delta = mh / (torch.sqrt(vh) + cfg.eps)
+            if ndim >= 2:  # decay matrices only (norms/bias exempt)
+                step_delta = step_delta + cfg.weight_decay * w.to(
+                    torch.float32)
+            new_w = w.to(torch.float32) - lr * step_delta
+            if masters is not params:
+                w.copy_(new_w)
+            p.copy_(new_w.to(p.dtype))
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -401,7 +401,7 @@ def test_flash_attention_matches_plain_version(cuda, dtype, d, s, causal):
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("g", [1, 3, 7, 8])
 @pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 257])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bf16_query_groups(cuda, g, d, s, causal):
@@ -513,11 +513,14 @@ def _row_scaled_err(got, want, floor):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("g", [1, 3])
-@pytest.mark.parametrize("s", [1, 63, 64, 257, 1500, 2048])
+@pytest.mark.parametrize("s,g", [(s, g) for g in (1, 3) for s in (
+    1, 63, 64, 257, 1500, 2048)] + [(s, g) for g in (7, 8)
+                                    for s in (1, 63, 64, 257)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bwd_matches_plain_version(cuda, dtype, d, g, s,
                                                    causal):
+    # g = 7 and 8 are yi-34b's and qwen2-72b's query groups, whose dk and
+    # dv the kernel sums over the g query heads
     _check_bwd_against_plain(cuda, s + d + g, 1, g, 2, s, d, dtype, causal)
 
 
@@ -838,6 +841,41 @@ def test_full_width_prefill_launches_flash_attention_per_layer(cuda):
         want, _ = prefill(model, {"tokens": prompt})
     assert flash_kernel.LAUNCHES.count - before == 30
     torch.testing.assert_close(logits, want, atol=5e-2, rtol=0)
+
+
+def test_full_width_olmo_prefill_launches_flash_attention_per_layer(cuda):
+    """olmo-1b whole (16 layers, 16 heads of 128 on 16, the non-parametric
+    LayerNorm) drawn on the card: a prefill launches the kernel once a
+    layer, with finite logits, and each layer's attention output within
+    2e-2 (or one bf16 ulp of the plain value) of the plain version on its
+    own q, k, v."""
+    cfg = make_serve_config(get_config("olmo-1b"), model_axis=1)
+    model = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                       device=cuda)
+    assert sum(p.numel() for p in model.parameters()) == 1_279_787_008
+    assert model.final_norm.scale is None
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, (2, 200))
+    prefill = make_prefill_step(cfg, 256, device=str(cuda))
+    real, over = attention_mod.flash_attention_op, []
+
+    def beside_plain(q, k, v, causal=True):
+        got = real(q, k, v, causal=causal)
+        want = flash_kernel.attention_ref(q, k, v, causal=causal).float()
+        _, e = torch.frexp(want)
+        ulp = torch.ldexp(torch.full_like(want, 2.0 ** -7), e - 1)
+        over.append(float(((got.float() - want).abs()
+                           / ulp.clamp_min(FLASH_TOL[got.dtype])).max()))
+        return got
+
+    before = flash_kernel.LAUNCHES.count
+    with mock.patch.object(attention_mod, "flash_attention_op",
+                           beside_plain):
+        logits, _ = prefill(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES.count - before == 16
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert len(over) == 16 and max(over) <= 1.0, over
 
 
 def test_batcher_on_cuda_prefills_through_the_kernel(cuda):

@@ -76,7 +76,7 @@ def _compare(b, h, kv, s, d, causal, dtype, seed=0):
 
 
 @pytest.mark.parametrize("s,h,kv,d", [(128, 4, 4, 32), (256, 4, 2, 64),
-                                      (256, 8, 1, 32)])
+                                      (256, 8, 1, 32), (128, 7, 1, 32)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_sweep(s, h, kv, d, causal, dtype):
@@ -270,7 +270,7 @@ def test_cross_attention_gradient_matches_jax_grad(kv, g, d):
 # ------------------------------------------------------- attention gradient
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("kv,g,d", [(2, 3, 16), (1, 4, 32), (3, 1, 64),
-                                    (2, 2, (192, 128))])
+                                    (2, 2, (192, 128)), (1, 7, 32)])
 def test_attention_gradient_matches_jax_grad(causal, kv, g, d):
     # the port's FlashAttentionFn (plain backward on the CPU) against
     # jax.grad through the reference's chunked online-softmax attention;

@@ -255,6 +255,41 @@ def test_adamw_matches_reference_over_five_steps(dtype):
                                            err_msg=n)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_sliced_leaves_same_bits(dtype, monkeypatch):
+    """A leaf past ``optimizer.SLICE`` elements (qwen2-72b's embedding
+    and ``lm_head``) is updated a slice of its flat view at a time: the
+    same params, moments and master bit for bit as the whole leaf at
+    once, over three steps, with a gradient that is not contiguous; the
+    gradient norm then sums slices (rtol 1e-6)."""
+    from repro_torch.train import optimizer
+
+    init, shapes = _opt_trees(dtype)
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=5)
+    rng = np.random.default_rng(2)
+    grads = [{n: rng.standard_normal(s).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(3)]
+    runs = []
+    for slice_at in (optimizer.SLICE, 7):
+        monkeypatch.setattr(optimizer, "SLICE", slice_at)
+        tp = {n: torch.from_numpy(a).to(getattr(torch, dtype))
+              for n, a in init.items()}
+        to, norms = init_opt_state(tp), []
+        for g in grads:
+            tg = {n: torch.from_numpy(a) for n, a in g.items()}
+            tg["w"] = torch.from_numpy(np.ascontiguousarray(g["w"].T)).T
+            assert not tg["w"].is_contiguous()
+            tp, to, tm = adamw_update(tg, to, tp, cfg)
+            norms.append(float(tm["grad_norm"]))
+        runs.append((tp, to, norms))
+    (p0, o0, n0), (p1, o1, n1) = runs
+    np.testing.assert_allclose(n1, n0, rtol=1e-6)
+    for n in shapes:
+        assert torch.equal(p0[n], p1[n]), n
+        for key in ("m", "v") + (("master",) if "master" in o0 else ()):
+            assert torch.equal(o0[key][n], o1[key][n]), f"{key}/{n}"
+
+
 def test_lr_schedule_matches_reference():
     for cfg_kw in (dict(lr=1e-3, warmup_steps=10, total_steps=100,
                         min_lr_frac=0.1),
