@@ -176,15 +176,18 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    codes equal but for at most ``INT8_FLIPS`` of them, one apart, a
    decode step from the same codes within 1e-3, greedy agreement >= 0.99
    over 16 tokens (``_int8_card_vs_cpu``);
-15. MoE serve phase, ``qwen3-moe-30b-a3b`` at its published width and
-   depth (48 layers, d_model 2048, 32/4 heads of 128, 128 experts top 8,
+15. MoE serve phase, ``qwen3-moe-30b-a3b`` at its published width, 24
+   of its 48 layers (``MOE_SERVE_LAYERS``, cut to pay for the distributed
+   phase's (i)-(k); d_model 2048, 32/4 heads of 128, 128 experts top 8,
    capacity factor 1.25, vocab 151,936; ``make_serve_config(cfg, 1)``;
-   30,532,122,624 parameters, equal to ``analytic_param_count``, 61 GB
-   of bf16 weights drawn on the card from a CUDA generator seeded with
-   the seed), with no earlier model resident (free card memory printed
+   15,577,227,264 of its 30,532,122,624 parameters, equal to
+   ``analytic_param_count``, 31 GB of bf16 weights drawn on the card
+   from a CUDA generator seeded with the seed), with no earlier model
+   resident (free card memory printed
    before the init, the init time after it): (a) ``greedy_generate`` of
    8 prompts of 512 tokens, 16 new; the prefill launches
-   ``flash_attention`` 48 times; TTFT and decode tokens/s; (b) the same
+   ``flash_attention`` 24 times (``MOE_SERVE_LAYERS``); TTFT and decode
+   tokens/s; (b) the same
    weights with the plain prefill attention: the last-position logits'
    largest gap and the greedy agreement; per layer, the share of the
    prefill's (token, slot) expert assignments whose expert the plain
@@ -207,9 +210,11 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
 16. SSM and hybrid serve phase, once the MoE weights are freed:
    ``zamba2-1.2b`` (38 Mamba-2 layers, d_model 2048, a shared attention
    block after every 6th layer at twice d_model, 32 heads of 128 on 32
-   KV heads; 1,279,529,856 parameters) and then ``falcon-mamba-7b`` (64
-   Mamba-1 layers, d_model 4096, attention-free; 7,272,665,088), each at
-   its published width and depth with ``make_serve_config(cfg, 1)`` and
+   KV heads; 1,279,529,856 parameters) and then ``falcon-mamba-7b`` (32
+   of its 64 Mamba-1 layers, cut to pay for the distributed phase's
+   (i)-(k); d_model 4096, attention-free; 3,902,672,896 of its
+   7,272,665,088), each at its published width with
+   ``make_serve_config(cfg, 1)`` and
    bf16 weights drawn on the card from a CUDA generator seeded with the
    seed, the card's free memory printed before each init: (a)
    ``greedy_generate`` of 8 prompts of 512 tokens, 16 new: TTFT, decode
@@ -238,8 +243,10 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    --arch zamba2-1.2b --device cuda`` exits 0 (started as falcon's (c)
    starts, which leaves the card mostly idle, and waited for after it);
    beside it, where the card has room and nothing is timed on it: dense
-   (d) ``python -m repro_torch.launch.train --arch olmo-1b --device cuda
-   --steps 3 --batch 8 --seq 512`` (started once zamba2's (a) is done)
+   (d) ``python -m repro_torch.launch.train --arch olmo-1b --layers 8
+   --device cuda --steps 3 --batch 8 --seq 512`` (8 of its 16 layers, cut
+   to pay for the distributed phase's (i)-(k); started once zamba2's (a)
+   is done)
    exits 0 with a finite loss, and dense (f) ``python -m
    repro_torch.launch.serve --arch olmo-1b --device cuda --batch 8
    --prompt-len 512 --max-new 16`` (beside falcon's (c)) exits 0 having
@@ -361,7 +368,8 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    f32 at 2, 2 and 4 layers of full width, the kernel's prefill against
    the plain attention's on the same weights: logits within 1e-3,
    greedy agreement >= 0.99; (f) and (d) the olmo-1b launchers at full
-   width, run beside the SSM serve phase (16);
+   width (the train launcher at 8 layers), run beside the SSM serve phase
+   (16);
 21. attention backward kernel phase: holds ``flash_attention_bwd`` (dq,
    dk, dv from the forward's o and row logsumexp) against its plain
    version, each element over its row's largest |gradient| (``BWD_TOL``:
@@ -489,14 +497,25 @@ From the root of a checkout, on a machine with a CUDA device and ``nvcc``:
    ``choose_serve_cache_policy`` (B=8 prompts of 512, 16 new; seamless
    through ``greedy_generate(enc_out=...)``, which its launcher refuses):
    the same tokens, the forward launched once at each site of the
-   prefill; (g) and (h) timed in turns, sharded beside unsharded (a
+   prefill; (i) qwen3-moe-30b-a3b at full width and 2 layers
+   (``DIST_MOE_LAYERS``), bf16, ``launch.serve``'s weights and prompts
+   (B=8, 512 tokens, 16 new) unsharded; (j) one bf16 step of it (f32
+   master, B=8, S=512) under ``dp_train`` on the 1x1 mesh and unsharded,
+   both with PyTorch's deterministic kernels (the MoE's gathers add their
+   gradients with atomics otherwise; cuBLAS's fixed workspace not set, so
+   that no other phase runs under it): the loss and every updated
+   parameter bit for bit, the backward launched once at each attention
+   site; (g) and (h) timed in turns, sharded beside unsharded (a
    world of two gloo ranks on the card cannot run: gloo's functional
    collectives, which ``DTensor.redistribute`` calls, fail on CUDA
    tensors, ``scripts/gloo_cuda_probe_torch.py``); beside it, (e) ``python -m repro_torch.launch.train
    --arch smollm-135m --mesh 1,1`` at B=8, S=512 for 3 steps (policy
    ``dp_train``) and (f) ``python -m repro_torch.launch.serve --mesh 1,1
    --kv-shard seq`` at B=8, 512-token prompts, 16 new tokens, whose
-   tokens' digest must be (c)'s; the three processes run beside train
+   tokens' digest must be (c)'s, and (k) ``python -m
+   repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layers 2 --mesh
+   1,1`` at the same sizes, whose digest must be (i)'s; the four
+   processes, the worker printing its (a)-(j) walls, run beside train
    (e)'s ``--resume`` launcher, and the phase checks what they printed;
 23. prints the times of the kernels redesigned for this card (all six:
    ``sad_search`` at both motion shapes) beside the times recorded before
@@ -541,6 +560,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -669,6 +689,12 @@ FLASH_OLD_DIGESTS = {"bfloat16": "35e53691261118712e828ecf4cdd1d04",
 #: assignments of each layer that must agree between the kernel's and
 #: the plain attention's prefill in bf16
 MOE_ARCH = "qwen3-moe-30b-a3b"
+#: the MoE serve phase's depth: 24 of its 48 layers at full width
+#: (15,577,227,264 of 30,532,122,624 parameters), cut to pay for the
+#: distributed phase's MoE step
+MOE_SERVE_LAYERS = 24
+#: (parameters served at MOE_SERVE_LAYERS, published depth)
+MOE_SERVED = (15_577_227_264, 48)
 FLASH_MOE = (SERVE_B, 32, 4, SERVE_S, 128)
 AGREE_ROUTING = 0.99
 #: the SSM and hybrid serve paths at their published width and depth:
@@ -681,8 +707,12 @@ AGREE_ROUTING = 0.99
 #: falcon-mamba-7b's 2 hold the scan across a layer boundary),
 #: batch and new tokens (the CPU side's time)
 SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
-SSM_PUBLISHED = {"zamba2-1.2b": (1_279_529_856, 38),
-                 "falcon-mamba-7b": (7_272_665_088, 64)}
+#: {arch: (parameters served, published depth, depth served)}:
+#: falcon-mamba-7b at its full width with 32 of its 64 identical layers
+#: (7,272,665,088 parameters whole), cut to pay for the distributed
+#: phase's MoE step
+SSM_PUBLISHED = {"zamba2-1.2b": (1_279_529_856, 38, 38),
+                 "falcon-mamba-7b": (3_902_672_896, 64, 32)}
 FLASH_HYBRID = (SERVE_B, 32, 32, SERVE_S, 128)
 #: the MLA serve path: deepseek-v2-lite-16b at its published width and
 #: depth (27 layers, the first dense at d_ff 10944, d_model 2048, 16
@@ -790,6 +820,10 @@ BEFORE_ON_CARD_BYTES = 5e9
 #: ``launch.serve`` of B=8 prompts of 512 tokens and 16 new, and
 #: ``launch.train`` for 3 steps of B=8 x S=512
 DENSE_LAUNCH_ARCH = "olmo-1b"
+#: the train launcher's depth: 8 of olmo-1b's 16 layers (742,916,096
+#: parameters, a 10.4 GB checkpoint for 17.9 GB whole), cut to pay for
+#: the distributed phase's MoE step
+DENSE_LAUNCH_TRAIN_LAYERS = 8
 #: the share of the first layer's int8 KV-cache codes that may differ (by
 #: one) between the card and the CPU from the same input: where x / scale
 #: lies within their f32 error of .5 (about 1e-4 in code units)
@@ -3231,7 +3265,7 @@ def moe_serve_phase(seed: int) -> int:
     _free_card("moe serve")
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(seed + 3)
-    cfg = _moe_config()
+    cfg = _moe_config(n_layers=MOE_SERVE_LAYERS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = _init_on_card(cfg, seed)
@@ -3240,16 +3274,17 @@ def moe_serve_phase(seed: int) -> int:
     n_params = sum(p.numel() for p in model.parameters())
     want_params = zoo.analytic_param_count(cfg)
     moe0 = model.layers[0].moe
-    check(cfg.n_layers == 48 and cfg.d_model == 2048 and len(model.layers)
-          == 48 and moe0.w_gate.shape[0] == cfg.moe.n_routed == 128
-          and n_params == want_params
+    check(len(model.layers) == MOE_SERVE_LAYERS and cfg.d_model == 2048
+          and moe0.w_gate.shape[0] == cfg.moe.n_routed == 128
+          and n_params == want_params == MOE_SERVED[0]
           and moe0.w_down.dtype == torch.bfloat16
           and moe0.w_down.device.type == "cuda",
           f"serving {cfg.name}: {len(model.layers)} layers, {n_params} "
           f"parameters (analytic {want_params})")
     print(f"moe serve {cfg.name}: {n_params} parameters (analytic_param_count"
           f" {want_params}, active {zoo.analytic_param_count(cfg, True)}), "
-          f"{cfg.n_layers} layers, {cfg.moe.n_routed} experts top "
+          f"{cfg.n_layers} of its {MOE_SERVED[1]} layers, "
+          f"{cfg.moe.n_routed} experts top "
           f"{cfg.moe.top_k}, {cfg.param_dtype} weights drawn on the card in "
           f"init_s={init_s:.3f}; allocated_bytes="
           f"{torch.cuda.memory_allocated()}", flush=True)
@@ -3553,14 +3588,14 @@ def _ssm_serve_one(arch: str, seed: int, beside_c=(),
     _free_card(label)
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(seed + 3)
-    cfg = _arch_config(arch)
+    want_params, published, depth = SSM_PUBLISHED[arch]
+    cfg = _arch_config(arch, n_layers=depth)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = _init_on_card(cfg, seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    want_params, depth = SSM_PUBLISHED[arch]
     sites = zoo._hybrid_sites(cfg)[0] if cfg.family == "hybrid" else 0
     emb = model.embed.table
     check(cfg.n_layers == len(model.layers) == depth
@@ -3570,7 +3605,8 @@ def _ssm_serve_one(arch: str, seed: int, beside_c=(),
           f"serving {cfg.name}: {len(model.layers)} layers, {n_params} "
           f"parameters")
     print(f"{label}: {n_params} parameters (analytic_param_count), "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.ssm.kind}, "
+          f"{cfg.n_layers} of its {published} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm.kind}, "
           f"{sites} shared-attention sites, {cfg.param_dtype} weights "
           f"drawn on the card in init_s={init_s:.3f}; allocated_bytes="
           f"{torch.cuda.memory_allocated()}", flush=True)
@@ -5370,7 +5406,8 @@ def dense_train_launch_args(ckdir: str) -> tuple:
     --arch olmo-1b`` at full width for 3 steps of B=8 x S=512,
     checkpointing into ``ckdir``."""
     return ("dense train (d)", "repro_torch.launch.train", "--arch",
-            DENSE_LAUNCH_ARCH, "--device", DEVICE, "--steps", "3",
+            DENSE_LAUNCH_ARCH, "--layers", str(DENSE_LAUNCH_TRAIN_LAYERS),
+            "--device", DEVICE, "--steps", "3",
             "--batch", str(FAMILY_B), "--seq", str(FAMILY_S),
             "--checkpoint-dir", ckdir)
 
@@ -5732,6 +5769,9 @@ RING_BLOCKS = 4
 RING_TOL32, RING_ROW_TOL = 3e-5, 2e-2
 #: the sharded train and serve at smollm-135m's full width
 DIST_B, DIST_S, DIST_STEPS, DIST_NEW = 8, 512, 3, 16
+#: (i)-(k): qwen3-moe-30b-a3b at its published width cut to this depth
+#: (1,868,573,184 parameters, 3.7 GB of bf16), bf16
+DIST_MOE_LAYERS = 2
 
 
 def _ring_blocks(q, k, v, causal: bool) -> torch.Tensor:
@@ -6102,6 +6142,94 @@ def _dist_families(mesh, seed: int) -> dict:
     return out
 
 
+def _dist_moe(mesh, seed: int) -> dict:
+    """(i) ``launch.serve``'s weights and prompts of qwen3-moe-30b-a3b at
+    DIST_MOE_LAYERS layers, unsharded: the tokens whose digest the (k)
+    launcher (``--mesh 1,1``) must print; (j) one bf16 step of its
+    training config under ``dp_train`` on the 1x1 mesh, both steps with
+    PyTorch's deterministic kernels: the loss and every updated parameter
+    bit for bit the unsharded step's (run first, its parameters kept on
+    the host, so that one model's AdamW state is on the card at a time),
+    the backward launched once at each attention site of the sharded
+    step."""
+    import gc
+
+    from repro_torch.configs.base import get_config, make_serve_config
+    from repro_torch.distributed import parallel
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.ctx import dp_rules, use_sharding
+    from repro_torch.train.data import synthetic_token_batches
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(make_serve_config(get_config(MOE_ARCH), 1),
+                              n_layers=DIST_MOE_LAYERS)
+    plain = _init_on_card(cfg, 0)
+    n_params = sum(p.numel() for p in plain.parameters())
+    want, t_pre, t_dec = _serve_tokens(plain, cfg, contextlib.nullcontext())
+    del plain
+    free()
+    out = {"params": n_params, "serve_s": [t_pre, t_dec],
+           "digest": hashlib.sha256(want.to(torch.int64).numpy().tobytes()
+                                    ).hexdigest()[:16]}
+    tcfg = dataclasses.replace(get_config(MOE_ARCH), param_dtype="bfloat16",
+                               n_layers=DIST_MOE_LAYERS)
+    batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in next(
+        synthetic_token_batches(tcfg.vocab, DIST_B, DIST_S,
+                                seed=seed)).items()}
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=1)
+    runs = {}
+    # the MoE's dispatch and combine gather rows, whose backward adds into
+    # the token rows with atomics on CUDA: the same step gives other bits
+    # run to run unless PyTorch's deterministic kernels are asked for.
+    # Only warned about, not refused, where cuBLAS would want its fixed
+    # workspace (CUBLAS_WORKSPACE_CONFIG, which would bind every phase of
+    # this process): one stream's GEMMs repeat their bits without it
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore",
+                                message=".*CUBLAS_WORKSPACE_CONFIG")
+        for name in ("unsharded", "sharded"):
+            model = _init_on_card(tcfg, seed)
+            scope = contextlib.nullcontext()
+            if name == "sharded":
+                model = shd.shard_model(model, tcfg, mesh, mode="dp_train")
+                scope = use_sharding(dp_rules(mesh.axis_names), mesh)
+            opt = init_opt_state(dict(model.named_parameters()))
+            step = make_train_step(tcfg, opt_cfg)
+            reset_counts()
+            with scope:
+                (model, opt, met), t = _timed(
+                    lambda: step(model, opt, batch))
+            runs[name] = {"loss": met["loss"].item(), "step_s": t,
+                          "launches": read_counts(),
+                          "params": {
+                              n: parallel.local_tensor(p).detach().cpu()
+                              for n, p in model.named_parameters()}}
+            del model, opt, met
+            free()
+        torch.use_deterministic_algorithms(False)
+    plain, shard = runs["unsharded"], runs["sharded"]
+    check(shard["loss"] == plain["loss"], f"(j) sharded loss "
+          f"{shard['loss']} != {plain['loss']}")
+    differ = [n for n, p in plain["params"].items()
+              if not torch.equal(p, shard["params"][n])]
+    check(not differ, f"(j) updated parameters not bit for bit: {differ[:4]}")
+    sites = _families().attention_sites(tcfg)
+    bwd = shard["launches"]["flash_attention_bwd"]
+    check(bwd == sites, f"(j) {bwd} backward launches, not one at each of "
+          f"its {sites} attention sites")
+    out.update(loss=plain["loss"], leaves=len(plain["params"]),
+               step_s=[shard["step_s"], plain["step_s"]],
+               fwd_launches=shard["launches"]["flash_attention"],
+               bwd_launches=bwd)
+    return out
+
+
 def _dist_sync_and_checkpoint(mesh, seed: int) -> None:
     """(d): one int8 error-feedback all-reduce and one checkpoint save /
     restore of a DTensor on the NCCL group."""
@@ -6136,8 +6264,8 @@ def _dist_sync_and_checkpoint(mesh, seed: int) -> None:
 
 def distributed_worker(out_path: str, seed: int) -> int:
     """The distributed phase's own process (NCCL state stays in it): a
-    one-rank NCCL group and the 1x1 mesh over it, (a)-(d), a JSON summary
-    to ``out_path``."""
+    one-rank NCCL group and the 1x1 mesh over it, (a)-(d) and (g)-(j), a
+    JSON summary to ``out_path``."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_mesh
@@ -6158,9 +6286,25 @@ def distributed_worker(out_path: str, seed: int) -> int:
     walls.append(time.perf_counter())
     out["families"] = _dist_families(mesh, seed)
     walls.append(time.perf_counter())
-    print("distributed (a)-(h) wall_s " + " ".join(
+    moe = out["moe"] = _dist_moe(mesh, seed)
+    walls.append(time.perf_counter())
+    print(f"distributed (i) {MOE_ARCH} at {DIST_MOE_LAYERS} layers "
+          f"({moe['params']} parameters), bf16, launch.serve's weights and "
+          f"prompts unsharded (B={DIST_B}, {DIST_S} tokens, {DIST_NEW} new)"
+          f": sha256={moe['digest']}, prefill {moe['serve_s'][0]:.6f} s, "
+          f"decode {moe['serve_s'][1]:.6f} s", flush=True)
+    print(f"distributed (j) {MOE_ARCH} at {DIST_MOE_LAYERS} layers, bf16, "
+          f"f32 master, B={DIST_B} S={DIST_S}, one dp_train step on the "
+          f"1x1 NCCL mesh: loss {moe['loss']:.6f} and all {moe['leaves']} "
+          f"updated parameters bit for bit the unsharded step's; step "
+          f"sharded {moe['step_s'][0]:.6f} s, unsharded "
+          f"{moe['step_s'][1]:.6f} s (first calls); flash_attention "
+          f"launches {moe['fwd_launches']}, flash_attention_bwd "
+          f"{moe['bwd_launches']}", flush=True)
+    print("distributed (a)-(j) wall_s " + " ".join(
         f"{k}={b - a:.3f}" for k, a, b in zip(
-            ("a", "b", "c", "d", "g-h"), [t0] + walls, walls)), flush=True)
+            ("a", "b", "c", "d", "g-h", "i-j"), [t0] + walls, walls)),
+        flush=True)
     pathlib.Path(out_path).write_text(json.dumps(out))
     dist.destroy_process_group()
     return 0
@@ -6168,10 +6312,12 @@ def distributed_worker(out_path: str, seed: int) -> int:
 
 def distributed_launch_args(out_dir: str, seed: int) -> list:
     """The distributed phase's processes, as ``_Launcher`` arguments: its
-    own (a)-(d) (``distributed_worker``, writing its summary to
-    ``<out_dir>/distributed.json``) and, beside it, (e) ``launch.train
-    --mesh 1,1`` and (f) ``launch.serve --mesh 1,1 --kv-shard seq``.  They
-    run beside train (e)'s ``--resume`` launcher."""
+    own (a)-(d) and (g)-(j) (``distributed_worker``, writing its summary
+    to ``<out_dir>/distributed.json``) and, beside it, (e) ``launch.train
+    --mesh 1,1``, (f) ``launch.serve --mesh 1,1 --kv-shard seq`` and (k)
+    ``launch.serve`` of qwen3-moe-30b-a3b at DIST_MOE_LAYERS layers on the
+    1x1 mesh.  They run beside train (e)'s ``--resume`` launcher."""
+    moe = ("--arch", MOE_ARCH, "--layers", str(DIST_MOE_LAYERS))
     return [("distributed (a)-(d)", str(ROOT / "chip_smoke.py"),
              "--distributed-worker", os.path.join(out_dir, "distributed.json"),
              "--seed", str(seed)),
@@ -6183,19 +6329,23 @@ def distributed_launch_args(out_dir: str, seed: int) -> list:
             ("distributed (f)", "repro_torch.launch.serve", "--arch", ARCH,
              "--mesh", "1,1", "--kv-shard", "seq", "--batch", str(DIST_B),
              "--prompt-len", str(DIST_S), "--max-new", str(DIST_NEW),
-             "--device", DEVICE)]
+             "--device", DEVICE),
+            ("distributed (k)", "repro_torch.launch.serve", *moe, "--mesh",
+             "1,1", "--batch", str(DIST_B), "--prompt-len", str(DIST_S),
+             "--max-new", str(DIST_NEW), "--device", DEVICE)]
 
 
 def distributed_phase(out_dir: str, outs: list) -> tuple:
     """``distributed/`` on the card, from the processes of
-    ``distributed_launch_args`` (their standard outputs ``outs``): (a)-(h)
+    ``distributed_launch_args`` (their standard outputs ``outs``): (a)-(k)
     printed, (e) trained under ``dp_train``, (f)'s tokens those of (c)'s
-    unsharded serve; the ring's ``flash_attention`` launches, and the
-    sharded family runs' (g) ``flash_attention_bwd`` and (h)
-    ``flash_attention`` launches by path."""
-    worker, train, serve = outs
+    unsharded serve, (k)'s those of (i)'s; the ring's ``flash_attention``
+    launches, and the sharded family runs' (g) ``flash_attention_bwd`` and
+    (h) ``flash_attention`` launches and (j)'s of both, by path."""
+    worker, train, serve, moe_serve = outs
     print(worker, end="", flush=True)
-    for label, out in (("distributed (e)", train), ("distributed (f)", serve)):
+    for label, out in (("distributed (e)", train), ("distributed (f)", serve),
+                       ("distributed (k)", moe_serve)):
         print(f"{label}: " + " | ".join(out.strip().splitlines()), flush=True)
     res = json.loads(pathlib.Path(out_dir, "distributed.json").read_text())
     check("policy dp_train" in train and f"done: {DIST_STEPS} steps" in train,
@@ -6203,12 +6353,20 @@ def distributed_phase(out_dir: str, outs: list) -> tuple:
     check(f"sha256={res['serve']['digest']}" in serve,
           f"launch.serve --mesh 1,1 --kv-shard seq: tokens differ from the "
           f"unsharded serve's ({res['serve']['digest']}): {serve}")
+    check(f"sha256={res['moe']['digest']}" in moe_serve,
+          f"launch.serve --arch {MOE_ARCH} --layers {DIST_MOE_LAYERS} --mesh "
+          f"1,1: tokens differ from (i)'s unsharded serve "
+          f"({res['moe']['digest']}): {moe_serve}")
     fam = res["families"]
     return res["ring"]["launches"], {
-        "flash_attention": {f"{arch}_dist_serve": r["flash_launches"]
-                            for arch, r in fam.items()},
-        "flash_attention_bwd": {f"{arch}_dist_train": r["bwd_launches"]
-                                for arch, r in fam.items()}}
+        "flash_attention": {**{f"{arch}_dist_serve": r["flash_launches"]
+                               for arch, r in fam.items()},
+                            "qwen3_moe_dist_train":
+                                res["moe"]["fwd_launches"]},
+        "flash_attention_bwd": {**{f"{arch}_dist_train": r["bwd_launches"]
+                                   for arch, r in fam.items()},
+                                "qwen3_moe_dist_train":
+                                    res["moe"]["bwd_launches"]}}
 
 
 def _phase(name: str, fn, *args):

@@ -27,12 +27,19 @@ tensors and this module supplies what GSPMD would have inserted:
   gather the whole logits); the input enters
   through :func:`copy_to` (identity forward, all-reduce of the gradient)
   and the partial output leaves through :func:`reduce_from` (all-reduce
-  forward, identity backward).  The other families, each as GSPMD
-  would derive it from the reference's specs: the Mamba mixers
-  over this rank's channels (Mamba-1) or heads (Mamba-2), with the
-  partial products that every channel reads (Mamba-1's ``x_proj``,
+  forward, identity backward).  Each split product keeps every rank's
+  part in f32 up to its sum and rounds once after it, as the one-device
+  product does: forward over this rank's rows (:func:`row_product`,
+  ``models/layers.py::dense_rows``), backward the input gradient of the
+  column-split projections (:func:`column_products`,
+  ``models/layers.py::dense_cols``) and of a whole tensor each rank
+  reads for its own part (:func:`copy_to_f32`).  The other families,
+  each as GSPMD would derive it from the reference's specs: the Mamba
+  mixers over this rank's channels (Mamba-1) or heads (Mamba-2), with
+  the partial products that every channel reads (Mamba-1's ``x_proj``,
   Mamba-2's gated-norm mean square) summed over ``model`` both ways
-  (:func:`all_reduce_sum`); Zamba2's shared block at its wide config,
+  (:func:`row_product` and :func:`copy_to_f32`, :func:`all_reduce_sum`);
+  Zamba2's shared block at its wide config,
   its ``out_proj`` over this rank's rows; cross-attention over this
   rank's heads; the VLM projector's two column splits joined by
   :func:`gather_from`.
@@ -221,9 +228,9 @@ def reduce_from(x: torch.Tensor, *groups: Group) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor, *groups: Group) -> torch.Tensor:
     """``x`` summed over ``groups``, and its gradient summed over them
     too: a partial product that every rank of the group then reads for
-    its own part (Mamba-1's ``x_proj`` output, Mamba-2's gated-norm sum of
-    squares), so each rank's gradient of the sum is partial as well.
-    Accumulated in f32, as :func:`reduce_from`."""
+    its own part (Mamba-2's gated-norm sum of squares), so each rank's
+    gradient of the sum is partial as well.  Accumulated in f32, as
+    :func:`reduce_from`."""
     return _AllReduce.apply(x, groups) if groups else x
 
 
@@ -237,6 +244,121 @@ def gather_from(x: torch.Tensor, g: Optional[Group],
     if g is None:
         return x
     return _GatherFrom.apply(x, g, dim % x.dim())
+
+
+# --------------------------------------------------------------------------
+# Split products, summed in f32 and rounded once
+# --------------------------------------------------------------------------
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D operands of one dtype, its products summed in f32
+    and not rounded: the GEMM's f32 output on the card (and on ``meta``),
+    the upcast operands' product on the CPU (the same sums)."""
+    if a.device.type != "cpu" and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _RowProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, groups):
+        ctx.save_for_backward(x, w)
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w)  # this rank's own copy
+        for g in groups:
+            dist.all_reduce(y, group=g.group)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype).reshape(-1, grad.shape[-1])
+        dx = torch.mm(g, w.t()).reshape(x.shape)
+        return dx, torch.mm(x.reshape(-1, x.shape[-1]).t(), g), None
+
+
+def row_product(x: torch.Tensor, w: torch.Tensor,
+                *groups: Group) -> torch.Tensor:
+    """``x @ w`` in f32, ``x``'s last dim and ``w``'s rows split over
+    ``groups``: each rank's partial product summed in f32 over them, not
+    rounded (the caller rounds once, as the one-device product rounds),
+    with no copy past the product's own output.  Its backward is the
+    operands' dtype's own matmul, as :func:`reduce_from`'s."""
+    return _RowProduct.apply(x, w, groups)
+
+
+class _ColumnProducts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype, groups, *ws):
+        ctx.set_materialize_grads(False)
+        xc, wcs = x.to(dtype), [w.to(dtype) for w in ws]
+        ctx.save_for_backward(xc, *wcs)
+        ctx.groups, ctx.dtypes = groups, (x.dtype, *(w.dtype for w in ws))
+        return tuple(torch.matmul(xc, w) for w in wcs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xc, *ws = ctx.saved_tensors
+        x2 = xc.reshape(-1, xc.shape[-1])
+        dx, dws = None, []
+        for i, (grad, w) in enumerate(zip(grads, ws)):
+            if grad is None:
+                dws.append(None)
+                continue
+            g = grad.reshape(-1, grad.shape[-1]).to(w.dtype)
+            if ctx.needs_input_grad[0]:
+                part = _mm_f32(g, w.t())
+                dx = part if dx is None else dx.add_(part)
+            dws.append(_mm_f32(x2.t(), g).to(ctx.dtypes[1 + i])
+                       if ctx.needs_input_grad[3 + i] else None)
+        if dx is not None:
+            for grp in ctx.groups:  # this rank's own sum
+                dist.all_reduce(dx, group=grp.group)
+            dx = dx.reshape(xc.shape).to(ctx.dtypes[0])
+        return (dx, None, None, *dws)
+
+
+def column_products(x: torch.Tensor, ws, dtype: torch.dtype,
+                    *groups: Group) -> tuple:
+    """``x @ w`` for each ``w`` of ``ws`` (this rank's columns where
+    ``groups`` split them), both operands cast to ``dtype``: the
+    forward is that dtype's matmul, as ``dense_apply``'s.  The gradients
+    stay in f32 up to their sums: ``x``'s is every product's input
+    gradient summed in f32 over the products and ``groups`` (``x``
+    enters the region as :func:`copy_to`'s does) and rounded once to
+    ``x``'s dtype; each ``w``'s is rounded once to ``w``'s dtype (f32
+    parameters keep the f32 sum, which the batch axes then sum)."""
+    return _ColumnProducts.apply(x, dtype, groups, *ws)
+
+
+class _CopyToF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, share):
+        ctx.g, ctx.share, ctx.dtype = g, share, x.dtype
+        return x.view_as(x) if x.dtype == torch.float32 else x.float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        y = grad.to(torch.float32, copy=True)
+        dist.all_reduce(y, group=ctx.g.group)
+        if ctx.share:
+            y /= ctx.g.size
+        return y.to(ctx.dtype), None, None
+
+
+def copy_to_f32(x: torch.Tensor, g: Optional[Group],
+                share: bool = False) -> torch.Tensor:
+    """``x``'s values in f32, its gradient (f32, each rank's part) summed
+    over ``g`` in f32 and rounded once to ``x``'s dtype: a whole
+    tensor that every rank reads for its own part (Mamba-1's ``x_proj``
+    output; MLA's latent and rope key, Mamba-2's B and C, read by this
+    rank's heads), where rounding each rank's part before the sum would
+    round twice.  With ``share`` the sum is divided by the group's size:
+    ``x`` was computed alike on every rank from parameters whose
+    gradients are summed over the group (``SPLIT``), so each rank
+    carries its share of the whole into those sums.  ``x`` itself where
+    ``g`` is None or no gradient is taken."""
+    if g is None or not (x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _CopyToF32.apply(x, g, share)
 
 
 # --------------------------------------------------------------------------

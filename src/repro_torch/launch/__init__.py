@@ -1,9 +1,11 @@
 """The LM launchers of the port: ``python -m repro_torch.launch.train``
 and ``python -m repro_torch.launch.serve`` (counterparts of the
 reference's ``launch/train.py`` and ``launch/serve.py``), and what they
-share: the model drawn on the device, the ``--mesh`` they run on."""
+share: the model drawn on the device, the ``--mesh`` they run on, the
+``--layers`` cut of depth."""
 from __future__ import annotations
 
+import dataclasses
 import sys
 
 import torch
@@ -27,6 +29,16 @@ def init_on_device(cfg, device: str, prog: str):
     gen = (torch.Generator(device=dev).manual_seed(0) if dev.type == "cuda"
            else 0)
     return init_model(cfg, gen, device=dev)
+
+
+def cut_depth(ap, cfg, layers: int):
+    """``cfg`` with its first ``layers`` layers (``--layers``; 0 keeps
+    them all); more than it has ends the run through ``ap.error``."""
+    if not layers:
+        return cfg
+    if not 0 < layers <= cfg.n_layers:
+        ap.error(f"--layers {layers}: {cfg.name} has {cfg.n_layers} layers")
+    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def printer(mesh):

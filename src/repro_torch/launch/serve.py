@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --reduced --batch 8 --prompt-len 32 --max-new 32 [--kv-quant] \\
-        [--mesh 2,2 [--kv-shard seq]] [--device cpu]
+        [--mesh 2,2 [--kv-shard seq]] [--layers N] [--device cpu]
 
 Counterpart of the reference's ``launch/serve.py``, on one device: the
 prefill and decode steps of ``repro_torch/serve/serve_step.py`` on
@@ -30,7 +30,8 @@ as the reference's specs need: the SSM and hybrid mixers over their
 channels or heads, Zamba2's shared block and the VLM's projector split
 over ``model`` as well (``distributed/parallel.py``).  Rank 0 prints; the
 last line gives a digest of the generated tokens, the same for every
-mesh.
+mesh.  ``--layers N`` serves the config's first N layers at its
+published widths (a cut of depth, as a smoke run makes it).
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ import torch
 
 from repro_torch.configs.base import (get_config, make_serve_config,
                                       reduce_config)
-from repro_torch.launch import init_on_device, printer, setup_mesh
+from repro_torch.launch import (cut_depth, init_on_device, printer,
+                                setup_mesh)
 from repro_torch.serve.batching import ENCDEC_REFUSED
 from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
@@ -63,6 +65,8 @@ def main(argv=None) -> int:
                     help="int8 KV cache")
     ap.add_argument("--kv-shard", default="heads", choices=["heads", "seq"],
                     help="the cache's placement over the model axis")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the config's first N layers (0: all)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; exits 1 without a CUDA device), "
                          "cuda:N, or cpu")
@@ -73,6 +77,7 @@ def main(argv=None) -> int:
         ap.error(ENCDEC_REFUSED.format(cfg.name))
     if args.reduced:
         cfg = reduce_config(cfg)
+    cfg = cut_depth(ap, cfg, args.layers)
     mesh = setup_mesh(ap, args, "launch.serve")
     if mesh is False:
         return 1

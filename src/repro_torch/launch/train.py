@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 100 --batch 8 --seq 128 [--reduced] [--device cuda|cpu] \\
-        [--checkpoint-dir ckpt] [--resume] [--mesh D,M]
+        [--checkpoint-dir ckpt] [--resume] [--mesh D,M] [--layers N]
     torchrun --nproc-per-node N -m repro_torch.launch.train --mesh D,M ...
 
 Counterpart of the reference's ``launch/train.py``, on one device: the
@@ -31,7 +31,9 @@ the mesh is 1x1.  Every family it trains takes a mesh of any size whose
 axes divide as the reference's specs need (under ``train``, the SSM and
 hybrid mixers over their channels or heads and Zamba2's shared block
 over ``model`` as well: ``distributed/parallel.py``).  Rank 0 prints and
-writes the checkpoints.
+writes the checkpoints.  ``--layers N`` trains the config's first N
+layers at its published widths (a cut of depth, as a smoke run makes
+it).
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ import sys
 import tempfile
 
 from repro_torch.configs.base import get_config, reduce_config
-from repro_torch.launch import init_on_device, printer, setup_mesh
+from repro_torch.launch import (cut_depth, init_on_device, printer,
+                                setup_mesh)
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import PrefetchPipeline, synthetic_token_batches
 from repro_torch.train.elastic import LoopConfig, recoverable_train_loop
@@ -68,6 +71,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size config (CPU)")
     ap.add_argument("--mesh", default="", help="e.g. 2,4 for (data,model)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="train the config's first N layers (0: all)")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -83,6 +88,7 @@ def main(argv=None) -> int:
             "frames" if cfg.is_encdec else "patch embeddings"))
     if args.reduced:
         cfg = reduce_config(cfg)
+    cfg = cut_depth(ap, cfg, args.layers)
     cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
     mesh = setup_mesh(ap, args, "launch.train")
     if mesh is False:

@@ -51,8 +51,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import parallel
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.models.layers import (Dense, Norm, apply_rope, dense_apply,
-                                       norm_apply, torch_dtype)
+from repro_torch.models.layers import (Dense, Norm, apply_rope, dense_cols,
+                                       dense_rows, norm_apply, torch_dtype)
 
 NEG_INF = -1e30
 #: the key of a local cache view's placement (:class:`KVShard`)
@@ -297,12 +297,7 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = cfg.compute_dtype
     g = parallel.attention_group(cfg)  # this rank's heads only
-    if g is not None:
-        x = parallel.copy_to(x, g)
-
-    q = dense_apply(p.wq, x, cd)
-    k = dense_apply(p.wk, x, cd)
-    v = dense_apply(p.wv, x, cd)
+    q, k, v = dense_cols((p.wq, p.wk, p.wv), x, cd, g)
     q = q.reshape(B, S, q.shape[-1] // hd, hd)
     k = k.reshape(B, S, k.shape[-1] // hd, hd)
     v = v.reshape(B, S, k.shape[2], hd)
@@ -395,9 +390,7 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
                 "caller in the reference and is not ported")
 
     out = out.reshape(B, S, -1)
-    out = dense_apply(p.wo, out, cd)
-    if g is not None:  # the heads' partial outputs
-        out = parallel.reduce_from(out, g)
+    out = dense_rows(p.wo, out, cd, g)  # the heads' partial outputs
     return out, kv_cache
 
 
@@ -411,23 +404,25 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
 # scores and values are computed against the cached rank-r latent.
 # ==========================================================================
 def _mla_qkv_latent(p: MLAAttention, x: torch.Tensor, cfg: ArchConfig,
-                    positions):
-    """Shared first stage: queries + compressed latent (+rope key)."""
+                    positions, g=None):
+    """Shared first stage: queries + compressed latent (+rope key); ``x``
+    enters ``g``'s region (``dense_cols``) where MLA runs over this rank's
+    heads."""
     m = cfg.mla
     B, S, _ = x.shape
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     cd = cfg.compute_dtype
     if m.q_lora_rank:
-        cq = dense_apply(p.wq_a, x, cd)
+        cq, kv_a = dense_cols((p.wq_a, p.wkv_a), x, cd, g)
         cq = norm_apply("rmsnorm", p.q_a_norm, cq)
-        q = dense_apply(p.wq_b, cq, cd)
+        q, = dense_cols((p.wq_b,), parallel.copy_to_f32(cq, g, share=True),
+                        cd)
     else:
-        q = dense_apply(p.wq, x, cd)
+        q, kv_a = dense_cols((p.wq, p.wkv_a), x, cd, g)  # kv_a [B,S,r+dr]
     q = q.reshape(B, S, -1, dn + dr)  # this rank's heads under a mesh
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    kv_a = dense_apply(p.wkv_a, x, cd)  # [B,S,r+dr]
     c_kv = norm_apply("rmsnorm", p.kv_a_norm, kv_a[..., :m.kv_lora_rank])
     k_rope = apply_rope(kv_a[..., m.kv_lora_rank:][:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]  # [B,S,dr], shared by heads
@@ -445,11 +440,15 @@ def _mla_materialised(p: MLAAttention, q_nope, q_rope, c_kv, k_rope,
     B, S = c_kv.shape[:2]
     h = q_nope.shape[2]
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
-    kvb = dense_apply(p.wkv_b, c_kv, cfg.compute_dtype).reshape(
-        B, S, h, dn + dv)
+    # every rank reads the latent and the rope key for its own heads
+    g = parallel.mla_group(cfg)
+    c_kv = parallel.copy_to_f32(c_kv, g, share=True)
+    k_rope = parallel.copy_to_f32(k_rope, g, share=True)
+    kvb, = dense_cols((p.wkv_b,), c_kv, cfg.compute_dtype)
+    kvb = kvb.reshape(B, S, h, dn + dv)
     k_nope, vv = kvb[..., :dn], kvb[..., dn:]
-    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, dr)],
-                       dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, h, dr).to(k_nope.dtype)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]  # G=1
     out = grouped_attention(q_full, k_full, vv, causal=causal,
                             q_pos=positions, kv_pos=positions,
@@ -500,14 +499,12 @@ def mla_apply(p: MLAAttention, x: torch.Tensor, cfg: ArchConfig, *,
     B, S, _ = x.shape
     cd = cfg.compute_dtype
     g = parallel.mla_group(cfg)  # this rank's heads only
-    if g is not None:
-        x = parallel.copy_to(x, g)
     if positions is None:
         positions = torch.arange(S, device=x.device)
         if cache_index is not None:
             positions = positions + int(cache_index)
 
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions, g)
 
     if kv_cache is None:
         out = _mla_materialised(p, q_nope, q_rope, c_kv, k_rope, cfg,
@@ -546,7 +543,5 @@ def mla_apply(p: MLAAttention, x: torch.Tensor, cfg: ArchConfig, *,
                 "prefill at cache_index > 0 (a chunked prefill) has no "
                 "caller in the reference and is not ported")
 
-    out = dense_apply(p.wo, out.reshape(B, S, -1), cd)
-    if g is not None:  # the heads' partial outputs
-        out = parallel.reduce_from(out, g)
+    out = dense_rows(p.wo, out.reshape(B, S, -1), cd, g)  # heads' partials
     return out, kv_cache

@@ -28,8 +28,8 @@ from repro_torch.distributed import parallel
 from repro_torch.models.attention import (Attention, MLAAttention,
                                           attention_apply, grouped_attention,
                                           mla_apply)
-from repro_torch.models.layers import (MLP, Norm, dense_apply, mlp_apply,
-                                       norm_apply)
+from repro_torch.models.layers import (MLP, Norm, dense_cols, dense_rows,
+                                       mlp_apply, norm_apply)
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.ssm import Mamba1, Mamba2, mamba1_apply, mamba2_apply
 
@@ -116,25 +116,22 @@ def _cross_attention(p: Attention, x: torch.Tensor, enc_out: torch.Tensor,
     over Se keys; a decode step's one query runs the naive path, as in
     the reference.  On a mesh that splits its heads (``p`` then holds
     this rank's q/k/v columns and ``wo`` rows) ``x`` and ``enc_out``
-    enter through ``copy_to`` and the partial output leaves through
-    ``reduce_from``."""
+    enter through ``dense_cols`` and the partial output leaves through
+    ``dense_rows``."""
     B, S, _ = x.shape
     Se = enc_out.shape[1]
     hd = cfg.head_dim
     cd = cfg.compute_dtype
     g = parallel.cross_group(cfg)  # this rank's heads only
-    if g is not None:
-        x, enc_out = parallel.copy_to(x, g), parallel.copy_to(enc_out, g)
-    q = dense_apply(p.wq, x, cd)
-    k = dense_apply(p.wk, enc_out, cd)
+    q, = dense_cols((p.wq,), x, cd, g)
+    k, v = dense_cols((p.wk, p.wv), enc_out, cd, g)
     kvh = k.shape[-1] // hd
     q = q.reshape(B, S, kvh, q.shape[-1] // (kvh * hd), hd)
     k = k.reshape(B, Se, kvh, hd)
-    v = dense_apply(p.wv, enc_out, cd).reshape(B, Se, kvh, hd)
+    v = v.reshape(B, Se, kvh, hd)
     out = grouped_attention(
         q, k, v, causal=False, q_pos=torch.arange(S, device=x.device),
         kv_pos=torch.arange(Se, device=x.device),
         impl="chunked" if S > 1 else "naive", q_chunk=cfg.q_chunk,
         kv_chunk=cfg.kv_chunk)
-    out = dense_apply(p.wo, out.reshape(B, S, -1), cd)
-    return parallel.reduce_from(out, g) if g is not None else out
+    return dense_rows(p.wo, out.reshape(B, S, -1), cd, g)

@@ -73,6 +73,35 @@ def dense_apply(p: Dense, x: torch.Tensor,
     return y
 
 
+def dense_rows(p: Dense, x: torch.Tensor, compute_dtype, g) -> torch.Tensor:
+    """``dense_apply`` of a projection whose input rows are split over
+    the group ``g`` (a ``parallel.Group``; this rank's rows of ``p.w``):
+    each rank's partial product in f32, summed over ``g``
+    (``parallel.row_product``), rounded to the compute dtype once, as the
+    one-device product is, then the bias.  ``dense_apply`` itself where
+    ``g`` is None."""
+    if g is None:
+        return dense_apply(p, x, compute_dtype)
+    cd = torch_dtype(compute_dtype)
+    y = parallel.row_product(x.to(cd), p.w.to(cd), g).to(cd)
+    if p.b is not None:
+        y = y + p.b.to(cd)
+    return y
+
+
+def dense_cols(ps, x: torch.Tensor, compute_dtype, g=None) -> list:
+    """``dense_apply`` of each projection of ``ps`` on ``x`` (the same
+    forward), with ``parallel.column_products``'s gradients: ``x``'s
+    summed in f32 over the projections (and over ``g``, where the
+    projections' output columns are split over it: this rank's columns)
+    and rounded once, each weight's kept in f32.  One device and a mesh
+    thus round a region's input gradient alike."""
+    cd = torch_dtype(compute_dtype)
+    groups = () if g is None else (g,)
+    ys = parallel.column_products(x, [p.w for p in ps], cd, *groups)
+    return [y if p.b is None else y + p.b.to(cd) for p, y in zip(ps, ys)]
+
+
 # --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------
@@ -178,13 +207,9 @@ def mlp_apply(p: MLP, x: torch.Tensor, compute_dtype="bfloat16", *,
     ``ff`` axis, ``parallel.mlp_group``) ``p`` holds this rank's
     ``gate``/``up`` columns and ``down`` rows (``parallel.local_params``)
     and the partial outputs are summed over the axis."""
-    if tp is not None:
-        x = parallel.copy_to(x, tp)
-    g = dense_apply(p.gate, x, compute_dtype)
-    u = dense_apply(p.up, x, compute_dtype)
+    g, u = dense_cols((p.gate, p.up), x, compute_dtype, tp)
     h = torch.nn.functional.silu(g) * u
-    out = dense_apply(p.down, h, compute_dtype)
-    return parallel.reduce_from(out, tp) if tp is not None else out
+    return dense_rows(p.down, h, compute_dtype, tp)
 
 
 # --------------------------------------------------------------------------

@@ -17,8 +17,10 @@ schedules, chosen by ``moe_apply`` on the reference's conditions:
   reference rounds each partial output before its ``psum``, so in bf16
   its two schedules differ by that rounding and the port's do not.
 
-The reference's ``_aux_load_balance_loss`` has no caller there and is not
-ported.
+``_aux_load_balance_loss`` is the reference's Switch-style auxiliary
+loss on router logits and the experts they chose, a plain function on
+tensors.  Nothing in the reference adds it to a loss, so nothing here
+does either.
 
 The semantics are the reference's, step for step:
 
@@ -154,8 +156,10 @@ def dispatch(x: torch.Tensor, plan: dict, cd: torch.dtype) -> torch.Tensor:
     token = torch.arange(T, device=x.device).repeat_interleave(k)
     src = torch.full((rows + 1,), T, dtype=torch.long, device=x.device)
     src.index_put_((plan["slot"],), token)  # kept slots are unique
-    x_pad = torch.cat([x.to(cd), x.new_zeros((1, d), dtype=cd)])
-    buf = x_pad.index_select(0, src[:rows])
+    # gathered in x's dtype, then cast: an f32 x takes its gradient's
+    # sums over the slots in f32 (``moe_apply``)
+    x_pad = torch.cat([x, x.new_zeros((1, d))])
+    buf = x_pad.index_select(0, src[:rows]).to(cd)
     return buf.reshape(plan["n_experts"], plan["cap"], d)
 
 
@@ -179,6 +183,29 @@ def combine(out_buf: torch.Tensor, plan: dict, cd: torch.dtype
     gathered = flat.index_select(0, plan["slot"]).reshape(T, k, d).float()
     out = torch.einsum("tkd,tk->td", gathered, plan["weights"].float())
     return out.to(cd)
+
+
+def _aux_load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
+                           n_expert: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * sum(fraction_tokens * router_prob).
+
+    ``logits`` [T, E] (any float dtype, taken in f32), ``idx`` the experts
+    chosen [T, k].  ``router_prob`` is the softmax's mean over the tokens;
+    ``fraction_tokens`` each expert's share of the assignments, counted as
+    the reference's scatter-add counts them (a negative index from the
+    end, one out of range dropped), over at least 1.  The gradient flows
+    through the probabilities only.  Returns an f32 scalar."""
+    probs = torch.softmax(logits.float(), dim=-1).mean(0)
+    flat = idx.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + n_expert, flat)
+    flat = torch.where((flat >= 0) & (flat < n_expert), flat,
+                       torch.full_like(flat, n_expert))  # dropped
+    counts = torch.zeros(n_expert + 1, dtype=torch.float32,
+                         device=logits.device)
+    counts = counts.index_add(0, flat, torch.ones_like(
+        flat, dtype=torch.float32))[:n_expert]
+    frac = counts / torch.clamp(counts.sum(), min=1.0)
+    return n_expert * torch.sum(frac * probs)
 
 
 # --------------------------------------------------------------------------
@@ -210,8 +237,8 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     g = parallel.moe_group(cfg)
     if g is not None:
         out = _moe_tp_psum(p, xt, cfg, g)
-    else:
-        out = moe_ffn_local(p, xt, cfg)
+    else:  # the router's and the slots' input gradients summed in f32
+        out = moe_ffn_local(p, xt.float() if xt.requires_grad else xt, cfg)
     out = out.reshape(B, S, d)
     if m.n_shared:
         out = out + mlp_apply(p.shared, x, cfg.compute_dtype,
@@ -233,7 +260,7 @@ def _moe_tp_psum(p: MoE, xt: torch.Tensor, cfg: ArchConfig,
         experts = {n: parallel.local_slice(w, 0, g)
                    for n, w in experts.items()}
     local = types.SimpleNamespace(router=p.router, **experts)
-    out = moe_ffn_local(local, parallel.copy_to(xt, g), cfg,
+    out = moe_ffn_local(local, parallel.copy_to_f32(xt, g), cfg,
                         expert_slice=(g.rank * e_per, e_per),
                         out_dtype=torch.float32)
     return parallel.reduce_from(out, g).to(torch_dtype(cfg.compute_dtype))

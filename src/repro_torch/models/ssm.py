@@ -30,8 +30,8 @@ channels (``in_proj``'s chunk of each of ``xin`` and ``z``), with
 ``x_proj``'s partial products (``dt_in``, B, C, read by every channel)
 summed over ``model`` forward and backward; Mamba-2 over its heads, B and
 C projected whole on every rank, the gated RMSNorm's sum of squares
-summed over ``model`` in f32.  The input enters through ``copy_to`` and
-the output projection's partial rows leave through ``reduce_from``; the
+summed over ``model`` in f32.  The input enters through ``dense_cols`` and
+the output projection's partial rows leave through ``dense_rows``; the
 scans need no collective, and the decode state is this rank's block.
 Without a mesh every line computes as it does on one device.
 """
@@ -48,7 +48,8 @@ from torch.nn import functional as F
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.distributed import parallel
 from repro_torch.models.layers import (Dense, Norm, _normal, dense_apply,
-                                       norm_apply, torch_dtype)
+                                       dense_cols, dense_rows, norm_apply,
+                                       torch_dtype)
 
 
 # ==========================================================================
@@ -271,19 +272,15 @@ def mamba1_apply(p: Mamba1, x: torch.Tensor, cfg: ArchConfig, *,
     cd = cfg.compute_dtype
     r = _dt_rank(cfg)
     g = parallel.ssm_group(cfg)  # this rank's channels only
-    if g is not None:
-        x = parallel.copy_to(x, g)
-
-    xz = dense_apply(p.in_proj, x, cd)
+    xz, = dense_cols((p.in_proj,), x, cd, g)
     di = xz.shape[-1] // 2  # this rank's channels: [xin | z]
     xin, z = xz[..., :di], xz[..., di:]
     xc, new_conv = _causal_conv(xin, p.conv_w, p.conv_b,
                                 state["conv"] if state is not None else None)
     xc = F.silu(xc)
 
-    proj = dense_apply(p.x_proj, xc, cd)
-    if g is not None:  # every channel reads dt_in, B and C
-        proj = parallel.all_reduce_sum(proj, g)
+    # every channel reads dt_in, B and C: summed over the channels' group
+    proj = parallel.copy_to_f32(dense_rows(p.x_proj, xc, cd, g), g)
     dt_in = proj[..., :r]
     Bm = proj[..., r:r + s.d_state].float()
     Cm = proj[..., r + s.d_state:].float()
@@ -299,9 +296,7 @@ def mamba1_apply(p: Mamba1, x: torch.Tensor, cfg: ArchConfig, *,
     del dA, dBx
     y = y + xc.float() * p.D.float()
     y = y.to(torch_dtype(cd)) * F.silu(z)
-    out = dense_apply(p.out_proj, y, cd)
-    if g is not None:  # the channels' partial outputs
-        out = parallel.reduce_from(out, g)
+    out = dense_rows(p.out_proj, y, cd, g)  # the channels' partial outputs
     new_state = ({"conv": new_conv, "ssm": h_last}
                  if state is not None else None)
     return out, new_state
@@ -409,16 +404,10 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
     cd = cfg.compute_dtype
     B, S, _ = x.shape
     g = parallel.ssm_group(cfg)  # this rank's heads only
-    if g is not None:
-        x = parallel.copy_to(x, g)
-
-    z = dense_apply(p.in_z, x, cd)
-    xin = dense_apply(p.in_x, x, cd)
+    z, xin, Braw, Craw, dt_raw = dense_cols(
+        (p.in_z, p.in_x, p.in_B, p.in_C, p.in_dt), x, cd, g)
     di = xin.shape[-1]  # this rank's heads' channels
     H = di // s.headdim
-    Braw = dense_apply(p.in_B, x, cd)
-    Craw = dense_apply(p.in_C, x, cd)
-    dt_raw = dense_apply(p.in_dt, x, cd)
 
     cs = state if state is not None else {}
     xc, new_conv_x = _causal_conv(xin, p.conv_x_w, p.conv_x_b,
@@ -428,8 +417,9 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
     Cc, new_conv_C = _causal_conv(Craw, p.conv_C_w, p.conv_C_b,
                                   cs.get("conv_C"))
     xc = F.silu(xc)
-    Bm = F.silu(Bc).float()
-    Cm = F.silu(Cc).float()
+    # every head reads B and C (computed alike on every rank under a mesh)
+    Bm = parallel.copy_to_f32(F.silu(Bc), g, share=True).float()
+    Cm = parallel.copy_to_f32(F.silu(Cc), g, share=True).float()
     xh = xc.reshape(B, S, H, s.headdim)
 
     dt = F.softplus(dt_raw.float() + p.dt_bias.float())
@@ -443,9 +433,7 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
         y = norm_apply("rmsnorm", p.norm, y * F.silu(z))
     else:
         y = _rmsnorm_split(p.norm, y * F.silu(z), s.expand * cfg.d_model, g)
-    out = dense_apply(p.out_proj, y, cd)
-    if g is not None:  # the heads' partial outputs
-        out = parallel.reduce_from(out, g)
+    out = dense_rows(p.out_proj, y, cd, g)  # the heads' partial outputs
     new_state = None
     if state is not None:
         new_state = {"conv_x": new_conv_x, "conv_B": new_conv_B,

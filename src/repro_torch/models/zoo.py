@@ -89,8 +89,9 @@ from repro_torch.models.attention import (KV_SHARD, Attention, KVShard,
                                           attention_apply, check_supported)
 from repro_torch.models.blocks import SSM_KINDS, block_apply, init_block
 from repro_torch.models.layers import (MLP, Dense, Embedding, Norm,
-                                       dense_apply, embedding_apply, gelu,
-                                       mlp_apply, norm_apply, torch_dtype)
+                                       dense_cols, dense_rows,
+                                       embedding_apply, gelu, mlp_apply,
+                                       norm_apply, torch_dtype)
 from repro_torch.models.ssm import mamba1_state_specs, mamba2_state_specs
 
 
@@ -190,11 +191,9 @@ def _shared_attn_apply(p: SharedAttn, h, emb0, cfg: ArchConfig, *,
         xn = norm_apply(cfg.norm, p.ln2, x)
         x = x + mlp_apply(p.mlp, xn, cd, tp=parallel.mlp_group(wide.d_ff))
         g = parallel.mlp_group(wide.d_model)  # this rank's rows of out_proj
-        if g is None:
-            return h + dense_apply(p.out_proj, x, cd), cache
-        x = parallel.local_slice(parallel.copy_to(x, g), -1, g)
-        return h + parallel.reduce_from(dense_apply(p.out_proj, x, cd),
-                                        g), cache
+        if g is not None:
+            x = parallel.local_slice(parallel.copy_to(x, g), -1, g)
+        return h + dense_rows(p.out_proj, x, cd, g), cache
 
 
 class Projector(nn.Module):
@@ -292,12 +291,10 @@ def _embed_inputs(params: Model, cfg: ArchConfig, batch: dict):
     if cfg.frontend == "patch" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(torch_dtype(cd))
         g = parallel.mlp_group(cfg.d_model)  # this rank's columns of each
-        if g is not None:
-            pe = parallel.copy_to(pe, g)
-        pe = dense_apply(params.projector.fc1, pe, cd)
-        if g is not None:  # every rank's fc2 columns read all of fc1's
-            pe = parallel.copy_to(parallel.gather_from(pe, g), g)
-        pe = dense_apply(params.projector.fc2, gelu(pe), cd)
+        pe, = dense_cols((params.projector.fc1,), pe, cd, g)
+        # every rank's fc2 columns read all of fc1's
+        pe, = dense_cols((params.projector.fc2,),
+                         gelu(parallel.gather_from(pe, g)), cd, g)
         h = torch.cat([parallel.gather_from(pe, g), h], dim=1)
     return h
 
@@ -484,14 +481,16 @@ def _chunk_loss(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor,
     over ``g``, from this rank's columns ``w`` [d, V/M] (module
     docstring): ``g`` is passed, not read from the sharding context,
     since a checkpointed chunk recomputes on autograd's thread."""
-    logits = torch.matmul(hc.to(compute_dtype), w).float()
     if g is None:
+        logits = torch.matmul(hc.to(compute_dtype), w).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, tc.long()[:, :, None],
                                     dim=-1)[..., 0]
         return torch.sum(lse - gold)
     import torch.distributed as dist
 
+    # hc's gradient from this rank's columns stays in f32 (``loss_fn``)
+    logits = parallel.column_products(hc, [w], w.dtype)[0].float()
     n = logits.shape[-1]
     m = logits.detach().amax(dim=-1)
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g.group)
@@ -532,8 +531,9 @@ def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
     s_chunk = S // n_chunk
     acc = torch.zeros((), dtype=torch.float32, device=h.device)
     vg = parallel.vocab_group(cfg.vocab)
-    if vg is not None:  # each rank's columns take a part of h's gradient
-        h = parallel.copy_to(h, vg)
+    if vg is not None:  # each rank's columns take a part of h's gradient,
+        # kept in f32 up to the sum and rounded once (``_chunk_loss``)
+        h = parallel.copy_to(h.float(), vg)
     with _top_params(params, cfg):
         w = (params.embed.table.T if cfg.tie_embeddings
              else params.lm_head.w).to(cd)  # [d, vocab] (or V/M columns)

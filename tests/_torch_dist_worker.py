@@ -44,6 +44,8 @@ from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 from repro_torch.train.train_step import make_train_step
 
+import _torch_bf16 as bf16
+
 SEP = "|"  # stands for "/" in the names of the npz archives
 #: the mesh of a ``fake`` world (``main``), None in a gloo world
 FAKE_MESH = None
@@ -338,9 +340,11 @@ def family_serve_config(arch: str, mesh):
 class LocalLeaves:
     """Records, for the length of the block, the compute tensor of each
     ``Dense`` of ``model`` named in :data:`FAMILY_PROBES` at its first
-    call: the local tensor a rank multiplies by."""
+    call (``dense_apply``, or ``dense_cols`` of several): the local
+    tensor a rank multiplies by."""
 
     MODULES = ("ssm", "blocks", "attention", "zoo", "layers")
+    FUNCTIONS = ("dense_apply", "dense_cols")
 
     def __init__(self, model):
         self.names = {id(m): n for n, m in model.named_modules()
@@ -353,21 +357,25 @@ class LocalLeaves:
         self.saved = []
         for name in self.MODULES:
             mod = importlib.import_module(f"repro_torch.models.{name}")
-            orig = mod.dense_apply
+            for fn in self.FUNCTIONS:
+                orig = getattr(mod, fn, None)
+                if orig is None:
+                    continue
 
-            def wrapped(p, x, *a, _orig=orig, **k):
-                n = self.names.get(id(p))
-                if n is not None and n not in self.seen:
-                    self.seen[n] = p.w.detach().clone()
-                return _orig(p, x, *a, **k)
+                def wrapped(p, x, *a, _orig=orig, **k):
+                    for q in (p if isinstance(p, (list, tuple)) else [p]):
+                        n = self.names.get(id(q))
+                        if n is not None and n not in self.seen:
+                            self.seen[n] = q.w.detach().clone()
+                    return _orig(p, x, *a, **k)
 
-            mod.dense_apply = wrapped
-            self.saved.append((mod, orig))
+                setattr(mod, fn, wrapped)
+                self.saved.append((mod, fn, orig))
         return self
 
     def __exit__(self, *exc):
-        for mod, orig in self.saved:
-            mod.dense_apply = orig
+        for mod, fn, orig in self.saved:
+            setattr(mod, fn, orig)
 
 
 def placements(model) -> dict:
@@ -576,6 +584,146 @@ def case_vocab_serve(inp, out, d):
             out[f"{arch}_serve_widths"] = _local_widths(model, cfg)
 
 
+# ------------------------------------------------------------ bf16 past 1x1
+def bf16_train(inp, out, tag, arch, dims, mode):
+    """One training case of ``_torch_bf16.TRAIN``: the loss, every gradient
+    leaf and the local widths of the vocabulary (and MLA's heads)."""
+    from repro_torch.configs import base
+
+    mesh = init_mesh(dims, "cpu")
+    cfg = bf16.train_config(base, arch)
+    model = shd.shard_model(params_from_numpy(
+        cfg, tree(inp, bf16.weights_key(arch)), device="cpu"), cfg, mesh,
+        mode=mode)
+    params = dict(model.named_parameters())
+    rules = TRAIN_RULES_1POD if mode == "train" else dp_rules(mesh.axis_names)
+    batch = {k: torch.from_numpy(inp[f"bf16_{arch}_{k}"])
+             for k in ("tokens", "targets")}
+    with use_sharding(rules, mesh):
+        local = {k: parallel.batch_rows(v) for k, v in batch.items()}
+        model.requires_grad_(True)
+        loss, _ = zoo.loss_fn(model, cfg, local)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        model.requires_grad_(False)
+        out[f"{tag}{SEP}widths"] = _local_widths(model, cfg)
+    out[f"{tag}{SEP}loss"] = np.float64(loss.item())
+    for name, g in zip(params, grads):
+        out[f"{tag}{SEP}grad{SEP}{name}"] = full(g)
+
+
+def bf16_serve(inp, out, tag, arch, dims):
+    """One serving case of ``_torch_bf16.SERVE``: ``greedy_generate``'s
+    tokens, and the teacher-forced logits of the same steps."""
+    from repro_torch.configs import base
+    from repro_torch.serve import greedy_generate
+
+    mesh = init_mesh(dims, "cpu")
+    cfg = bf16.serve_config(base, shd, arch, dims)
+    model = shd.shard_model(params_from_numpy(
+        cfg, tree(inp, bf16.weights_key(arch)), device="cpu"), cfg, mesh,
+        mode="serve")
+    with torch.no_grad(), use_sharding(SERVE_RULES_1POD, mesh):
+        out[f"{tag}{SEP}tokens"] = greedy_generate(
+            model, cfg, inp[f"bf16_{arch}_prompt"], max_new=bf16.NEW,
+            device="cpu").numpy()
+        out[f"{tag}{SEP}forced"] = forced_logits(model, cfg, inp, arch)
+
+
+def forced_logits(model, cfg, inp, arch) -> np.ndarray:
+    """The last position's logits [B, NEW, V] of a prefill of ``arch``'s
+    prompt and NEW - 1 decode steps fed its ``feed`` tokens."""
+    prompt, feed = inp[f"bf16_{arch}_prompt"], inp[f"bf16_{arch}_feed"]
+    S0 = prompt.shape[1]
+    prefill = make_prefill_step(cfg, S0 + bf16.NEW, device="cpu")
+    decode = make_decode_step(cfg, device="cpu")
+    logits, caches = prefill(model, {"tokens": prompt})
+    seen = [logits[:, -1]]
+    for i in range(bf16.NEW - 1):
+        logits, caches = decode(model, caches, {"tokens": feed[:, i:i + 1]},
+                                S0 + i)
+        seen.append(logits[:, -1])
+    return torch.stack(seen, dim=1).float().numpy()
+
+
+def bf16_unsharded(inp, families: bool) -> dict:
+    """Every bf16 case of ``_torch_bf16`` on one device, unsharded (no
+    process group; the test process runs it): ``one|<tag>|loss``, its
+    gradient leaves, ``one|<tag>|tokens`` and ``one|<tag>|forced``."""
+    from repro_torch.configs import base
+    from repro_torch.serve import greedy_generate
+
+    out, grads = {}, {}
+    train = [c for c in bf16.TRAIN if (c[1] in bf16.FAMILY_ARCHS) == families]
+    serve = [c for c in bf16.SERVE if (c[1] in bf16.FAMILY_ARCHS) == families]
+    for tag, arch, _, _ in train:
+        if arch not in grads:  # the same loss and gradients on every mesh
+            cfg = bf16.train_config(base, arch)
+            model = params_from_numpy(cfg, tree(inp, bf16.weights_key(arch)),
+                                      device="cpu")
+            params = dict(model.named_parameters())
+            model.requires_grad_(True)
+            loss, _ = zoo.loss_fn(model, cfg, {
+                k: torch.from_numpy(inp[f"bf16_{arch}_{k}"])
+                for k in ("tokens", "targets")})
+            grads[arch] = (loss.item(), dict(zip(params, torch.autograd.grad(
+                loss, list(params.values())))))
+        loss, g = grads[arch]
+        out[f"one{SEP}{tag}{SEP}loss"] = np.float64(loss)
+        for name, v in g.items():
+            out[f"one{SEP}{tag}{SEP}grad{SEP}{name}"] = full(v)
+    for tag, arch, dims in serve:
+        cfg = bf16.serve_config(base, shd, arch, dims)
+        model = params_from_numpy(cfg, tree(inp, bf16.weights_key(arch)),
+                                  device="cpu")
+        with torch.no_grad():
+            out[f"one{SEP}{tag}{SEP}tokens"] = greedy_generate(
+                model, cfg, inp[f"bf16_{arch}_prompt"], max_new=bf16.NEW,
+                device="cpu").numpy()
+            out[f"one{SEP}{tag}{SEP}forced"] = forced_logits(model, cfg, inp,
+                                                            arch)
+    return out
+
+
+def bf16_rows(inp, out):
+    """The row-split projections in bf16 over ``model`` on 2x4, each
+    rank's partial product summed in f32 and rounded once
+    (``layers.dense_rows``): a projection with a bias, and the MLP (its
+    ``gate``/``up`` columns, its ``down`` rows)."""
+    from types import SimpleNamespace as NS
+
+    from repro_torch.models.layers import dense_rows, mlp_apply
+
+    mesh = init_mesh((2, 4), "cpu")
+    with torch.no_grad(), use_sharding(TRAIN_RULES_1POD, mesh):
+        g = parallel.axis_group("model")
+        x = torch.from_numpy(inp["rows_x"]).bfloat16()
+
+        def dense(name, dim):
+            w = torch.from_numpy(inp[f"rows_{name}"]).bfloat16()
+            return NS(w=parallel.local_slice(w, dim, g), b=None)
+
+        p = dense("w", 0)
+        p.b = torch.from_numpy(inp["rows_b"]).bfloat16()
+        out["rows_dense"] = dense_rows(p, parallel.local_slice(x, -1, g),
+                                       "bfloat16", g).float().numpy()
+        mlp = NS(gate=dense("gate", 1), up=dense("up", 1),
+                 down=dense("down", 0))
+        out["rows_mlp"] = mlp_apply(mlp, x, "bfloat16",
+                                    tp=g).float().numpy()
+
+
+def _bf16_cases(families: bool):
+    def run(inp, out, d):
+        train, serve = bf16.cases(dist.get_world_size(), families)
+        for case in train:
+            bf16_train(inp, out, *case)
+        for case in serve:
+            bf16_serve(inp, out, *case)
+        if dist.get_world_size() == 8 and not families:
+            bf16_rows(inp, out)
+    return run
+
+
 #: the kinds of a collective op log, by index in the npz archives
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
@@ -657,7 +805,8 @@ CASES = {"ring": case_ring, "moe": case_moe, "train": case_train,
          "families_train": case_families_train,
          "families_serve": case_families_serve,
          "vocab_train": case_vocab_train, "vocab_serve": case_vocab_serve,
-         "collectives": case_collectives}
+         "collectives": case_collectives, "bf16": _bf16_cases(False),
+         "bf16_families": _bf16_cases(True)}
 
 
 def fake_main() -> int:

@@ -2113,3 +2113,50 @@ def test_nccl_1x1_family_step_equals_unsharded(nccl_mesh, arch):
     assert torch.equal(lp, ls)
     for name, g in gp.items():
         assert torch.equal(g, gs[name].to_local()), name
+
+
+def test_split_products_sum_in_f32_on_the_card(cuda):
+    """The products a mesh splits, on the card: ``parallel._mm_f32`` of
+    bf16 operands (cuBLAS's f32 output) within 1e-5 of the largest value
+    of the upcast product on the CPU; ``layers.dense_cols`` the forward
+    of ``dense_apply`` bit for bit, its input gradient rounded once from
+    the same sums as on the CPU (the two roundings of sums taken in
+    another order at most one bf16 ulp apart) and its weight
+    gradients in f32 (within 1e-5 of their largest value); and
+    ``parallel.row_product`` with no group ``_mm_f32`` itself."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed import parallel
+    from repro_torch.models import layers
+
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(300, 520, generator=g).bfloat16()
+    b = torch.randn(520, 200, generator=g).bfloat16()
+    want = a.float() @ b.float()
+    got = parallel._mm_f32(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(parallel.row_product(a.to(cuda), b.to(cuda)), got)
+
+    x = torch.randn(4, 64, 256, generator=g).bfloat16()
+    ps = [layers.Dense(256, n, dtype="float32", generator=g)
+          for n in (384, 128)]
+    gys = [torch.randn(4, 64, n, generator=g).bfloat16() for n in (384, 128)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        tx = x.detach().to(dev).requires_grad_(True)
+        ws = [p.w.detach().to(dev).requires_grad_(True) for p in ps]
+        qs = [SimpleNamespace(w=w, b=None) for w in ws]
+        ys = layers.dense_cols(qs, tx, "bfloat16")
+        for q, y in zip(qs, ys):
+            assert torch.equal(y, layers.dense_apply(q, tx.detach(),
+                                                     "bfloat16"))
+        torch.autograd.backward(ys, [gy.to(dev) for gy in gys])
+        runs[str(dev)] = [tx.grad.float().cpu()] + [w.grad.cpu() for w in ws]
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    torch.testing.assert_close(card[0], cpu[0], rtol=2.0 ** -7, atol=1e-6)
+    for got, want in zip(card[1:], cpu[1:]):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())

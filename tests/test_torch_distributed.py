@@ -27,6 +27,17 @@ Worlds and tolerances:
   one quantisation step of the same per-shard arithmetic done with the
   reference's ``quantize_int8`` / ``dequantize_int8``; the reference
   test's quadratic below 1e-3 of its first loss); a checkpoint saved.
+- bf16 (``tests/_torch_bf16.py``, whose docstring gives the bounds and
+  the noise floor they are held beyond): worlds of 8 (2x4) and 2 (1x2)
+  ranks run reduced olmo-1b's FSDP + TP (``train``) and ``dp_train``
+  gradients and its serve, and smollm-135m's (tied: the table split by
+  rows) and DeepSeek's (MLA over ``model``, the MoE's ``tp_psum``)
+  training and serving, against the reference's own bf16
+  schedule on the same mesh (``tests/_jax_mesh_worker.py``: XLA's host
+  devices in a process of their own) and against the port's one-device
+  bf16 run; ``moe_apply``'s bf16 ``tp_psum``, which sums in f32 before one
+  rounding where the reference rounds each partial output, held against
+  the reference's f32 result.
 - 4 ranks: the sharded prefill and decode of reduced qwen2-72b on 2x2
   (``make_serve_config(cfg, 2)``, f32 compute), the cache placed by heads,
   by sequence, both with the int8 cache, and by head width (KV heads that
@@ -45,18 +56,26 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro.configs import base as jax_base
 from repro.configs.base import get_config as jax_get_config
 from repro.configs.base import make_serve_config as jax_make_serve_config
 from repro.configs.base import reduce_config as jax_reduce_config
 from repro.distributed.compression import dequantize_int8, quantize_int8
 from repro.distributed.ring_attention import ring_attention_ref
+from repro.models import layers as jax_layers
 from repro.models import moe as jax_moe
 from repro.models import zoo as jax_zoo
 from repro.utils.tree import flatten_names
 
+import _torch_bf16 as bf16
+import _torch_dist_worker as worker
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_torch_dist_worker.py"
+MESH_REFERENCE = ROOT / "tests" / "_jax_mesh_worker.py"
 WORLD_TIMEOUT_S = 120
+#: the bf16 worlds and the reference's mesh process, started together
+BF16_TIMEOUT_S = 400
 SEP = "|"
 DECODE_CASES = ("heads", "seq", "heads_int8", "seq_int8", "hd")
 DECODE_MAX_LEN = 12
@@ -413,3 +432,261 @@ def test_checkpoint_elastic_reshard(world4):
     np.testing.assert_array_equal(got["ck_full"], want)
     np.testing.assert_array_equal(got["ck_blocks"].reshape(8, 8), want)
     assert list(got["ck_placements"]) == ["S(0)"]
+
+
+# --------------------------------------------------------------------------
+# bf16 past 1x1
+# --------------------------------------------------------------------------
+def bf16_inputs(d: pathlib.Path, families: bool, extra: dict) -> None:
+    """Write ``d/in.npz``: the weights (the reference's ``init_model``) and
+    inputs of every arch of the bf16 cases of ``families`` (seeded apart
+    from the f32 worlds' inputs), and ``extra``."""
+    rng = np.random.default_rng(1)
+    archs = sorted({c[1] for c in bf16.TRAIN + bf16.SERVE
+                    if (c[1] in bf16.FAMILY_ARCHS) == families})
+    inp = dict(extra)
+    for i, arch in enumerate(archs):
+        cfg = bf16.train_config(jax_base, arch)
+        inp.update(_flat(bf16.weights_key(arch), jax_zoo.init_model(
+            cfg, jax.random.key(40 + i))))
+        inp.update(bf16.inputs(cfg, arch, rng))
+    d.mkdir(parents=True, exist_ok=True)
+    np.savez(d / "in.npz", **inp)
+
+
+def start_bf16(d: pathlib.Path, worlds: tuple, families: bool) -> dict:
+    """Start the bf16 worlds (``worlds`` ranks each, case ``bf16`` or
+    ``bf16_families``) and, for each, the reference's process that runs
+    its cases on XLA's host devices."""
+    env = _env()
+    env.update(XLA_FLAGS=bf16.XLA_FLAGS, JAX_PLATFORMS="cpu")
+    case = "bf16_families" if families else "bf16"
+    running = {}
+    for world in worlds:
+        running[f"ref_{world}"] = [subprocess.Popen(
+            [sys.executable, str(MESH_REFERENCE), str(d), str(world)]
+            + (["families"] if families else []),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env)]
+        running[f"out_{world}"] = [subprocess.Popen(
+            [sys.executable, str(WORKER), str(world), str(rank), str(d), case],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=_env()) for rank in range(world)]
+    return running
+
+
+def finish_bf16(d: pathlib.Path, running: dict, deadline: float) -> tuple:
+    """(the port's mesh runs by world size, the reference's runs merged);
+    a failure with every process's output if one fails or the deadline
+    passes."""
+    got, ref = {}, {}
+    for name, procs in running.items():
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(
+                    deadline - time.monotonic(), 1))[0])
+        except subprocess.TimeoutExpired:
+            for group in running.values():
+                for p in group:
+                    p.kill()
+                    p.communicate()
+            pytest.fail(f"the bf16 run {name} passed {BF16_TIMEOUT_S} s")
+        bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+        assert not bad, f"bf16 {name} failed {bad}:\n" + \
+            "\n".join(logs)[-6000:]
+        kind, world = name.split("_")
+        results = dict(np.load(d / f"{name}.npz"))
+        if kind == "ref":
+            ref.update(results)
+        else:
+            got[int(world)] = results
+    return got, ref
+
+
+@pytest.fixture(scope="module")
+def bf16_runs(reference):
+    """(the port's mesh runs by world size, its one-device runs, the
+    reference's runs on the mesh and on one device): the worlds and the
+    reference's process run while the test process runs the port's
+    one-device cases."""
+    d, _ = reference
+    base_inp = np.load(d / "in.npz")
+    extra = {k: base_inp[k] for k in base_inp.files if k.startswith("moe_")}
+    extra.update(rows_inputs())
+    bd = d / "bf16"
+    bf16_inputs(bd, False, extra)
+    deadline = time.monotonic() + BF16_TIMEOUT_S
+    running = start_bf16(bd, (8, 2), False)
+    one = worker.bf16_unsharded(np.load(bd / "in.npz"), False)
+    got, ref = finish_bf16(bd, running, deadline)
+    return got, one, ref
+
+
+def rows_inputs() -> dict:
+    """The row-split projections' inputs (``_torch_dist_worker.bf16_rows``):
+    ``rows_x`` [4, 8, 64], a projection's ``rows_w`` and ``rows_b`` and
+    the MLP's ``rows_gate``, ``rows_up``, ``rows_down`` (d_ff 128)."""
+    rng = np.random.default_rng(2)
+    shapes = {"x": (4, 8, 64), "w": (64, 32), "b": (32,), "gate": (64, 128),
+              "up": (64, 128), "down": (128, 64)}
+    return {f"rows_{n}": (rng.normal(size=s) / np.sqrt(
+        s[0] if len(s) == 2 else 1)).astype(np.float32)
+        for n, s in shapes.items()}
+
+
+BF16_TRAIN = [c for c in bf16.TRAIN if c[1] not in bf16.FAMILY_ARCHS]
+BF16_SERVE = [c for c in bf16.SERVE if c[1] not in bf16.FAMILY_ARCHS]
+
+
+@pytest.mark.parametrize("case", BF16_TRAIN, ids=[c[0] for c in BF16_TRAIN])
+def test_bf16_loss_matches_reference_schedule(bf16_runs, case):
+    got, one, ref = bf16_runs
+    tag, _, dims, _ = case
+    loss = got[bf16.world_of(dims)][f"{tag}{SEP}loss"]
+    np.testing.assert_allclose(loss, ref[f"{tag}{SEP}loss"],
+                               rtol=bf16.LOSS_RTOL)
+    np.testing.assert_allclose(loss, one[f"one{SEP}{tag}{SEP}loss"],
+                               rtol=bf16.LOSS_RTOL)
+
+
+@pytest.mark.parametrize("case", BF16_TRAIN, ids=[c[0] for c in BF16_TRAIN])
+def test_bf16_gradients_match_reference_schedule(bf16_runs, case):
+    check_bf16_gradients(bf16_runs, case)
+
+
+def check_bf16_gradients(runs, case):
+    """Every leaf of the port's mesh run within LEAF_ATOL of its largest
+    value from the port's one-device run, and beyond the noise floor
+    (``_torch_bf16``), each part under its ceiling, from the reference's
+    mesh run."""
+    got, one, ref = runs
+    tag, _, dims, _ = case
+    mine = bf16.grads_of(got[bf16.world_of(dims)], tag)
+    name, err = bf16.worst_leaf(mine, bf16.grads_of(one, f"one{SEP}{tag}"))
+    assert err <= bf16.LEAF_ATOL, (
+        f"{tag}: {name} is {err:.4f} of its largest value from the port's "
+        f"one-device run; the bound {bf16.LEAF_ATOL}")
+    a, b = bf16.leaf_floors(tag, one, ref)
+    ca, cb = bf16.leaf_ceilings(tag)
+    assert a <= ca and b <= cb, (
+        f"{tag}: floor parts a={a:.4f}, b={b:.4f} past their ceilings "
+        f"{ca:.4f}, {cb:.4f}")
+    name, err = bf16.worst_leaf(mine, bf16.grads_of(ref, tag))
+    assert err <= bf16.LEAF_ATOL + a + b, (
+        f"{tag}: {name} is {err:.4f} of its largest value from the "
+        f"reference's mesh run; the bound {bf16.LEAF_ATOL} + floor "
+        f"{a + b:.4f} (a={a:.4f}, b={b:.4f})")
+
+
+@pytest.mark.parametrize("forced", [True, False], ids=["forced", "free"])
+@pytest.mark.parametrize("case", BF16_SERVE, ids=[c[0] for c in BF16_SERVE])
+def test_bf16_greedy_tokens_match_reference_schedule(bf16_runs, case, forced):
+    check_bf16_tokens(bf16_runs, case, forced)
+
+
+def check_bf16_tokens(runs, case, forced: bool):
+    """The port's mesh run's greedy tokens equal on TOKENS_AGREE of them
+    to the port's one-device run's, and to the reference's mesh run's
+    less the noise floor (``_torch_bf16``), each part under its
+    ceiling."""
+    got, one, ref = runs
+    tag, _, dims = case
+    mine = bf16.greedy(got[bf16.world_of(dims)], tag, forced)
+    assert mine.shape == (bf16.SERVE_B, bf16.NEW)
+    agree = bf16.agreement(mine, bf16.greedy(one, f"one{SEP}{tag}", forced))
+    assert agree >= bf16.TOKENS_AGREE, (
+        f"{tag}: {agree:.4f} of the tokens equal the port's one-device "
+        f"run's; the bound {bf16.TOKENS_AGREE}")
+    a, b = bf16.token_floors(tag, one, ref, forced)
+    ca, cb = bf16.token_ceilings(tag, forced)
+    assert a <= ca and b <= cb, (
+        f"{tag}: floor parts a={a:.4f}, b={b:.4f} past their ceilings "
+        f"{ca:.4f}, {cb:.4f}")
+    agree = bf16.agreement(mine, bf16.greedy(ref, tag, forced))
+    assert agree >= bf16.TOKENS_AGREE - (a + b), (
+        f"{tag}: {agree:.4f} of the tokens equal the reference's mesh "
+        f"run's; the bound {bf16.TOKENS_AGREE} less floor {a + b:.4f} "
+        f"(a={a:.4f}, b={b:.4f})")
+
+
+@pytest.mark.parametrize("case", [c for c in BF16_TRAIN if c[3] == "train"],
+                         ids=[c[0] for c in BF16_TRAIN if c[3] == "train"])
+def test_bf16_tensor_parallel_splits_vocab_and_heads(bf16_runs, case):
+    """FSDP + TP in bf16 computed with this rank's rows of the embedding,
+    columns of the output projection and (MLA) heads."""
+    got = bf16_runs[0]
+    tag, arch, dims, _ = case
+    cfg = bf16.train_config(jax_base, arch)
+    m = dims[1]
+    want = [(cfg.vocab // m, cfg.d_model),
+            (cfg.vocab // m, cfg.d_model) if cfg.tie_embeddings
+            else (cfg.d_model, cfg.vocab // m)]
+    if cfg.mla is not None:
+        a, heads = cfg.mla, cfg.n_heads // m
+        want += [(a.kv_lora_rank, heads * (a.qk_nope_head_dim +
+                                           a.v_head_dim)),
+                 (heads * a.v_head_dim, cfg.d_model)]
+    widths = got[bf16.world_of(dims)][f"{tag}{SEP}widths"]
+    assert [tuple(x) for x in widths] == want
+
+
+def test_bf16_moe_tp_psum_holds_against_reference_f32(world8):
+    """``_moe_tp_psum`` in bf16 on 2x4 sums the partial outputs in f32 and
+    rounds once, where the reference rounds each partial output to bf16
+    before its ``psum`` (ROADMAP queue 3): held against the reference's
+    f32 result within LEAF_ATOL of its largest value, not against its bf16
+    schedule."""
+    got, want = world8
+    w = want["moe_float32"]
+    np.testing.assert_allclose(got["moe_tp_bfloat16"], w, rtol=0,
+                               atol=bf16.LEAF_ATOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("site", ["dense", "mlp"])
+def test_bf16_row_split_holds_against_reference_f32(bf16_runs, site):
+    """A row-split projection in bf16 on 2x4 (``layers.dense_rows``: with
+    a bias, and the MLP's ``down``) sums each rank's partial product in
+    f32 and rounds once, where the reference's bf16 schedule rounds each
+    partial product before its ``psum`` (ROADMAP queue 3): held against
+    the reference's f32 result on the same bf16 values within LEAF_ATOL
+    of its largest value, as ``_moe_tp_psum`` is."""
+    got = bf16_runs[0][8]
+    inp = rows_inputs()
+
+    def values(name):  # the bf16 values the port computed with, in f32
+        return jnp.asarray(inp[f"rows_{name}"], jnp.bfloat16).astype(
+            jnp.float32)
+
+    x = values("x")
+    if site == "dense":
+        want = jax_layers.dense_apply({"w": values("w"), "b": values("b")},
+                                      x, "float32")
+    else:
+        want = jax_layers.mlp_apply({n: {"w": values(n)} for n in
+                                     ("gate", "up", "down")}, x, "float32")
+    want = np.asarray(want)
+    np.testing.assert_allclose(got[f"rows_{site}"], want, rtol=0,
+                               atol=bf16.LEAF_ATOL * np.abs(want).max())
+
+
+def test_bf16_moe_rounding_divergence_shown(world8, bf16_runs):
+    """The divergence itself: the reference's bf16 ``tp_psum`` on 2x4
+    differs from its bf16 local schedule (it rounds each partial output),
+    while the port's two schedules differ by less."""
+    got, _ = world8
+    ref = bf16_runs[2]
+    ref_gap = np.abs(ref["moe_tp_bfloat16"] - ref["moe_local_bfloat16"]).max()
+    port_gap = np.abs(got["moe_tp_bfloat16"] - got["moe_local_bfloat16"]).max()
+    assert ref_gap > 0, ref_gap
+    assert port_gap < ref_gap, (port_gap, ref_gap)
+
+
+def test_reference_bf16_schedules_disagree_past_the_bounds(bf16_runs):
+    """Why the leaf and token bounds are held beyond a noise floor: the
+    reference's own bf16 schedule on a mesh puts a gradient leaf past
+    LEAF_ATOL of its largest value from its one-device run."""
+    _, one, ref = bf16_runs
+    floors = {c[0]: bf16.leaf_floors(c[0], one, ref) for c in BF16_TRAIN}
+    worst = max(floors, key=lambda t: floors[t][0])
+    assert floors[worst][0] > bf16.LEAF_ATOL, floors

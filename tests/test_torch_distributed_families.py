@@ -22,6 +22,13 @@ from the reference (``models/convert.py``):
   the reference's, the parameters' and caches' placements the
   reference's ``param_pspec`` / ``cache_pspec``, and the SSM and hybrid
   batchers' two waves sharded as unsharded;
+- bf16 (``tests/_torch_bf16.py``, whose docstring gives the bounds and
+  the noise floor they are held beyond): a second world of 4 runs
+  falcon-mamba-7b (SSM) and zamba2-1.2b (hybrid) at bf16 compute, FSDP +
+  TP on 2x2 (loss and every gradient leaf) and serving on 1x4 (greedy
+  tokens, free-running and teacher-forced), against the reference's own
+  bf16 schedule on the same mesh (``tests/_jax_mesh_worker.py``) and the
+  port's one-device bf16 run;
 - on both meshes, a leaf of each new schedule computed from this rank's
   chunk (Mamba-1 ``in_proj``'s chunk of each half, Mamba-2 ``in_x``, the
   shared block's ``wq``, cross-attention's ``wq``, the projector's
@@ -29,6 +36,7 @@ from the reference (``models/convert.py``):
   not divide the model axis while its MLP still splits.
 """
 import dataclasses
+import time
 import types
 
 import jax
@@ -45,9 +53,14 @@ from repro.models import zoo as jax_zoo
 from repro.serve.serve_step import greedy_generate as jax_greedy
 from repro.utils.tree import flatten_names
 
+import _torch_bf16 as bf16
+import _torch_dist_worker as worker
 import _torch_families as families
 from _torch_ssd import segsum_decay_masked_first
-from test_torch_distributed import SEP, _flat, _run_world
+from test_torch_distributed import (BF16_TIMEOUT_S, SEP, _flat, _run_world,
+                                    bf16_inputs, check_bf16_gradients,
+                                    check_bf16_tokens, finish_bf16,
+                                    start_bf16)
 
 ARCHS = ("falcon-mamba-7b", "zamba2-1.2b", "seamless-m4t-medium",
          "internvl2-26b")
@@ -302,3 +315,46 @@ def test_family_leaf_computed_from_its_chunk(world, arch, leaf, how, mode):
         expect = w
     assert local.shape == expect.shape
     np.testing.assert_array_equal(local, expect)
+
+
+# --------------------------------------------------------------------------
+# bf16 past 1x1: the SSM and hybrid families
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def bf16_runs(tmp_path_factory):
+    """(the port's 4-rank runs by world size, its one-device runs, the
+    reference's on the mesh and on one device)."""
+    d = tmp_path_factory.mktemp("dist_families_bf16")
+    bf16_inputs(d, True, {})
+    deadline = time.monotonic() + BF16_TIMEOUT_S
+    running = start_bf16(d, (WORLD,), True)
+    one = worker.bf16_unsharded(np.load(d / "in.npz"), True)
+    got, ref = finish_bf16(d, running, deadline)
+    return got, one, ref
+
+
+BF16_TRAIN = [c for c in bf16.TRAIN if c[1] in bf16.FAMILY_ARCHS]
+BF16_SERVE = [c for c in bf16.SERVE if c[1] in bf16.FAMILY_ARCHS]
+
+
+@pytest.mark.parametrize("case", BF16_TRAIN, ids=[c[0] for c in BF16_TRAIN])
+def test_bf16_family_loss_matches_reference_schedule(bf16_runs, case):
+    got, one, ref = bf16_runs
+    tag, _, dims, _ = case
+    loss = got[bf16.world_of(dims)][f"{tag}{SEP}loss"]
+    np.testing.assert_allclose(loss, ref[f"{tag}{SEP}loss"],
+                               rtol=bf16.LOSS_RTOL)
+    np.testing.assert_allclose(loss, one[f"one{SEP}{tag}{SEP}loss"],
+                               rtol=bf16.LOSS_RTOL)
+
+
+@pytest.mark.parametrize("case", BF16_TRAIN, ids=[c[0] for c in BF16_TRAIN])
+def test_bf16_family_gradients_match_reference_schedule(bf16_runs, case):
+    check_bf16_gradients(bf16_runs, case)
+
+
+@pytest.mark.parametrize("forced", [True, False], ids=["forced", "free"])
+@pytest.mark.parametrize("case", BF16_SERVE, ids=[c[0] for c in BF16_SERVE])
+def test_bf16_family_greedy_tokens_match_reference_schedule(bf16_runs, case,
+                                                            forced):
+    check_bf16_tokens(bf16_runs, case, forced)

@@ -5,14 +5,17 @@ the expert-sliced partial outputs, ``moe_apply``, and reduced
 ``qwen3-moe-30b-a3b`` and DeepSeek-V2-Lite without MLA (shared experts and
 a leading dense layer) as whole models: forward, prefill then decode,
 ``greedy_generate``, the ``ContinuousBatcher``, the loss and every
-gradient leaf.  Weights are the reference's, carried across by
+gradient leaf; and ``_aux_load_balance_loss`` (no caller in either
+package) in value and in its gradient by the logits against ``jax.grad``.
+Weights are the reference's, carried across by
 ``params_from_numpy``; inputs are made with numpy from a seed.
 
 Tolerances: routing exact (``idx``, ``pos``, ``cap``, ``keep``) and the
 weights at rtol 1e-6; f32 outputs within 1e-5 for one MoE block and
 1e-4 for a model (both frameworks compute in f32 and differ only in
 summation order); greedy f32 tokens exact; the training oracle's loss
-rtol 1e-5 and per-leaf gradients 1e-4 of the leaf's largest value.  A
+rtol 1e-5 and per-leaf gradients 1e-4 of the leaf's largest value; the
+auxiliary loss rtol 1e-5 and its gradient 1e-4 of its largest value.  A
 whole-model comparison first checks that no token's k-th and (k+1)-th
 gates lie within ``GAP`` of each other, since the last bits of the router
 logits differ between the frameworks and such a near-tie would route a
@@ -248,6 +251,54 @@ def test_moe_apply_bf16_tracks_reference():
     want = jax_moe.moe_apply(jp, jnp.asarray(x, jnp.bfloat16), jcfg)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(np32(got), np32(want), atol=0.15, rtol=0.05)
+
+
+# ------------------------------------------------------ the auxiliary loss
+AUX_CASES = [(16, 8, 2, "float32"), (64, 128, 8, "float32"),
+             (33, 60, 4, "float32"), (1, 4, 1, "float32"),
+             (40, 16, 2, "bfloat16")]
+
+
+@pytest.mark.parametrize("T,E,k,dtype", AUX_CASES)
+def test_aux_load_balance_loss_matches_reference(T, E, k, dtype):
+    """Value within rtol 1e-5 and the f32 gradient by the logits within
+    1e-4 of its largest value, on the reference's own top-k choices of the
+    same logits.  bf16 logits (the same bf16 values in both; the loss is
+    taken in f32): the value, and a bf16 gradient."""
+    logits = np.random.default_rng(T * E + k).standard_normal(
+        (T, E), dtype=np.float32) * 3
+    jl = jnp.asarray(logits, jnp.dtype(dtype))
+    idx = np.asarray(jax.lax.top_k(jl.astype(jnp.float32), k)[1])
+    want, jgrad = jax.value_and_grad(
+        lambda x: jax_moe._aux_load_balance_loss(x, jnp.asarray(idx), E))(jl)
+    tl = torch.from_numpy(np.asarray(jl, np.float32)).to(
+        getattr(torch, dtype)).requires_grad_(True)
+    got = moe._aux_load_balance_loss(tl, torch.from_numpy(idx), E)
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    (tgrad,) = torch.autograd.grad(got, tl)
+    assert tgrad.dtype == tl.dtype and str(jgrad.dtype) == dtype
+    if dtype == "float32":
+        jg, tg = np32(jgrad), tgrad.numpy()
+        np.testing.assert_allclose(tg, jg, rtol=0,
+                                   atol=1e-4 * np.abs(jg).max())
+
+
+def test_aux_load_balance_loss_counts_as_the_reference_scatters():
+    """Indices as the reference's scatter-add takes them: a negative one
+    counts from the end, one out of range is dropped; a balanced routing
+    gives 1 at uniform probabilities."""
+    E = 8
+    logits = np.zeros((4, E), np.float32)
+    for idx in (np.array([[0, 1], [2, 3], [4, 5], [6, 7]]),
+                np.array([[-1, 0], [9, 3], [-8, 2], [7, 8]])):
+        want = jax_moe._aux_load_balance_loss(jnp.asarray(logits),
+                                              jnp.asarray(idx), E)
+        got = moe._aux_load_balance_loss(torch.from_numpy(logits),
+                                         torch.from_numpy(idx), E)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    assert float(moe._aux_load_balance_loss(
+        torch.from_numpy(logits), torch.arange(8).reshape(4, 2), E)) == 1.0
 
 
 # ---------------------------------------------------------------- the models
